@@ -1,0 +1,185 @@
+// K6: the AGC attack/release recurrence, the gain clip, the apply and the
+// carry, in one kernel.
+//
+// Replaces `afp_tpu/ops/pallas/agc_scan.py:smooth_gain_apply_pallas`
+// (`_agc_apply_call`, `_agc_apply_kernel`).  Per stream b, from the
+// time-major desired gain d [T, B] and the start value g (the carry `init`;
+// without one, d[0] or, blockwise, the first chunk mean):
+//
+//   a = d[t] > g ? a_att : a_rel;   g = a * d[t] + (1 - a) * g
+//   y[b, t] = clip(x[b, t] * clip(g, 0.1, max_gain), -out_clip, out_clip)
+//   carry[b] = clip(g_last, 0.1, max_gain)
+//
+// optionally storing y as its bf16 (hi, lo) pair for the pair-input conv
+// (K8/K7).  Blockwise ('fast' mode): one step per chunk mean (given, or the
+// in-order sum of the chunk's rows times 1/chunk) with the compounded
+// alphas from the wrapper, and the linear ramp g + (gn - g) * (t+1)/chunk
+// inside the chunk.  The updates round as XLA's CPU backend evaluates the
+// reference's expressions, a·d + (1−a)·g as fma(a, d, (1−a)·g) and the ramp
+// as fma(gn − g, fr, g) (measured bit-exact against `afp_tpu` on the CPU);
+// every operation is an explicit _rn intrinsic, so nvcc contracts nothing
+// else and the kernel is bit-exact to the plain version (which computes the
+// fma by rounding to odd in float64, `ops/agc.py:fma_f32`).
+//
+// What bounds it on H100 at the C8 shape (batch 4096, block 2048): the
+// recurrence is serial in time for each stream, so only B = 4096 chains run
+// in parallel, each 2048 dependent steps; the apply moves 32 MiB in and
+// 32 MiB (or 2 x 16 MiB as the pair) out.  Design: a block of 256 threads
+// owns 32 streams.  For each chunk of 128 time steps, all threads stage the
+// chunk's d rows (one 128-byte row across the 32 streams per step) in shared
+// memory; warp 0 runs the 32 recurrences over them from shared memory (no
+// DRAM latency inside the serial chain) and writes the clipped gains back;
+// then all 8 warps apply the gains to the [32, 128] tile of x, reading and
+// writing along time so the batch-major x and y move coalesced.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "split.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kStreams = 32;  // streams per block: one warp of recurrences
+constexpr int kTC = 128;      // time steps per staged chunk
+
+struct ScanArgs {
+  const float* d;     // [T, B], or the chunk means [T / chunk, B]
+  const float* x;     // [B, T] (a ring slot is passed as its own view)
+  const float* init;  // [B] carried gain, or null
+  float* y;           // [B, T] f32 output, or null with the pair
+  uint16_t* yh;       // [B, T] bf16 pair output (raw bits), or null
+  uint16_t* yl;
+  float* carry;       // [B]
+  int B, T;
+  int chunk;    // 0: per-sample recurrence; else the blockwise chunk
+  int d_means;  // blockwise: d holds the chunk means
+  float a_att, a_rel, max_gain, out_clip;
+};
+
+__device__ __forceinline__ float clip_gain(float g, float max_gain) {
+  return fminf(fmaxf(g, 0.1f), max_gain);
+}
+
+__device__ __forceinline__ float step(float g, float d, float a_att,
+                                      float a_rel) {
+  const float a = d > g ? a_att : a_rel;
+  return __fmaf_rn(a, d, __fmul_rn(__fsub_rn(1.f, a), g));
+}
+
+// Mean of `chunk` rows of stream column `col`, summed in row order.
+__device__ __forceinline__ float chunk_mean(const float* rows, int stride,
+                                            int chunk, float inv) {
+  float s = rows[0];
+  for (int q = 1; q < chunk; ++q) s = __fadd_rn(s, rows[q * stride]);
+  return __fmul_rn(s, inv);
+}
+
+__global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
+  __shared__ float ds[kTC][kStreams];      // this chunk's d rows
+  __shared__ float gs[kTC][kStreams + 1];  // clipped gains (padded: no conflicts)
+  const int b0 = blockIdx.x * kStreams;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = b0 + lane;
+  const bool live = b < a.B;
+  const int nb = min(kStreams, a.B - b0);
+  const bool means = a.chunk && a.d_means;
+  const float inv = a.chunk ? 1.0f / static_cast<float>(a.chunk) : 0.f;
+
+  float g = 0.f;  // the recurrence state, held by warp 0
+  if (warp == 0 && live) {
+    if (a.init != nullptr)
+      g = a.init[b];
+    else if (a.chunk && !a.d_means)
+      g = chunk_mean(a.d + b, a.B, a.chunk, inv);
+    else
+      g = a.d[b];
+  }
+
+  for (int tc = 0; tc < a.T; tc += kTC) {
+    const int n = min(kTC, a.T - tc);  // time steps in this chunk
+    const int nrows = means ? n / a.chunk : n;
+    const int row0 = means ? tc / a.chunk : tc;
+    for (int i = threadIdx.x; i < nrows * kStreams; i += kThreads) {
+      const int r = i / kStreams;
+      const int l = i - r * kStreams;
+      ds[r][l] = l < nb ? a.d[static_cast<long long>(row0 + r) * a.B + b0 + l]
+                        : 0.f;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      if (!a.chunk) {
+        for (int t = 0; t < n; ++t) {
+          g = step(g, ds[t][lane], a.a_att, a.a_rel);
+          gs[t][lane] = clip_gain(g, a.max_gain);
+        }
+      } else {
+        for (int c = 0; c < n / a.chunk; ++c) {
+          const float m = means ? ds[c][lane]
+                                : chunk_mean(&ds[c * a.chunk][lane], kStreams,
+                                             a.chunk, inv);
+          const float gn = step(g, m, a.a_att, a.a_rel);
+          const float dg = __fsub_rn(gn, g);
+          for (int q = 0; q < a.chunk; ++q) {
+            const float fr = __fmul_rn(static_cast<float>(q + 1), inv);
+            gs[c * a.chunk + q][lane] =
+                clip_gain(__fmaf_rn(dg, fr, g), a.max_gain);
+          }
+          g = gn;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nb * n; i += kThreads) {
+      const int r = i / n;
+      const int t = i - r * n;
+      const long long o = static_cast<long long>(b0 + r) * a.T + tc + t;
+      const float v = fminf(fmaxf(__fmul_rn(a.x[o], gs[t][r]), -a.out_clip),
+                            a.out_clip);
+      if (a.y != nullptr) {
+        a.y[o] = v;
+      } else {
+        const float2 s = afp::split_bf16(v);
+        a.yh[o] = afp::bf16_bits(s.x);
+        a.yl[o] = afp::bf16_bits(s.y);
+      }
+    }
+    __syncthreads();  // ds and gs are rewritten by the next chunk
+  }
+  if (warp == 0 && live) a.carry[b] = clip_gain(g, a.max_gain);
+}
+
+}  // namespace
+
+// K6.  d [T, B] (or [T/chunk, B] means), x [B, T] -> y [B, T] f32 or the
+// pair (yh, yl), and carry [B].  a_att/a_rel arrive compounded when
+// blockwise (chunk > 0).
+extern "C" int afp_agc_apply(const void* d, const void* x, const void* init,
+                             void* y, void* yh, void* yl, void* carry, int B,
+                             int T, int chunk, int d_means, float a_att,
+                             float a_rel, float max_gain, float out_clip,
+                             void* stream) {
+  if (B <= 0 || T <= 0 || chunk < 0 || (chunk && (kTC % chunk || T % chunk)) ||
+      (d_means && !chunk) || (y == nullptr && (yh == nullptr || yl == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a;
+  a.d = static_cast<const float*>(d);
+  a.x = static_cast<const float*>(x);
+  a.init = static_cast<const float*>(init);
+  a.y = static_cast<float*>(y);
+  a.yh = static_cast<uint16_t*>(yh);
+  a.yl = static_cast<uint16_t*>(yl);
+  a.carry = static_cast<float*>(carry);
+  a.B = B;
+  a.T = T;
+  a.chunk = chunk;
+  a.d_means = d_means;
+  a.a_att = a_att;
+  a.a_rel = a_rel;
+  a.max_gain = max_gain;
+  a.out_clip = out_clip;
+  agc_apply_kernel<<<(B + kStreams - 1) / kStreams, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

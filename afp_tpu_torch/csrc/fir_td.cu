@@ -1,8 +1,9 @@
-// K1, K3, K4: the fused single-rate FIR of the filter chain, in bf16x3.
+// K1, K3, K4, K7, K8: the fused single-rate FIR of the filter chain, in
+// bf16x3.
 //
-// Replaces three TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
+// Replaces five TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
 // one conv body here and differ only in where a block's input window comes
-// from (the loader, `load_ext`):
+// from (the loader, `load_split`):
 //   K1  fir_td_mxu               (_fir_kernel_b3 + _finish_tile): windows of a
 //       staged x_ext [B, n-1+T];
 //   K3  fir_td_mxu_ring_f32      (_fir_kernel_b3t_f32): slot idx of an f32
@@ -13,7 +14,15 @@
 //       order to carry the tail in VMEM; here the input ring is read-only for
 //       the whole dispatch, so step i's history is simply the end of the
 //       earlier slots (or the carried tail), and every (row tile, time tile,
-//       step) block is independent.
+//       step) block is independent;
+//   K8  fir_td_mxu_pair          (_fir_td_pair_call, body _fir_kernel_b3t):
+//       the block and the carried tail arrive already split, as bf16 (hi, lo)
+//       pairs [B, T] and [B, k_pad] (the AGC apply kernel K6 stores y that
+//       way), so the loader reads the halves and skips the split;
+//   K7  fir_td_mxu_pair_to_ring  (_fir_td_pair_to_ring_call): K8's loader with
+//       K3's slot store, writing out_ring[idx] in place, plus the next pair
+//       tail (`pair_tail_kernel`).  K7 and K8 run the same body on the same
+//       windows, so K7's slot equals K8's output bit for bit.
 //
 // Numerics: y[b,t] = sum_k (xh*hh + xh*hl + xl*hh), where xh/xl and hh/hl are
 // the bf16 hi/lo halves of the input and the taps made with split_bf16's
@@ -35,12 +44,14 @@
 // [p % 4][p / 4]) so those loads are free of bank conflicts.  The later
 // route is the TPU's own: bf16 mma.sync/wgmma on the Toeplitz band with fp32
 // accumulators.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "philox.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -50,22 +61,18 @@ constexpr int kRows = 4;             // batch rows per tile
 constexpr int kModeExt = 0;          // K1: staged x_ext
 constexpr int kModeRing = 1;         // K3: one ring step
 constexpr int kModeMega = 2;         // K4: n_steps ring steps
-
-// split_bf16 (`fir_td.py:69-84`): hi = v rounded to bf16 by the integer RNE
-// mask, lo = bf16_rn(v - hi).  (hi, lo) as the .x/.y of a float2.
-__device__ __forceinline__ float2 split_bf16(float v) {
-  uint32_t u = __float_as_uint(v);
-  u = u + 0x7FFFu + ((u >> 16) & 1u);
-  const float hi = __uint_as_float(u & 0xFFFF0000u);
-  const float lo = __bfloat162float(__float2bfloat16_rn(__fsub_rn(v, hi)));
-  return make_float2(hi, lo);
-}
+constexpr int kModePair = 3;         // K8/K7: bf16 pair block + pair tail
 
 struct Src {
   const float* x;     // K1: x_ext [B, hist+T]; K3/K4: ring [S, B, T]
   const float* tail;  // K3/K4: carried tail [B, hist]
+  // K7/K8: the block's bf16 halves [B, T] and the tail's [B, hist], raw bits
+  const uint16_t* xh;
+  const uint16_t* xl;
+  const uint16_t* th;
+  const uint16_t* tl;
   int B, T;
-  int hist;  // history columns before output 0: n-1 (K1) or k_pad (K3/K4)
+  int hist;  // history columns before output 0: n-1 (K1) or k_pad (K3/K4/K7/K8)
   int S, start;
 };
 
@@ -86,6 +93,23 @@ __device__ __forceinline__ float load_ext(const Src& s, int b, int step,
   return s.x[(static_cast<long long>(slot) * s.B + b) * s.T + (q - m * s.T)];
 }
 
+// The split (hi, lo) of sample e: K7/K8 read the stored halves, the other
+// loaders split the f32 sample.
+template <int MODE>
+__device__ __forceinline__ float2 load_split(const Src& s, int b, int step,
+                                             int e) {
+  if constexpr (MODE == kModePair) {
+    if (e < 0 || e >= s.hist + s.T) return make_float2(0.f, 0.f);
+    const bool in_tail = e < s.hist;
+    const long long i = in_tail ? static_cast<long long>(b) * s.hist + e
+                                : static_cast<long long>(b) * s.T + (e - s.hist);
+    return make_float2(afp::bf16_bits_to_float((in_tail ? s.th : s.xh)[i]),
+                       afp::bf16_bits_to_float((in_tail ? s.tl : s.xl)[i]));
+  } else {
+    return afp::split_bf16(load_ext<MODE>(s, b, step, e));
+  }
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     fir_b3_kernel(Src src, const float* __restrict__ h, int n_taps, int np,
@@ -102,17 +126,17 @@ __global__ void __launch_bounds__(kThreads)
   const int j = threadIdx.x;
 
   for (int k = j; k < np; k += kThreads)
-    taps[k] = k < n_taps ? split_bf16(h[k]) : make_float2(0.f, 0.f);
+    taps[k] = k < n_taps ? afp::split_bf16(h[k]) : make_float2(0.f, 0.f);
   // window position p holds extended-signal sample e0 + p
   const int e0 = t0 + src.hist - (np - 1);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int b = b0 + r;
     float2* wr = win + r * 4 * W4;
-    for (int p = j; p < W; p += kThreads) {
-      const float v = b < src.B ? load_ext<MODE>(src, b, step, e0 + p) : 0.f;
-      wr[(p & 3) * W4 + (p >> 2)] = split_bf16(v);
-    }
+    for (int p = j; p < W; p += kThreads)
+      wr[(p & 3) * W4 + (p >> 2)] = b < src.B
+                                        ? load_split<MODE>(src, b, step, e0 + p)
+                                        : make_float2(0.f, 0.f);
   }
   __syncthreads();
 
@@ -199,6 +223,26 @@ __global__ void ring_tail_kernel(Src src, int n_steps, float* __restrict__ tail_
   tail_out[i] = load_ext<kModeRing>(src, b, n_steps, e);
 }
 
+// K7/K8's next pair tail: the last hist samples of concat(tail, block), so
+// columns before T come from the carried tail when hist > T.
+__global__ void pair_tail_kernel(Src src, uint16_t* __restrict__ th_out,
+                                 uint16_t* __restrict__ tl_out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(src.B) * src.hist) return;
+  const int b = static_cast<int>(i / src.hist);
+  const int p = src.T + static_cast<int>(i - static_cast<long long>(b) * src.hist);
+  if (p < src.hist) {
+    const long long k = static_cast<long long>(b) * src.hist + p;
+    th_out[i] = src.th[k];
+    tl_out[i] = src.tl[k];
+  } else {
+    const long long k = static_cast<long long>(b) * src.T + (p - src.hist);
+    th_out[i] = src.xh[k];
+    tl_out[i] = src.xl[k];
+  }
+}
+
 afp::Epilogue make_epilogue(int has_clip, float clip, int dither,
                             unsigned int seed, unsigned int counter,
                             float lsb) {
@@ -241,7 +285,7 @@ int launch_ring(int mode, const float* ring, const float* tail, const float* h,
   if (S <= 0 || k_pad < n_taps - 1 || k_pad <= 0 || start < 0 ||
       static_cast<long long>(n_steps + 1) * T + k_pad > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  Src s;
+  Src s{};
   s.x = ring;
   s.tail = tail;
   s.B = B;
@@ -269,7 +313,7 @@ extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
                           int T, int n_taps, int has_clip, float clip,
                           int dither, unsigned int seed, unsigned int counter,
                           float lsb, void* stream) {
-  Src s;
+  Src s{};
   s.x = static_cast<const float*>(x_ext);
   s.tail = nullptr;
   s.B = B;
@@ -319,4 +363,39 @@ extern "C" int afp_fir_td_ring_mega(const void* ring, const void* tail,
                      start, n_steps,
                      make_epilogue(has_clip, clip, dither, seed, counter, lsb),
                      static_cast<cudaStream_t>(stream));
+}
+
+// K8 and K7.  The bf16 pair of the block [B, T] behind the pair tail
+// [B, k_pad] -> slot idx of out [S, B, T] (K8: S = 1, idx = 0), and the next
+// pair tail [B, k_pad].
+extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
+                               const void* tl, const void* h, void* out,
+                               void* th_out, void* tl_out, int S, int B, int T,
+                               int k_pad, int n_taps, int idx, int has_clip,
+                               float clip, int dither, unsigned int seed,
+                               unsigned int counter, float lsb, void* stream) {
+  if (S <= 0 || idx < 0 || k_pad <= 0 || k_pad < n_taps - 1 ||
+      static_cast<long long>(T) + k_pad > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Src s{};
+  s.xh = static_cast<const uint16_t*>(xh);
+  s.xl = static_cast<const uint16_t*>(xl);
+  s.th = static_cast<const uint16_t*>(th);
+  s.tl = static_cast<const uint16_t*>(tl);
+  s.B = B;
+  s.T = T;
+  s.hist = k_pad;
+  s.S = S;
+  s.start = idx % S;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = launch_conv<kModePair>(
+      s, static_cast<const float*>(h), n_taps, static_cast<float*>(out),
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, st);
+  if (rc) return rc;
+  const long long n = static_cast<long long>(B) * k_pad;
+  const int threads = 256;
+  pair_tail_kernel<<<static_cast<unsigned int>((n + threads - 1) / threads),
+                     threads, 0, st>>>(s, static_cast<uint16_t*>(th_out),
+                                       static_cast<uint16_t*>(tl_out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@ and streaming state, and implements the reference's two disciplines on top:
   parameter tensors between blocks; only shape changes rebuild the pipeline.
 * **Degradation ladder** (`stream_process.py:115-120`,
   `stream_process_AGC.py:493-496`): a failed block replays the last good
-  block or emits silence; a failed design substitutes the reference's
+  block or emits silence, and the carried state (conv tail, AGC gain) stays
+  that of the last good block; a failed design substitutes the reference's
   moving-average kernel; an underrun blends ``0.8·last``.  Every event is
   counted in :class:`EngineMetrics` — the ladder swallows exceptions by
   design, so callers that need to know read the counters.
@@ -27,6 +28,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..ops.agc import AGCParams
 from ..utils.log import RateLimited, get_logger
 from .config import PipelineParams, StreamConfig
 from .metrics import EngineMetrics
@@ -101,9 +103,11 @@ class StreamEngine:
                 logger.error("Filter design failed (%s); keeping previous parameters", e)
                 self.metrics.design_fallbacks += 1
                 return True
-            # the new bank is built outside the swap lock (host convolutions
-            # and uploads take tens of ms); the swap itself is attribute stores
-            params = self.pipeline.device_params(design, cfg=new_cfg)
+            # the new bank, AGC scalars included, is built outside the swap
+            # lock (host convolutions and uploads take tens of ms); the swap
+            # itself is attribute stores
+            params = self.pipeline.device_params(
+                design, cfg=new_cfg, agc=AGCParams.from_config(new_cfg))
             with self._swap_lock:
                 self.pipeline.refresh_dynamic(new_cfg)
                 self.design = design

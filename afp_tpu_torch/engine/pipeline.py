@@ -1,8 +1,8 @@
 """The fused streaming pipeline in PyTorch (counterpart of
 `afp_tpu/engine/pipeline.py`).
 
-The reference chain upsample → EQ + main FIR → downsample → clip → dither
-runs as ONE base-rate FIR per block: `device_params` convolves
+The reference chain AGC → upsample → EQ + main FIR → downsample → clip →
+dither runs as ONE base-rate FIR per block: `device_params` convolves
 upsampler ⊛ (band ⊛) main (⊛ downsampler) in float64 on the host and keeps
 the phase-0 polyphase component (the "fused single-rate" path of
 `afp_tpu`).  Per block, the 'td_mxu' strategy runs that FIR as the bf16×3
@@ -19,6 +19,17 @@ k_pad = n_casc−1 rounded up to 128 wide (the ring kernels' width); the
 extra leading history meets only zero taps, so it is inert
 (`afp_tpu/engine/pipeline.py:1327-1330`).
 
+With ``agc_enabled`` the AGC runs first, on the raw block, along the JAX
+package's TPU route on every device (`pipeline.py:637-726`): K5
+(`rms_desired`) gives the time-major desired gain, the ``agc_link_group``
+group-min links it, and K6 (`smooth_gain_apply`) runs the recurrence,
+clips, applies and carries the gain.  Under 'td_mxu' K6 stores the bf16
+pair of its output, which K8 (`fir_td_mxu_pair`, staged) or K7
+(`fir_td_mxu_pair_to_ring`, serving ring) convolves behind the carried pair
+tail; under 'fft' K6 stores f32 for the overlap-save.  'fast' mode is the
+same kernels with the blockwise options (chunk 32; the chunk means flow
+from K5 to K6 unless the AGC is linked).
+
 Not in this slice: each raises NotImplementedError naming its ROADMAP.md §1
 item (`_check_slice`).  Nothing falls back to another path.
 """
@@ -29,14 +40,25 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.agc import AGCParams, link_desired
 from ..ops.convolve import next_pow2
+from ..ops.cuda.agc_rms import band_is_exact_bf16, rms_desired
+from ..ops.cuda.agc_scan import smooth_gain_apply
 from ..ops.cuda.dither import dither_cuda
-from ..ops.cuda.fir_td import (fir_td_mxu, fir_td_mxu_ring_f32,
-                               fir_td_mxu_ring_mega_f32, ring_k_pad)
+from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_pair,
+                               fir_td_mxu_pair_to_ring, fir_td_mxu_ring_f32,
+                               fir_td_mxu_ring_mega_f32, merge_bf16,
+                               ring_k_pad, split_bf16)
 from ..ops.resample import streaming_kernel
 from .config import PipelineParams, StreamConfig
 
 __all__ = ["DeviceParams", "StreamState", "Pipeline"]
+
+
+def _host_scalar(v) -> torch.Tensor:
+    """A runtime scalar (or, from `afp_tpu`, a [B] per-stream vector) as a
+    float32 tensor on the host."""
+    return torch.as_tensor(np.array(v, dtype=np.float32))
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -45,12 +67,16 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
 
 
 def _check_slice(cfg: StreamConfig) -> None:
-    """Reject every configuration outside the ported f32 fused chain."""
-    if cfg.agc_enabled:
-        raise _not_in_slice("agc_enabled", "6 (AGC)")
+    """Reject every configuration outside the ported f32 fused chain and its
+    AGC ('exact' and 'fast').  `validate()` makes the block a power of two
+    of at least 256 samples, so the AGC's block is always whole 128-sample
+    lanes (the TPU's K9 + XLA route for other lengths cannot arise)."""
     if cfg.ingest != "f32" or cfg.emit != "f32":
         raise _not_in_slice(f"ingest={cfg.ingest!r}/emit={cfg.emit!r}",
                             "8 (transport forms)")
+    if cfg.agc_enabled and cfg.agc_mode == "parallel":
+        raise _not_in_slice("agc_mode='parallel' (the associative-scan "
+                            "solver)", "6 (AGC: 'parallel' mode)")
     if cfg.waterfall_enabled:
         raise _not_in_slice("waterfall_enabled", "10 (remaining ops)")
     if cfg.source_samplerate and cfg.source_samplerate != cfg.samplerate:
@@ -66,13 +92,18 @@ def _check_slice(cfg: StreamConfig) -> None:
 class DeviceParams(NamedTuple):
     """Runtime parameter bank on the device.  Swapping it between blocks is
     the reference's glitch-free `filter_lock` swap: same shapes, no rebuild.
-    """
+    The AGC scalars are 0-d float32 tensors on the host: the kernels take
+    them as launch arguments, as the TPU kernels took them in SMEM."""
 
     H_bands: torch.Tensor  # [n_bands, F] complex64 per-band cascade spectra
     H_main: torch.Tensor  # [F] complex64 no-EQ cascade spectrum
     eq_gains: torch.Tensor  # [n_bands] float32
     casc_bands: Optional[torch.Tensor] = None  # [n_bands, n_casc] ('td_mxu')
     casc_main: Optional[torch.Tensor] = None  # [n_casc] ('td_mxu')
+    agc_target: Optional[torch.Tensor] = None  # [] float32, host
+    agc_max_gain: Optional[torch.Tensor] = None  # []
+    agc_a_att: Optional[torch.Tensor] = None  # []
+    agc_a_rel: Optional[torch.Tensor] = None  # []
 
     def _shared_gains(self) -> torch.Tensor:
         if self.eq_gains.ndim != 1:
@@ -98,13 +129,16 @@ class DeviceParams(NamedTuple):
 
 
 class StreamState(NamedTuple):
-    """Carried streaming state: the conv tail on the device, and the dither
-    key on the host — ``seed`` and ``step``, the count of blocks processed
-    (block i dithers under Philox key ``(seed, step_i)``)."""
+    """Carried streaming state: the conv tail and the AGC gain on the
+    device, and the dither key on the host — ``seed`` and ``step``, the
+    count of blocks processed (block i dithers under Philox key
+    ``(seed, step_i)``).  Under AGC with 'td_mxu' the conv tail is the bf16
+    (hi, lo) pair of the gained signal's history, the form K8/K7 read."""
 
-    conv_tail: torch.Tensor  # [B, k_pad] float32 input history
+    conv_tail: "torch.Tensor | tuple[torch.Tensor, torch.Tensor]"  # [B, k_pad]
     seed: int
     step: int
+    agc_gain: Optional[torch.Tensor] = None  # [B] float32 carried gain
 
 
 class Pipeline:
@@ -150,14 +184,32 @@ class Pipeline:
         self.nfft = next_pow2(self.block + self.n_casc - 1)
         self._use_td = cfg.conv_strategy == "td_mxu"
         self._k_pad = ring_k_pad(self.n_casc)
+        self.agc = AGCParams.from_config(cfg)
+        self._agc_on = cfg.agc_enabled
+        #: the conv reads the bf16 pair K6 stores, and the tail is carried so
+        self._pair_tail = self._agc_on and self._use_td
+        if self._agc_on:
+            w = cfg.agc_window_size
+            band = band_matrix(np.full(w, 1.0 / w, dtype=np.float32))
+            self._rms_band = band.to(self.device)  # [w−1+LANE, LANE] boxcar
+            # numpy 'same' centering: out[t] covers x[t−w//2 … t+w−1−w//2]
+            self._rms_pad = (w // 2, w - 1 - w // 2)
+            self._rms_exact = band_is_exact_bf16(band)
+            self._agc_blockwise = 32 if cfg.agc_mode == "fast" else None
+            # K5 hands K6 the chunk means, unless the group-min must see
+            # per-sample d first (min of means ≠ mean of mins)
+            self._agc_means = bool(self._agc_blockwise
+                                   and cfg.agc_link_group == 1)
 
     # ---------------- reconfiguration and parameters ----------------
 
     def refresh_dynamic(self, cfg: StreamConfig) -> None:
-        """Absorb a dynamic-only config change (same `static_key()`)."""
+        """Absorb a dynamic-only config change (same `static_key()`) and
+        re-derive the AGC α values (`afp_tpu/engine/pipeline.py:383-397`)."""
         if cfg.static_key() != self.cfg.static_key():
             raise ValueError("refresh_dynamic requires an identical static_key")
         self.cfg = cfg
+        self.agc = AGCParams.from_config(cfg)
 
     def _cascade(self, main64: np.ndarray, band: np.ndarray | None) -> np.ndarray:
         """float64 fused taps [n_casc]: upsampler ⊛ main (⊛ band)
@@ -173,12 +225,14 @@ class Pipeline:
         return out
 
     def device_params(self, p: PipelineParams,
-                      cfg: StreamConfig | None = None) -> DeviceParams:
+                      cfg: StreamConfig | None = None,
+                      agc: AGCParams | None = None) -> DeviceParams:
         """Upload a designed parameter bank: per-band and no-EQ cascades,
-        as taps ('td_mxu') and as spectra at the static FFT length.  `cfg`
-        overrides the pipeline's dynamic fields, so a reconfiguration can
-        build the new bank before it swaps it in."""
+        as taps ('td_mxu') and as spectra at the static FFT length, and the
+        AGC scalars.  `cfg`/`agc` override the pipeline's dynamic fields, so
+        a reconfiguration can build the new bank before it swaps it in."""
         cfg = cfg if cfg is not None else self.cfg
+        agc = agc if agc is not None else self.agc
         dev = self.device
         n_b = p.eq_taps.shape[0] if (cfg.eq_enabled and len(cfg.eq_bands)) else 0
         main64 = np.asarray(p.main_taps, dtype=np.float64)
@@ -199,13 +253,17 @@ class Pipeline:
             eq_gains=f32(gains),
             casc_bands=f32(bands) if self._use_td else None,
             casc_main=f32(casc) if self._use_td else None,
+            agc_target=_host_scalar(cfg.agc_target_level),
+            agc_max_gain=_host_scalar(cfg.agc_max_gain),
+            agc_a_att=_host_scalar(agc.a_att),
+            agc_a_rel=_host_scalar(agc.a_rel),
         )
 
     def params_from_numpy(self, arrays: dict) -> DeviceParams:
         """A parameter bank from `afp_tpu`'s ``DeviceParams`` fields as numpy
-        arrays (``{name: np.asarray(field)}``).  AGC scalars and the
-        per-stream ``casc_wide`` are not used by this slice and are ignored;
-        per-stream filter banks raise."""
+        arrays (``{name: np.asarray(field)}``), the AGC scalars included.
+        The per-stream ``casc_wide`` is not used by this slice and is
+        ignored; per-stream filter banks raise."""
         if arrays.get("casc_bank") is not None:
             raise _not_in_slice("per-stream filter banks (casc_bank)",
                                 "7 (per-stream banks)")
@@ -216,33 +274,70 @@ class Pipeline:
             return None if a is None else torch.as_tensor(
                 np.array(a), dtype=dtype, device=dev)
 
+        def host(name, default):
+            a = arrays.get(name)
+            return _host_scalar(default if a is None else a)
+
         return DeviceParams(
             H_bands=to("H_bands", torch.complex64),
             H_main=to("H_main", torch.complex64),
             eq_gains=to("eq_gains", torch.float32),
             casc_bands=to("casc_bands", torch.float32),
             casc_main=to("casc_main", torch.float32),
+            agc_target=host("agc_target", self.cfg.agc_target_level),
+            agc_max_gain=host("agc_max_gain", self.cfg.agc_max_gain),
+            agc_a_att=host("agc_a_att", self.agc.a_att),
+            agc_a_rel=host("agc_a_rel", self.agc.a_rel),
         )
 
     # ---------------- state ----------------
 
     def init_state(self, seed: int = 0) -> StreamState:
-        return StreamState(
-            conv_tail=torch.zeros((self.batch, self._k_pad),
-                                  dtype=torch.float32, device=self.device),
-            seed=int(seed), step=0)
+        B, kp, dev = self.batch, self._k_pad, self.device
+        if self._pair_tail:
+            tail = (torch.zeros((B, kp), dtype=torch.bfloat16, device=dev),
+                    torch.zeros((B, kp), dtype=torch.bfloat16, device=dev))
+        else:
+            tail = torch.zeros((B, kp), dtype=torch.float32, device=dev)
+        # the gain carry starts at unity (`afp_tpu/engine/pipeline.py:529`)
+        gain = (torch.ones(B, dtype=torch.float32, device=dev)
+                if self._agc_on else None)
+        return StreamState(tail, int(seed), 0, gain)
 
-    def state_from_numpy(self, conv_tail, seed: int, step: int) -> StreamState:
-        """A state from `afp_tpu`'s carried conv tail (numpy, [B, ≤ k_pad]),
-        zero-padded on the left to k_pad; `seed`/`step` key the dither."""
-        t = torch.as_tensor(np.array(conv_tail, dtype=np.float32),
-                            device=self.device)
+    def _padded(self, t: torch.Tensor) -> torch.Tensor:
+        """[B, <= k_pad] → [B, k_pad], zero columns on the left."""
         pad = self._k_pad - t.shape[-1]
         if t.shape != (self.batch, t.shape[-1]) or pad < 0:
             raise ValueError(f"conv_tail must be [{self.batch}, <= "
                              f"{self._k_pad}], got {tuple(t.shape)}")
-        return StreamState(torch.nn.functional.pad(t, (pad, 0)), int(seed),
-                           int(step))
+        return torch.nn.functional.pad(t, (pad, 0))
+
+    def state_from_numpy(self, conv_tail, seed: int, step: int,
+                         agc_gain=None) -> StreamState:
+        """A state from `afp_tpu`'s carried state as numpy arrays, each
+        tail zero-padded on the left to k_pad.  The conv tail comes in
+        either of `afp_tpu`'s forms: f32 [B, <= k_pad], or the bf16 pair
+        ``(hi, lo)`` its fused AGC route carries (`pipeline.py:519-528`),
+        converted to this pipeline's form (split, or widened).  ``agc_gain``
+        is the [B] gain carry (unity when absent); `seed`/`step` key the
+        dither."""
+        dev = self.device
+        if isinstance(conv_tail, (tuple, list)):
+            # bf16 has no numpy dtype of torch's: move the bits as int16
+            hi, lo = (self._padded(torch.from_numpy(
+                np.ascontiguousarray(a).view(np.int16)).view(
+                    torch.bfloat16).to(dev)) for a in conv_tail)
+            tail = (hi, lo) if self._pair_tail else merge_bf16(hi, lo)
+        else:
+            t = self._padded(torch.as_tensor(
+                np.array(conv_tail, dtype=np.float32), device=dev))
+            tail = split_bf16(t) if self._pair_tail else t
+        gain = None
+        if self._agc_on:
+            gain = (torch.ones(self.batch, dtype=torch.float32, device=dev)
+                    if agc_gain is None else torch.as_tensor(
+                        np.array(agc_gain, dtype=np.float32), device=dev))
+        return StreamState(tail, int(seed), int(step), gain)
 
     # ---------------- the staged step ----------------
 
@@ -260,6 +355,29 @@ class Pipeline:
                              f"got {tuple(x.shape)}")
         return x
 
+    def _linked(self, d: torch.Tensor) -> torch.Tensor:
+        """The ``agc_link_group`` group-min of the time-major desired gain
+        [T, B] (`afp_tpu/engine/pipeline.py:559-568`); identity at 1."""
+        return link_desired(d, self.cfg.agc_link_group, batch_axis=1)
+
+    def _agc(self, params: DeviceParams, x: torch.Tensor, gain, ring_idx=None):
+        """The AGC on the block ``x`` [B, L] (or on slot ``ring_idx`` of the
+        ring ``x``): K5 → link → K6.  Returns (the gained block — its bf16
+        pair when the conv reads pairs — and the new [B] gain carry)."""
+        cfg = self.cfg
+        lp, rp = self._rms_pad
+        mc = self._agc_blockwise if self._agc_means else 0
+        d = rms_desired(x, self._rms_band, lp, rp, params.agc_target,
+                        params.agc_max_gain, exact_band=self._rms_exact,
+                        transposed=True, ring_idx=ring_idx, mean_chunk=mc)
+        if not mc:
+            d = self._linked(d)
+        return smooth_gain_apply(
+            d, x, params.agc_a_att, params.agc_a_rel, params.agc_max_gain,
+            init=gain if cfg.agc_carry else None, out_clip=0.99,
+            emit_split=self._pair_tail, ring_idx=ring_idx,
+            blockwise=self._agc_blockwise, d_is_means=bool(mc))
+
     def step(self, params: DeviceParams, state: StreamState, block):
         """One block: [B, L] → (state, [B, L] out).  The state passed in is
         left intact (the engine's degradation ladder keeps it to recover
@@ -267,7 +385,15 @@ class Pipeline:
         cfg = self.cfg
         x = self._block(block)
         kp, n, L = self._k_pad, self.n_casc, self.block
-        tail = state.conv_tail
+        tail, gain = state.conv_tail, state.agc_gain
+        if self._agc_on:
+            x, gain = self._agc(params, x, gain)
+        if self._pair_tail:
+            y, th, tl = fir_td_mxu_pair(
+                x[0], x[1], tail[0], tail[1],
+                params.combined_cascade(self.has_eq),
+                **self._dither_kw(state, cfg.output_clip))
+            return StreamState((th, tl), state.seed, state.step + 1, gain), y
         # the conv needs n−1 history columns; the carried tail is k_pad wide
         ext = torch.cat([tail[:, kp - (n - 1):], x], dim=-1)
         if self._use_td:
@@ -283,7 +409,7 @@ class Pipeline:
                             cfg.dither_bits, cfg.dither_kind)
         new_tail = (x[:, L - kp:].clone() if kp <= L
                     else torch.cat([tail[:, L:], x], dim=-1))
-        return StreamState(new_tail, state.seed, state.step + 1), y
+        return StreamState(new_tail, state.seed, state.step + 1, gain), y
 
     def run(self, params: DeviceParams, state: StreamState, blocks):
         """Step over [N, B, L] blocks → (state, [N, B, L])."""
@@ -322,9 +448,10 @@ class Pipeline:
 
     @property
     def supports_ring_step(self) -> bool:
-        """True when the ring forms are available: the f32 conv ring, which
-        needs the 'td_mxu' strategy (the other ring forms of `afp_tpu` are
-        outside this slice and rejected at construction)."""
+        """True when the ring forms are available: the f32 conv ring or, with
+        AGC, the fused AGC chain over one f32 input ring; both need the
+        'td_mxu' strategy (the other ring forms of `afp_tpu` are outside
+        this slice and rejected at construction)."""
         return self._use_td
 
     def _ring_taps(self, params: DeviceParams, ring_lo) -> torch.Tensor:
@@ -340,20 +467,32 @@ class Pipeline:
     def ring_step(self, params: DeviceParams, state: StreamState,
                   ring_hi: torch.Tensor, ring_lo, idx: int,
                   out_ring: torch.Tensor):
-        """One serving step (K3): convolve slot `idx` of the f32 input ring
+        """One serving step: convolve slot `idx` of the f32 input ring
         ``ring_hi`` [S, B, L] into slot `idx` of `out_ring`, written in
-        place.  ``ring_lo`` must be None (the pair form is not ported)."""
+        place (K3).  With AGC, K5 and K6 read the slot in place and K7
+        convolves K6's pair into the output slot
+        (`afp_tpu/engine/pipeline.py:1212-1273`).  ``ring_lo`` must be None
+        (the pair-ingest form is not ported)."""
         h = self._ring_taps(params, ring_lo)
-        out_ring, tail = fir_td_mxu_ring_f32(
-            ring_hi, idx, state.conv_tail, h, out_ring,
-            **self._dither_kw(state, self.cfg.output_clip))
+        dkw = self._dither_kw(state, self.cfg.output_clip)
+        if self._agc_on:
+            (xh, xl), gain = self._agc(params, ring_hi, state.agc_gain,
+                                       ring_idx=idx)
+            out_ring, th, tl = fir_td_mxu_pair_to_ring(
+                xh, xl, state.conv_tail[0], state.conv_tail[1], h, idx,
+                out_ring, **dkw)
+            return (StreamState((th, tl), state.seed, state.step + 1, gain),
+                    out_ring)
+        out_ring, tail = fir_td_mxu_ring_f32(ring_hi, idx, state.conv_tail, h,
+                                             out_ring, **dkw)
         return StreamState(tail, state.seed, state.step + 1), out_ring
 
     def run_ring(self, params: DeviceParams, state: StreamState,
                  ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
                  n_steps: int, start: int = 0):
         """`n_steps` ring steps over slots ``(start+i) mod S`` (one K3 launch
-        each); `out_ring` is written in place."""
+        each; with AGC, K5, K6 and K7 each); `out_ring` is written in
+        place."""
         S = ring_hi.shape[0]
         for i in range(int(n_steps)):
             state, out_ring = self.ring_step(params, state, ring_hi, ring_lo,
@@ -364,7 +503,12 @@ class Pipeline:
                       ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
                       n_steps: int, start: int = 0):
         """:meth:`run_ring` as ONE kernel launch (K4): same slots, outputs,
-        tail and dither as the chained steps."""
+        tail and dither as the chained steps.  The AGC chain has no such
+        form (`afp_tpu/engine/pipeline.py:1371-1376`)."""
+        if self._agc_on:
+            raise ValueError(
+                "run_ring_mega requires the f32 conv ring without AGC: the "
+                "AGC chain serves through run_ring")
         h = self._ring_taps(params, ring_lo)
         out_ring, tail = fir_td_mxu_ring_mega_f32(
             ring_hi, start, state.conv_tail, h, out_ring, n_steps,

@@ -2,10 +2,13 @@
 `native/Makefile` for the host ring).
 
 `csrc/*.cu` compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes::
+interface, loaded with ctypes: one nvcc per source, all started together,
+then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/afp_tpu_torch/libafp_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <obj> csrc/<name>.cu          # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/afp_tpu_torch/libafp_<hash>.so <objs>
 
 The library is built at first use into ``build/afp_tpu_torch/`` at the root of
 the checkout, keyed by a hash of the sources and flags, so an edited source
@@ -29,8 +32,10 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "afp_tpu_torch"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: compile flags of each source: IEEE division and square root, no fast
+#: math; ptxas reports each kernel's registers and spills into the build log
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                        ctypes.c_float, ctypes.c_longlong)
@@ -43,6 +48,12 @@ _SIGNATURES = {
     "afp_fir_td_ring_mega": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              *_EPI, _P),
     "afp_dither": (_P, _P, _LL, _I, _U, _U, _F, _P),
+    "afp_fir_td_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, *_EPI, _P),
+    "afp_rms_desired": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                        _F, _P),
+    "afp_agc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                      _F, _P),
 }
 
 _lock = threading.Lock()
@@ -74,6 +85,26 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libafp_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently and return their outputs; raise with
+    the output of the first that fails.  Every process is waited for, or
+    killed on the way out."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    try:
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build() -> Path:
     """Compile the kernels if the hashed library is missing; return its
     path.  Raises RuntimeError with nvcc's output when the build fails."""
@@ -81,19 +112,15 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(_sources(), objs)])
+        lib = Path(tmpdir) / out.name
+        _run_all([[nvcc, *_ARCH, "-shared", "-o", str(lib), *map(str, objs)]])
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or none
     return out
 
 

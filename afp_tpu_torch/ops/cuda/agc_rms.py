@@ -1,0 +1,167 @@
+"""K5: moving RMS → desired AGC gain (replaces
+`afp_tpu/ops/pallas/agc_rms.py:rms_desired_pallas`).
+
+    d = clip(target / (sqrt(boxcar_W(x²)) + 1e−10), 0, max_gain)
+
+with numpy's 'same' zero padding (``lp = W//2``, ``rp = W−1−W//2``), from
+the raw block in one pass.  The numerics are the TPU kernel's: x² is split
+into bf16 halves and the halves are summed; a window that is a multiple of
+128 runs the two-level form (128-wide sums of weight 1, the ``W/128``
+shifted sums added, then ``· (1/W)`` in fp32); any other window weighs the
+sums with the band's bf16-split ``1/w`` (a third product when ``1/w`` is
+not exact in bf16).  A CPU tensor takes :func:`rms_desired_plain` (the
+split products as fp32 matmuls against the band, as
+:func:`~afp_tpu_torch.ops.cuda.fir_td.fir_td_mxu_plain` does), a CUDA tensor
+launches `csrc/agc_rms.cu` or raises.  ``rms_desired.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from .fir_td import (LANE, _full_fp32_matmul, _on_cuda, _raise_on,
+                     _split_f32, _stream, band_matrix)
+
+__all__ = ["rms_desired", "rms_desired_plain", "band_is_exact_bf16"]
+
+_LAYOUT_BT, _LAYOUT_TB, _LAYOUT_MEANS = 0, 1, 2
+
+
+def band_is_exact_bf16(band) -> bool:
+    """True iff every band entry survives an f32 → bf16 → f32 round trip:
+    then the lo half of the boxcar weight is zero and the third product can
+    be skipped (`agc_rms.py:43-47`)."""
+    b = torch.as_tensor(np.asarray(band, dtype=np.float32))
+    return bool(torch.equal(b.to(torch.bfloat16).to(torch.float32), b))
+
+
+def _scalar(v, name: str) -> float:
+    """A runtime scalar as a Python float; a [B] vector is a per-stream
+    policy bank, which this slice does not carry."""
+    t = torch.as_tensor(v)
+    if t.ndim:
+        raise NotImplementedError(
+            f"per-stream AGC {name} ([B] vectors) is not ported yet: "
+            "ROADMAP.md §1 item 7 (per-stream banks)")
+    return float(t)
+
+
+def _check(x, band, lp, rp, transposed, ring_idx, mean_chunk):
+    """Shared argument checks: returns (the [B, T] block, W)."""
+    if mean_chunk and (not transposed or LANE % mean_chunk
+                       or mean_chunk & (mean_chunk - 1)):
+        raise ValueError(
+            f"mean_chunk={mean_chunk} requires transposed=True and a power "
+            f"of two dividing {LANE} (the 1/chunk weight must be exact)")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    if ring_idx is not None:
+        if x.ndim != 3:
+            raise ValueError(f"ring mode needs an [S, B, T] ring, got "
+                             f"{tuple(x.shape)}")
+        x = x[int(ring_idx) % x.shape[0]]  # a view: no staging copy
+    elif x.ndim != 2:
+        raise ValueError(f"x must be [B, T], got {tuple(x.shape)}")
+    if x.shape[-1] % LANE:
+        raise ValueError(f"block length {x.shape[-1]} must be a multiple of {LANE}")
+    if band.ndim != 2 or band.shape[1] != LANE or band.shape[0] < LANE:
+        raise ValueError(f"band must be [W-1+{LANE}, {LANE}], got {tuple(band.shape)}")
+    W = band.shape[0] - LANE + 1
+    if lp < 0 or rp < 0 or lp + rp != W - 1:
+        raise ValueError(f"pads lp={lp}, rp={rp} must sum to W-1 = {W - 1}")
+    return x, W
+
+
+def _two_level(W: int) -> bool:
+    return W >= LANE and W % LANE == 0
+
+
+def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
+                      target, max_gain, exact_band: bool,
+                      transposed: bool = False, ring_idx=None,
+                      mean_chunk: int = 0) -> torch.Tensor:
+    """Plain K5, same contract as :func:`rms_desired`: the padded x² split
+    into bf16 halves, unfolded into LANE-wide output tiles and multiplied
+    against the band (two-level: a ones(LANE) band, then the shifted sums)
+    in full fp32."""
+    x, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
+    target, max_gain = _scalar(target, "target"), _scalar(max_gain, "max_gain")
+    B, T = x.shape
+    sq = torch.nn.functional.pad(x * x, (lp, rp))  # [B, T + W − 1]
+    sh, sl = _split_f32(sq)
+    with _full_fp32_matmul():
+        if _two_level(W):
+            bh = band_matrix(torch.ones(LANE, device=x.device))  # exact in bf16
+            wh = sh.unfold(1, 2 * LANE - 1, LANE)  # [B, T/LANE + m − 1, 255]
+            wl = sl.unfold(1, 2 * LANE - 1, LANE)
+            s_lane = (wh @ bh + wl @ bh).reshape(B, -1)  # [B, T + W − LANE]
+            s = s_lane[:, :T]
+            for j in range(1, W // LANE):
+                s = s + s_lane[:, j * LANE: j * LANE + T]
+            s = s * (1.0 / W)
+        else:
+            bh, bl = _split_f32(band)
+            wh = sh.unfold(1, W - 1 + LANE, LANE)  # [B, T/LANE, W − 1 + LANE]
+            wl = sl.unfold(1, W - 1 + LANE, LANE)
+            s = wh @ bh + wl @ bh
+            if not exact_band:
+                s = s + wh @ bl
+            s = s.reshape(B, T)
+    rms = torch.sqrt(torch.clamp_min(s, 0.0))
+    # a true division (a Python float over a tensor would multiply by the
+    # reciprocal)
+    t = torch.tensor(target, dtype=torch.float32, device=x.device)
+    d = torch.clamp(t / (rms + 1e-10), 0.0, max_gain)
+    if mean_chunk:
+        dh, dl = _split_f32(d)
+        sel = torch.full((mean_chunk, 1), 1.0 / mean_chunk, device=x.device)
+        with _full_fp32_matmul():
+            m = (dh.reshape(B, T // mean_chunk, mean_chunk) @ sel
+                 + dl.reshape(B, T // mean_chunk, mean_chunk) @ sel)
+        return m[..., 0].T.contiguous()  # [T/mean_chunk, B]
+    return d.T.contiguous() if transposed else d
+
+
+def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
+                target, max_gain, exact_band: bool, transposed: bool = False,
+                ring_idx=None, mean_chunk: int = 0) -> torch.Tensor:
+    """K5: the desired AGC gain of the block ``x`` [B, T] f32 (or of slot
+    ``ring_idx`` of an [S, B, T] ring, read in place).  ``band`` is the
+    boxcar band matrix [W−1+LANE, LANE] of ``ones(W)/W``
+    (:func:`~afp_tpu_torch.ops.cuda.fir_td.band_matrix`); ``lp``/``rp`` the
+    'same' pads; ``target``/``max_gain`` scalars; ``exact_band`` from
+    :func:`band_is_exact_bf16`.  Returns d [B, T], or [T, B] with
+    ``transposed``, or with ``mean_chunk`` (needs ``transposed``) the
+    time-major chunk means [T/mean_chunk, B] that the blockwise recurrence
+    consumes (`agc_rms.py:330-420`)."""
+    if not _on_cuda(x):
+        return rms_desired_plain(x, band, lp, rp, target, max_gain,
+                                 exact_band, transposed, ring_idx, mean_chunk)
+    xs, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
+    target, max_gain = _scalar(target, "target"), _scalar(max_gain, "max_gain")
+    if band.device != xs.device or band.dtype != torch.float32:
+        raise ValueError(f"band must be float32 on {xs.device}, got "
+                         f"{band.dtype} on {band.device}")
+    xs, band = xs.contiguous(), band.contiguous()
+    B, T = xs.shape
+    if mean_chunk:
+        layout, shape = _LAYOUT_MEANS, (T // mean_chunk, B)
+    elif transposed:
+        layout, shape = _LAYOUT_TB, (T, B)
+    else:
+        layout, shape = _LAYOUT_BT, (B, T)
+    out = torch.empty(shape, dtype=torch.float32, device=xs.device)
+    lib = _build.load()
+    with torch.cuda.device(xs.device):
+        rc = lib.afp_rms_desired(
+            xs.data_ptr(), band.data_ptr(), out.data_ptr(), B, T, W, int(lp),
+            int(_two_level(W)), int(bool(exact_band)), layout, int(mean_chunk),
+            target, max_gain, 1.0 / W, _stream(xs))
+    _raise_on(rc, "rms_desired (K5)")
+    rms_desired.launches += 1
+    return out
+
+
+rms_desired.launches = 0

@@ -1,0 +1,156 @@
+"""K6: the AGC gain recurrence, clip, apply and carry in one kernel
+(replaces `afp_tpu/ops/pallas/agc_scan.py:smooth_gain_apply_pallas`).
+
+Per stream, over the time-major desired gain ``d`` [T, B]:
+
+    a = a_att if d[t] > g else a_rel;   g = a·d[t] + (1 − a)·g
+    y = clip(x · clip(g, 0.1, max_gain), ±out_clip);  carry = clip(g_last, …)
+
+The start value is ``init`` when given, else the first chunk mean
+(blockwise) or ``d[0]`` (`agc_scan.py:472-482`).  Blockwise ('fast' mode):
+one step per chunk mean with the compounded alphas ``1 − (1 − a)^chunk``
+(f32, by repeated squaring as `lax.integer_pow` does), and the ramp
+``g + (gn − g)·(t+1)/chunk`` inside the chunk.  A CPU tensor takes
+:func:`smooth_gain_apply_plain` (a loop over time of whole-batch torch ops),
+a CUDA tensor launches `csrc/agc_scan.cu` or raises.  Both round the
+updates as XLA's CPU backend rounds the reference's expressions,
+``fma(a, d, (1 − a)·g)`` and ``fma(gn − g, fr, g)``
+(:func:`~afp_tpu_torch.ops.agc.fma_f32`), so the kernel, the plain version
+and `afp_tpu` agree bit for bit given the same ``d``.
+``smooth_gain_apply.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..agc import compound_alpha, fma_f32
+from . import _build
+from .agc_rms import _scalar
+from .fir_td import _on_cuda, _raise_on, _stream, split_bf16
+
+__all__ = ["smooth_gain_apply", "smooth_gain_apply_plain"]
+
+
+def _chunk_mean(rows: torch.Tensor) -> torch.Tensor:
+    """Mean of the chunk's rows [chunk, B], summed in row order (the
+    kernel's order), then times 1/chunk."""
+    s = rows[0]
+    for r in rows[1:]:
+        s = s + r
+    return s * (1.0 / rows.shape[0])
+
+
+def _check(desired_tm, x, init, ring_idx, blockwise, d_is_means):
+    """Shared argument checks: returns (d, the [B, T] block, init, T, B)."""
+    if d_is_means and not blockwise:
+        raise ValueError("d_is_means requires blockwise")
+    if blockwise is not None and (blockwise <= 0 or 128 % blockwise):
+        raise ValueError(f"blockwise chunk {blockwise} must divide 128")
+    if desired_tm.ndim != 2 or desired_tm.dtype != torch.float32:
+        raise ValueError(f"desired_tm must be [T, B] float32, got "
+                         f"{tuple(desired_tm.shape)} {desired_tm.dtype}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    if ring_idx is not None:
+        if x.ndim != 3:
+            raise ValueError(f"ring mode needs an [S, B, T] ring, got "
+                             f"{tuple(x.shape)}")
+        x = x[int(ring_idx) % x.shape[0]]  # a view: no staging copy
+    Td, B = desired_tm.shape
+    T = Td * blockwise if d_is_means else Td
+    if x.shape != (B, T) or x.device != desired_tm.device:
+        raise ValueError(f"x must be [{B}, {T}] on {desired_tm.device}, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    if blockwise and T % blockwise:
+        raise ValueError(f"block length {T} must be a multiple of the "
+                         f"blockwise chunk {blockwise}")
+    if init is not None:
+        init = torch.as_tensor(init, dtype=torch.float32, device=x.device)
+        init = torch.broadcast_to(init.reshape(-1), (B,)).contiguous()
+    return desired_tm, x, init, T, B
+
+
+def smooth_gain_apply_plain(desired_tm: torch.Tensor, x: torch.Tensor,
+                            a_att, a_rel, max_gain, init=None,
+                            out_clip: float = 0.99, emit_split: bool = False,
+                            ring_idx=None, blockwise: int | None = None,
+                            d_is_means: bool = False):
+    """Plain K6, same contract as :func:`smooth_gain_apply`: the recurrence
+    as a loop over time of whole-batch ops, in the kernel's order."""
+    d, x, init, T, B = _check(desired_tm, x, init, ring_idx, blockwise,
+                              d_is_means)
+    a_att, a_rel = _scalar(a_att, "attack"), _scalar(a_rel, "release")
+    max_gain = _scalar(max_gain, "max_gain")
+    gs = torch.empty((T, B), dtype=torch.float32, device=x.device)
+    if blockwise:
+        a_att, a_rel = (float(compound_alpha(a, blockwise)) for a in (a_att, a_rel))
+        if init is not None:
+            g = init
+        else:
+            g = d[0] if d_is_means else _chunk_mean(d[:blockwise])
+        fr = ((torch.arange(blockwise, dtype=torch.float32, device=x.device)
+               + 1.0) * (1.0 / blockwise))[:, None]
+        for c in range(T // blockwise):
+            m = d[c] if d_is_means else _chunk_mean(
+                d[c * blockwise:(c + 1) * blockwise])
+            a = torch.where(m > g, a_att, a_rel)
+            gn = fma_f32(a, m, (1 - a) * g)
+            gs[c * blockwise:(c + 1) * blockwise] = fma_f32(gn - g, fr, g)
+            g = gn
+    else:
+        g = init if init is not None else d[0]
+        for t in range(T):
+            a = torch.where(d[t] > g, a_att, a_rel)
+            g = fma_f32(a, d[t], (1 - a) * g)
+            gs[t] = g
+    gc = torch.clamp(gs, 0.1, max_gain).T
+    y = torch.clamp(x * gc, -out_clip, out_clip)
+    carry = torch.clamp(g, 0.1, max_gain)
+    return (split_bf16(y) if emit_split else y), carry
+
+
+def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
+                      max_gain, init=None, out_clip: float = 0.99,
+                      emit_split: bool = False, ring_idx=None,
+                      blockwise: int | None = None, d_is_means: bool = False):
+    """K6: the attack/release recurrence over ``desired_tm`` [T, B] (the
+    layout :func:`~afp_tpu_torch.ops.cuda.agc_rms.rms_desired` emits with
+    ``transposed``), applied to ``x`` [B, T] f32 (or to slot ``ring_idx`` of
+    an [S, B, T] ring, read in place).  ``init`` [B] is the carried gain, or
+    None to restart.  Returns ``(y, carry)``: y [B, T] f32 or, with
+    ``emit_split``, its bf16 pair ``(y_hi, y_lo)``; carry [B] the clipped
+    last gain.  ``blockwise=chunk`` runs the 'fast' recurrence; with
+    ``d_is_means`` the input is the [T/chunk, B] chunk-mean matrix."""
+    if not _on_cuda(x):
+        return smooth_gain_apply_plain(desired_tm, x, a_att, a_rel, max_gain,
+                                       init, out_clip, emit_split, ring_idx,
+                                       blockwise, d_is_means)
+    d, xs, init, T, B = _check(desired_tm, x, init, ring_idx, blockwise,
+                               d_is_means)
+    a_att, a_rel = _scalar(a_att, "attack"), _scalar(a_rel, "release")
+    max_gain = _scalar(max_gain, "max_gain")
+    if blockwise:
+        a_att, a_rel = (float(compound_alpha(a, blockwise)) for a in (a_att, a_rel))
+    d, xs = d.contiguous(), xs.contiguous()
+    dev = xs.device
+    carry = torch.empty(B, dtype=torch.float32, device=dev)
+    if emit_split:
+        yh = torch.empty((B, T), dtype=torch.bfloat16, device=dev)
+        yl = torch.empty((B, T), dtype=torch.bfloat16, device=dev)
+        ptrs = (None, yh.data_ptr(), yl.data_ptr())
+    else:
+        y = torch.empty((B, T), dtype=torch.float32, device=dev)
+        ptrs = (y.data_ptr(), None, None)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.afp_agc_apply(
+            d.data_ptr(), xs.data_ptr(),
+            None if init is None else init.data_ptr(), *ptrs,
+            carry.data_ptr(), B, T, int(blockwise or 0), int(bool(d_is_means)),
+            a_att, a_rel, max_gain, float(out_clip), _stream(xs))
+    _raise_on(rc, "smooth_gain_apply (K6)")
+    smooth_gain_apply.launches += 1
+    return ((yh, yl) if emit_split else y), carry
+
+
+smooth_gain_apply.launches = 0

@@ -1,5 +1,5 @@
-"""The fused FIR of the filter chain: kernels K1, K3, K4 and their plain
-PyTorch versions (counterpart of `afp_tpu/ops/pallas/fir_td.py`).
+"""The fused FIR of the filter chain: kernels K1, K3, K4, K7, K8 and their
+plain PyTorch versions (counterpart of `afp_tpu/ops/pallas/fir_td.py`).
 
 Every output is the causal/valid convolution
 
@@ -17,7 +17,12 @@ K    wrapper (CUDA kernel in csrc/fir_td)  replaces (afp_tpu/ops/pallas/…)
 K1   :func:`fir_td_mxu`                    fir_td.py:fir_td_mxu
 K3   :func:`fir_td_mxu_ring_f32`           fir_td.py:fir_td_mxu_ring_f32
 K4   :func:`fir_td_mxu_ring_mega_f32`      fir_td.py:fir_td_mxu_ring_mega_f32
+K8   :func:`fir_td_mxu_pair`               fir_td.py:fir_td_mxu_pair
+K7   :func:`fir_td_mxu_pair_to_ring`       fir_td.py:fir_td_mxu_pair_to_ring
 ===  ====================================  ================================
+
+K8 and K7 take the block and the carried tail as bf16 (hi, lo) pairs, the
+form the AGC apply kernel (K6) stores, and skip the split.
 
 Each wrapper dispatches on the device of its input: a CPU tensor takes the
 plain version beside it (``*_plain``: the three split products as fp32
@@ -39,7 +44,9 @@ from . import _build
 __all__ = ["LANE", "split_bf16", "merge_bf16", "band_matrix", "ring_k_pad",
            "fir_td_mxu", "fir_td_mxu_plain",
            "fir_td_mxu_ring_f32", "fir_td_mxu_ring_f32_plain",
-           "fir_td_mxu_ring_mega_f32", "fir_td_mxu_ring_mega_f32_plain"]
+           "fir_td_mxu_ring_mega_f32", "fir_td_mxu_ring_mega_f32_plain",
+           "fir_td_mxu_pair", "fir_td_mxu_pair_plain",
+           "fir_td_mxu_pair_to_ring", "fir_td_mxu_pair_to_ring_plain"]
 
 #: output-tile width of the band-matrix form and the granule of the block
 #: length and of the ring tail (`fir_td.py:LANE`)
@@ -150,21 +157,26 @@ def _full_fp32_matmul():
 # ---------------------------------------------------------------- K1
 
 
-def fir_td_mxu_plain(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
-                     dither_key=(0, 0), dither_bits=None,
-                     dither_tpdf=True) -> torch.Tensor:
-    """Plain K1: ``[B, n−1+T] → [B, T]``, one fp32 matmul per split
-    product over LANE-wide output tiles (`fir_td.py:_fir_kernel_b3`)."""
-    B, text = x_ext.shape
+def _conv_split(xh: torch.Tensor, xl: torch.Tensor, h: torch.Tensor):
+    """The bf16×3 conv of the split extended signal (hi, lo as f32,
+    [B, n−1+T]) → [B, T]: one fp32 matmul per split product over LANE-wide
+    output tiles (`fir_td.py:_fir_kernel_b3`)."""
+    B, text = xh.shape
     n = h.shape[0]
     T = text - (n - 1)
     bh, bl = _split_f32(band_matrix(h))
-    xh, xl = _split_f32(x_ext)
     rows = n - 1 + LANE
     wh = xh.unfold(1, rows, LANE)  # [B, T/LANE, rows]
     wl = xl.unfold(1, rows, LANE)
     with _full_fp32_matmul():
-        y = (wh @ bh + wh @ bl + wl @ bh).reshape(B, T)
+        return (wh @ bh + wh @ bl + wl @ bh).reshape(B, T)
+
+
+def fir_td_mxu_plain(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
+                     dither_key=(0, 0), dither_bits=None,
+                     dither_tpdf=True) -> torch.Tensor:
+    """Plain K1: ``[B, n−1+T] → [B, T]``."""
+    y = _conv_split(*_split_f32(x_ext), h)
     return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf)
 
 
@@ -327,3 +339,151 @@ def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
 
 
 fir_td_mxu_ring_mega_f32.launches = 0
+
+
+# ---------------------------------------------------------------- K8 / K7
+
+
+def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
+    """Shared checks of the pair forms: bf16 pairs [B, T] and [B, <= k_pad]
+    on one device, the LANE rule on T, and a narrow tail zero-padded on the
+    left to k_pad (`fir_td.py:727-738`; the padded history meets only zero
+    taps).  Returns (h, tail_hi, tail_lo, k_pad)."""
+    for name, t in (("x_hi", x_hi), ("x_lo", x_lo), ("tail_hi", tail_hi),
+                    ("tail_lo", tail_lo)):
+        if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != x_hi.device:
+            raise ValueError(f"{name} must be 2-D bfloat16 on {x_hi.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    B, T = x_hi.shape
+    if x_lo.shape != x_hi.shape or T % LANE:
+        raise ValueError(f"the block pair must be two [B, T] halves with T a "
+                         f"multiple of {LANE}, got {tuple(x_hi.shape)} and "
+                         f"{tuple(x_lo.shape)}")
+    h = _check_taps(h, x_hi)
+    k_pad = ring_k_pad(h.shape[0])
+    if tail_lo.shape != tail_hi.shape or tail_hi.shape[0] != B or (
+            not h.shape[0] - 1 <= tail_hi.shape[1] <= k_pad):
+        raise ValueError(f"the tail pair must be two [{B}, n-1 .. {k_pad}] "
+                         f"halves, got {tuple(tail_hi.shape)} and "
+                         f"{tuple(tail_lo.shape)}")
+    pad = k_pad - tail_hi.shape[1]
+    if pad:
+        tail_hi = torch.nn.functional.pad(tail_hi, (pad, 0))
+        tail_lo = torch.nn.functional.pad(tail_lo, (pad, 0))
+    return h, tail_hi, tail_lo, k_pad
+
+
+def _next_pair_tail(tail, x, k_pad):
+    """The last k_pad samples of concat(tail, x) (`fir_td.py:296-308`)."""
+    T = x.shape[1]
+    if k_pad <= T:
+        return x[:, T - k_pad:].clone()
+    return torch.cat([tail[:, T:], x], dim=-1)
+
+
+def fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h, out_clip=None,
+                          dither_key=(0, 0), dither_bits=None,
+                          dither_tpdf=True):
+    """Plain K8: the pairs widened to f32 (exact) and concatenated, then
+    the split conv of the plain K1."""
+    h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
+    n = h.shape[0]
+    eh = torch.cat([tail_hi, x_hi], dim=-1)[:, k_pad - (n - 1):].float()
+    el = torch.cat([tail_lo, x_lo], dim=-1)[:, k_pad - (n - 1):].float()
+    y = _finish(_conv_split(eh, el, h), out_clip, dither_key, dither_bits,
+                dither_tpdf)
+    return (y, _next_pair_tail(tail_hi, x_hi, k_pad),
+            _next_pair_tail(tail_lo, x_lo, k_pad))
+
+
+def _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out, S, idx, epi,
+                 what):
+    B, T = x_hi.shape
+    th = torch.empty((B, k_pad), dtype=torch.bfloat16, device=x_hi.device)
+    tl = torch.empty_like(th)
+    x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
+    tail_hi, tail_lo = tail_hi.contiguous(), tail_lo.contiguous()
+    lib = _build.load()
+    with torch.cuda.device(x_hi.device):
+        rc = lib.afp_fir_td_pair(
+            x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
+            tail_lo.data_ptr(), h.data_ptr(), out.data_ptr(), th.data_ptr(),
+            tl.data_ptr(), S, B, T, k_pad, h.shape[0], idx, *epi,
+            _stream(x_hi))
+    _raise_on(rc, what)
+    return th, tl
+
+
+def fir_td_mxu_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
+                    tail_hi: torch.Tensor, tail_lo: torch.Tensor,
+                    h: torch.Tensor, out_clip=None, dither_key=(0, 0),
+                    dither_bits=None, dither_tpdf=True):
+    """K8: causal/valid conv of the bf16 pair of the block [B, T] behind the
+    carried pair tail [B, n−1 .. k_pad] (narrower tails are zero-padded)
+    with taps ``h``, clip then dither fused into the store as in K1.  Equal
+    to K1 on concat(tail, block) when the pairs are :func:`split_bf16` of
+    f32 inputs.  Returns ``(y, next_tail_hi, next_tail_lo)``: y [B, T] f32
+    and the last k_pad samples of concat(tail, block), the pair tail of the
+    next block (`fir_td.py:700-743` with ``emit_tail``)."""
+    if not _on_cuda(x_hi):
+        return fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
+                                     out_clip, dither_key, dither_bits,
+                                     dither_tpdf)
+    h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
+    y = torch.empty(x_hi.shape, dtype=torch.float32, device=x_hi.device)
+    th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, y, 1, 0,
+                          _epi(out_clip, dither_key, dither_bits, dither_tpdf),
+                          "fir_td_mxu_pair (K8)")
+    fir_td_mxu_pair.launches += 1
+    return y, th, tl
+
+
+fir_td_mxu_pair.launches = 0
+
+
+def fir_td_mxu_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo, h, idx,
+                                  out_ring, out_clip=None, dither_key=(0, 0),
+                                  dither_bits=None, dither_tpdf=True):
+    """Plain K7: the plain K8 with its tail, written into ``out_ring[idx]``
+    in place."""
+    y, th, tl = fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
+                                      out_clip, dither_key, dither_bits,
+                                      dither_tpdf)
+    out_ring[int(idx) % out_ring.shape[0]] = y
+    return out_ring, th, tl
+
+
+def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
+                            tail_hi: torch.Tensor, tail_lo: torch.Tensor,
+                            h: torch.Tensor, idx: int, out_ring: torch.Tensor,
+                            out_clip=None, dither_key=(0, 0),
+                            dither_bits=None, dither_tpdf=True):
+    """K7: :func:`fir_td_mxu_pair` writing its output into slot ``idx`` of
+    the f32 ``out_ring`` [S, B, T] in place (every other slot untouched),
+    the same body and so the same bits as K8.  Returns ``(out_ring,
+    next_tail_hi, next_tail_lo)`` (`fir_td.py:828-862`)."""
+    if out_ring.ndim != 3 or out_ring.shape[1:] != x_hi.shape or (
+            out_ring.dtype != torch.float32):
+        raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
+                         f"{x_hi.shape[-1]}] float32, got "
+                         f"{tuple(out_ring.shape)} {out_ring.dtype}")
+    if not _on_cuda(x_hi):
+        return fir_td_mxu_pair_to_ring_plain(
+            x_hi, x_lo, tail_hi, tail_lo, h, idx, out_ring, out_clip,
+            dither_key, dither_bits, dither_tpdf)
+    if not out_ring.is_contiguous() or out_ring.data_ptr() % 16 or (
+            out_ring.device != x_hi.device):
+        # written in place, four outputs per 16-byte store
+        raise ValueError("out_ring must be contiguous, 16-byte aligned and "
+                         f"on {x_hi.device}")
+    h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
+    S = out_ring.shape[0]
+    th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out_ring, S,
+                          int(idx) % S,
+                          _epi(out_clip, dither_key, dither_bits, dither_tpdf),
+                          "fir_td_mxu_pair_to_ring (K7)")
+    fir_td_mxu_pair_to_ring.launches += 1
+    return out_ring, th, tl
+
+
+fir_td_mxu_pair_to_ring.launches = 0

@@ -1,8 +1,10 @@
 """Host pump for the device-resident serving rings (counterpart of
-`afp_tpu/runtime/serving.py`, f32 conv-ring form).
+`afp_tpu/runtime/serving.py`: the f32 conv ring and the AGC chain over one
+f32 input ring).
 
-The device side is `Pipeline.run_ring` (one K3 launch per block) or
-`Pipeline.run_ring_mega` (one K4 launch per chunk): a dispatch advances
+The device side is `Pipeline.run_ring` (one K3 launch per block; with AGC,
+K5 → K6 → K7 per block) or `Pipeline.run_ring_mega` (one K4 launch per
+chunk, no AGC): a dispatch advances
 `chunk` blocks around a preallocated f32 input ring, writing the output
 ring's slots in place.  This module is the pump:
 
@@ -33,6 +35,7 @@ import torch
 
 from ..engine.config import PipelineParams, StreamConfig
 from ..engine.pipeline import DeviceParams, Pipeline, StreamState, _not_in_slice
+from ..ops.agc import AGCParams
 from ..utils.log import get_logger
 
 logger = get_logger("serving")
@@ -67,6 +70,9 @@ class RingServer:
             raise ValueError(
                 "RingServer requires a ring-capable pipeline: the f32 conv "
                 "ring, conv_strategy='td_mxu' (see Pipeline.supports_ring_step)")
+        if mega and pipeline.cfg.agc_enabled:
+            raise ValueError("mega=True has no fused-AGC form: the AGC chain "
+                             "serves through run_ring (mega=False)")
         if slots % chunk:
             raise ValueError(f"chunk {chunk} must divide slots {slots}")
         if max_inflight < 1:
@@ -137,16 +143,17 @@ class RingServer:
             self.params = self.params._replace(eq_gains=g)
 
     def retune(self, new_cfg: StreamConfig) -> None:
-        """Design a new bank from `new_cfg` (dynamic fields only) on the
-        caller's thread and :meth:`swap_params` it in.  Static (shape)
-        changes are rejected."""
+        """Design a new bank from `new_cfg` (dynamic fields only, the AGC
+        knobs included) on the caller's thread and :meth:`swap_params` it
+        in.  Static (shape) changes are rejected."""
         new_cfg = new_cfg.validate()
         if new_cfg.static_key() != self.pipe.cfg.static_key():
             raise ValueError(
                 "retune is dynamic-only (same static_key); shape changes "
                 "need a new Pipeline + RingServer")
         params = self.pipe.device_params(PipelineParams.design(new_cfg),
-                                         cfg=new_cfg)
+                                         cfg=new_cfg,
+                                         agc=AGCParams.from_config(new_cfg))
         self.pipe.refresh_dynamic(new_cfg)
         self.swap_params(params)
 

@@ -6,20 +6,28 @@
 Phases, one output line each; any failure raises (exit code != 0):
 
 1. the card's name and power limit (nvidia-smi); no CUDA device → exit 1;
-2. build the CUDA kernels from `afp_tpu_torch/csrc` with nvcc;
-3. each kernel against its plain PyTorch version at the headline shapes:
-   conv ≤ −110 dB max-abs relative error, clip and noise bit-exact, both
-   times with CUDA events;
+2. build the CUDA kernels from `afp_tpu_torch/csrc` with nvcc (one nvcc per
+   source, in parallel);
+3. each kernel against its plain PyTorch version on the same device tensors,
+   both timed with CUDA events: the C5 kernels K1-K4 and K2 at the C5
+   headline (conv ≤ −110 dB, clip and noise bit-exact), and the C8 AGC
+   kernels at the C8 point (batch 4096, block 2048, W = 512): K5 ≤ −110 dB,
+   K6 bit-exact, K8/K7 ≤ −110 dB with tails bit-exact and K7 ≡ K8;
 4. `Pipeline.run` at the C5 headline (batch 4096, 8 blocks), and the
    single-stream chain against the float64 oracle of `bench.py:394-418`
-   (< −90 dB);
-5. `RingServer` at the headline (16 slots, chunk 4, 16 blocks), megakernel
-   and per-step forms: bit-identical with dither on, ≤ −110 dB against
-   staged steps with dither off;
+   (< −90 dB); then the C8 chain (`bench.py:827-843`): 'exact' and 'fast'
+   AGC, 8 blocks each at batch 4096, a batch-8 run against the port's CPU
+   run (≤ −100 dB), and 4 streams × 4 blocks against a float64 oracle of
+   AGC + chain (< −90 dB);
+5. `RingServer` at the C5 headline (16 slots, chunk 4, 16 blocks),
+   megakernel and per-step forms: bit-identical with dither on, ≤ −110 dB
+   against staged steps with dither off; then the C8 chain's per-step ring
+   (16 slots, chunk 4, 16 blocks) ≡ its staged steps, dither on;
 6. `StreamEngine` with the README quick-start configuration ('fft', EQ on,
-   batch 512): process_block ×4, set_eq_gains, ×2, process_signal, with no
-   degradation-ladder fallback;
-7. every kernel launched during phases 4-6.
+   batch 512): process_block ×4, set_eq_gains, ×2, process_signal; and with
+   the C8 configuration: process_block ×4, apply_config with a new AGC
+   target, ×2; no degradation-ladder fallback;
+7. every kernel (K1-K8) launched during phases 4-6.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error and times, and
@@ -50,8 +58,18 @@ QUICKSTART = dict(samplerate=44100, blocksize=4096, upsample_factor=4,
                   batch=512, eq_enabled=True, agc_enabled=False,
                   dither_kind="tpdf")
 
+#: the C8 AGC chain (`bench.py:827-843`): 2× upsample → 129-tap lowpass at
+#: 14 kHz with the 9-band EQ → decimate, AGC window 512 before it, clip
+#: 0.99, TPDF dither, 'td_mxu', at the bench's batch (`bench.py:1382`)
+C8 = dict(samplerate=44100, blocksize=2048, upsample_factor=2, numtaps=129,
+          batch=4096, cutoff=14000.0, eq_enabled=True, agc_enabled=True,
+          agc_mode="exact", agc_window_size=512, agc_carry=True,
+          downsample_mode="decimate", dither_kind="tpdf", output_clip=0.99,
+          conv_strategy="td_mxu")
+
 CONV_DB = -110.0  # kernel vs plain, and ring vs staged: bf16×3 order class
 ORACLE_DB = -90.0  # the reference's contract vs the float64 oracle
+CHAIN_DB = -100.0  # the C8 chain on the card vs the port's CPU run
 
 
 @dataclass
@@ -65,6 +83,9 @@ class Sizes:
     serve_blocks: int = 16
     run_blocks: int = 8
     quick_batch: int = 512
+    c8_batch: int = 4096
+    c8_block: int = 2048
+    c8_window: int = 512
 
 
 def err_db(a, b) -> float:
@@ -103,6 +124,18 @@ def time_ms(torch, fn, reps: int, warm: int = 1) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def c8_config(sz: Sizes, **over):
+    from afp_tpu_torch.engine import StreamConfig
+
+    return StreamConfig(**{**C8, "batch": sz.c8_batch, "blocksize": sz.c8_block,
+                           "agc_window_size": sz.c8_window, **over})
 
 
 # ---------------------------------------------------------------- phase 3
@@ -216,6 +249,129 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
     say(f"phase 3 K2 dither_cuda [{sz.quick_batch}, {T}]: TPDF and RPDF "
         f"bit-exact vs plain; {res['dither_cuda']['ms']:.3f} ms vs plain "
         f"{res['dither_cuda']['plain_ms']:.3f} ms")
+    return res
+
+
+def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
+    """K5-K8 against their plain versions at the C8 point."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.cuda import agc_rms as R
+    from afp_tpu_torch.ops.cuda import agc_scan as S
+    from afp_tpu_torch.ops.cuda import fir_td as F
+
+    pipe = Pipeline(c8_config(sz), dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    h = params.combined_cascade(pipe.has_eq)
+    B, T, W, kp, n = sz.c8_batch, sz.c8_block, sz.c8_window, pipe._k_pad, pipe.n_casc
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(B, T, generator=g, device=dev) * 0.1
+    x[: B // 8] *= 8.0  # loud streams: the gain releases and clips
+    a_att, a_rel = pipe.agc.a_att, pipe.agc.a_rel
+    res = {}
+
+    # K5: the two-level window (W = 512), a direct one, the chunk means
+    lp, rp = pipe._rms_pad
+    band = pipe._rms_band
+    dk = R.rms_desired(x, band, lp, rp, 0.1, 10.0, True, transposed=True)
+    e5 = err_db(dk.cpu(), R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, True,
+                                              transposed=True).cpu())
+    wd = 300
+    band_d = F.band_matrix(np.full(wd, 1.0 / wd, np.float32)).to(dev)
+    ex_d = R.band_is_exact_bf16(band_d.cpu())
+    pd = (wd // 2, wd - 1 - wd // 2)
+    e5d = err_db(R.rms_desired(x, band_d, *pd, 0.1, 10.0, ex_d, transposed=True).cpu(),
+                 R.rms_desired_plain(x, band_d, *pd, 0.1, 10.0, ex_d,
+                                     transposed=True).cpu())
+    mk = R.rms_desired(x, band, lp, rp, 0.1, 10.0, True, transposed=True, mean_chunk=32)
+    e5m = err_db(mk.cpu(), R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, True,
+                                               transposed=True, mean_chunk=32).cpu())
+    check(max(e5, e5d, e5m) <= CONV_DB and not ex_d,
+          f"K5: W={W} {e5:.1f} dB, W={wd} {e5d:.1f} dB, means {e5m:.1f} dB")
+    dp = R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, True, transposed=True)
+    res["rms_desired"] = dict(
+        max_abs_err=float((dk - dp).abs().max()),
+        ms=time_ms(torch, lambda: R.rms_desired(x, band, lp, rp, 0.1, 10.0, True,
+                                                transposed=True), 10),
+        plain_ms=time_ms(torch, lambda: R.rms_desired_plain(
+            x, band, lp, rp, 0.1, 10.0, True, transposed=True), 3))
+    say(f"phase 3 K5 rms_desired [{B}, {T}] -> [T, B]: W={W} two-level "
+        f"{e5:.1f} dB, W={wd} direct {e5d:.1f} dB, chunk means {e5m:.1f} dB vs "
+        f"plain; {res['rms_desired']['ms']:.3f} ms vs plain "
+        f"{res['rms_desired']['plain_ms']:.3f} ms")
+    del dp
+
+    # K6: exact and blockwise, f32 and pair, a ring slot; bit-exact
+    init = torch.rand(B, generator=g, device=dev) * 4.0 + 0.2
+    ring = torch.randn(3, B, T, generator=g, device=dev) * 0.1
+    ring[1] = x
+    cases = [
+        ("exact f32 + init", dk, dict(init=init)),
+        ("exact pair, ring slot", dk, dict(emit_split=True, ring_idx=1)),
+        ("blockwise means f32", mk, dict(init=init, blockwise=32, d_is_means=True)),
+        ("blockwise pair", dk, dict(emit_split=True, blockwise=32)),
+    ]
+    for name, d, kw in cases:
+        src = ring if "ring_idx" in kw else x
+        (yk, ck) = S.smooth_gain_apply(d, src, a_att, a_rel, 10.0, **kw)
+        (yp, cp) = S.smooth_gain_apply_plain(d, src, a_att, a_rel, 10.0, **kw)
+        same = torch.equal(ck, cp) and (
+            all(torch.equal(a, b) for a, b in zip(yk, yp))
+            if isinstance(yk, tuple) else torch.equal(yk, yp))
+        check(same, f"K6 {name}: kernel differs from its plain version")
+    res["smooth_gain_apply"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: S.smooth_gain_apply(
+            dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 10),
+        plain_ms=time_ms(torch, lambda: S.smooth_gain_apply_plain(
+            dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 1))
+    say(f"phase 3 K6 smooth_gain_apply [{T}, {B}]: {', '.join(c[0] for c in cases)} "
+        f"bit-exact vs plain (y, pair, carry); "
+        f"{res['smooth_gain_apply']['ms']:.3f} ms vs plain "
+        f"{res['smooth_gain_apply']['plain_ms']:.3f} ms (exact, pair)")
+    (xh, xl), _ = S.smooth_gain_apply(dk, x, a_att, a_rel, 10.0, init=init,
+                                      emit_split=True)
+    del ring, mk
+
+    # K8: the pair conv, clip + dither fused; K7: the same into a ring slot
+    th, tl = F.split_bf16(torch.randn(B, kp, generator=g, device=dev) * 0.1)
+    dkw = dict(out_clip=0.2, dither_key=(5, 7), dither_bits=16, dither_tpdf=True)
+    y8, t8h, t8l = F.fir_td_mxu_pair(xh, xl, th, tl, h)
+    yp8, p8h, p8l = F.fir_td_mxu_pair_plain(xh, xl, th, tl, h)
+    e8 = err_db(y8.cpu(), yp8.cpu())
+    y8e, _, _ = F.fir_td_mxu_pair(xh, xl, th, tl, h, **dkw)
+    e8e = err_db(y8e.cpu(), F.fir_td_mxu_pair_plain(xh, xl, th, tl, h, **dkw)[0].cpu())
+    epi_ok = torch.equal(y8e, F._finish(y8, 0.2, (5, 7), 16, True))
+    tails = torch.equal(t8h, p8h) and torch.equal(t8l, p8l)
+    check(e8 <= CONV_DB and e8e <= CONV_DB and epi_ok and tails,
+          f"K8: conv {e8:.1f} dB, dithered {e8e:.1f} dB, epilogue {epi_ok}, "
+          f"tail {tails}")
+    res["fir_td_mxu_pair"] = dict(
+        max_abs_err=float((y8 - yp8).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_pair(xh, xl, th, tl, h, **dkw), 10),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_pair_plain(
+            xh, xl, th, tl, h, **dkw), 3))
+    say(f"phase 3 K8 fir_td_mxu_pair [{B}, {T}] pair + tail {kp} x {n} taps: "
+        f"conv {e8:.1f} dB, with clip+dither {e8e:.1f} dB vs plain, epilogue "
+        f"and tail bit-exact; {res['fir_td_mxu_pair']['ms']:.3f} ms vs plain "
+        f"{res['fir_td_mxu_pair']['plain_ms']:.3f} ms")
+    Sl, idx = sz.slots, 5 % sz.slots
+    out0 = torch.full((Sl, B, T), 7.0, device=dev)
+    o7, t7h, t7l = F.fir_td_mxu_pair_to_ring(xh, xl, th, tl, h, idx, out0.clone(), **dkw)
+    untouched = all(bool((o7[s] == 7.0).all()) for s in (0, (idx + 1) % Sl))
+    same = torch.equal(o7[idx], y8e) and torch.equal(t7h, p8h) and torch.equal(t7l, p8l)
+    check(same and untouched, f"K7: slot equals K8 and tails {same}, other "
+          f"slots untouched {untouched}")
+    res["fir_td_mxu_pair_to_ring"] = dict(
+        max_abs_err=float((o7[idx] - F.fir_td_mxu_pair_plain(
+            xh, xl, th, tl, h, **dkw)[0]).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_pair_to_ring(
+            xh, xl, th, tl, h, idx, out0, **dkw), 10),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_pair_to_ring_plain(
+            xh, xl, th, tl, h, idx, out0, **dkw), 3))
+    say(f"phase 3 K7 fir_td_mxu_pair_to_ring slot {idx} of [{Sl}, {B}, {T}]: "
+        f"equals K8 bit for bit, tail bit-exact, other slots untouched; "
+        f"{res['fir_td_mxu_pair_to_ring']['ms']:.3f} ms vs plain "
+        f"{res['fir_td_mxu_pair_to_ring']['plain_ms']:.3f} ms")
     return res
 
 
@@ -346,6 +502,166 @@ def phase_engine(torch, dev, sz: Sizes) -> None:
         f"6 blocks + set_eq_gains + process_signal, metrics {m.snapshot()}")
 
 
+# ---------------------------------------------------------------- C8 chain
+
+
+def c8_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
+    """The C8 chain in float64 over [B, N·L] input: per block, the AGC of
+    the reference (boxcar RMS with 'same' zero padding, desired gain, the
+    attack/release recurrence carried across blocks from unity as
+    `tests/test_agc_fused.py:37-53` writes it, the 0.1..max_gain clip, the
+    ±0.99 clip); then the linear chain on the whole gained stream:
+    upsample, main ⊛ Σ gᵢ·bandᵢ, decimate, clip."""
+    import scipy.signal as sps
+
+    from afp_tpu_torch.ops.agc import agc_alphas
+    from afp_tpu_torch.ops.resample import streaming_kernel
+
+    B, N = x.shape
+    L, w = cfg.blocksize, cfg.agc_window_size
+    a_att, a_rel = agc_alphas(w, cfg.agc_attack, cfg.agc_release)
+    t, mg = cfg.agc_target_level, cfg.agc_max_gain
+    g = np.ones(B)
+    gained = np.empty((B, N))
+    for b0 in range(0, N, L):
+        xb = x[:, b0:b0 + L].astype(np.float64)
+        ss = np.stack([np.convolve(r, np.ones(w) / w, "same") for r in xb * xb])
+        d = np.clip(t / (np.sqrt(np.maximum(ss, 0)) + 1e-10), 0, mg)
+        gs = np.empty_like(d)
+        for i in range(L):
+            a = np.where(d[:, i] > g, a_att, a_rel)
+            g = a * d[:, i] + (1 - a) * g
+            gs[:, i] = g
+        gs = np.clip(gs, 0.1, mg)
+        g = gs[:, -1]
+        gained[:, b0:b0 + L] = np.clip(xb * gs, -0.99, 0.99)
+    upf = cfg.upsample_factor
+    h = sum(gi * np.convolve(design.main_taps.astype(np.float64), b.astype(np.float64))
+            for gi, b in zip(design.eq_gains, design.eq_taps))
+    h_up = streaming_kernel(upf, 1, quality=cfg.resample_quality)
+    out = []
+    for r in gained:
+        y = sps.upfirdn(h_up, r, upf, 1)[: N * upf]
+        out.append(np.convolve(y, h)[: len(y)][::upf])
+    return np.clip(np.stack(out), -cfg.output_clip, cfg.output_clip)
+
+
+def phase_c8_pipeline(torch, dev, sz: Sizes) -> None:
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    blocks = torch.randn(sz.run_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                         device=dev) * 0.1
+    for mode in ("exact", "fast"):
+        pipe = Pipeline(c8_config(sz, agc_mode=mode), dev)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        pipe.run(params, pipe.init_state(seed=0), blocks[:1])  # warm-up
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, outs = pipe.run(params, pipe.init_state(seed=0), blocks)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        check(outs.shape == blocks.shape and bool(torch.isfinite(outs).all())
+              and float(outs.abs().max()) <= 0.99 + 2.0 ** -14
+              and bool(torch.isfinite(state.agc_gain).all()),
+              f"C8 {mode}: shape, finiteness, clip or gain carry")
+        audio_s = sz.run_blocks * sz.c8_batch * sz.c8_block / pipe.cfg.samplerate
+        say(f"phase 4 C8 Pipeline.run agc_mode={mode} batch {sz.c8_batch} x "
+            f"{sz.run_blocks} blocks of {sz.c8_block}: {wall * 1e3:.1f} ms wall "
+            f"({wall * 1e3 / sz.run_blocks:.2f} ms/block, {audio_s / wall:.0f}x "
+            f"realtime, host clock)")
+    del blocks, outs
+
+    # the card against the port's CPU run (plain versions), batch 8
+    small = c8_config(sz, batch=8)
+    sig = (np.random.default_rng(4).standard_normal((4, 8, sz.c8_block)) * 0.1
+           ).astype(np.float32)
+    sig[:, 0] *= 8.0
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        pipe = Pipeline(small, where)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        _, y = pipe.run(params, pipe.init_state(seed=1), sig)
+        outs[where.type] = y.cpu().numpy()
+    e = err_db(outs[dev.type], outs["cpu"])
+    check(e <= CHAIN_DB, f"C8 batch 8: card vs CPU {e:.1f} dB")
+    say(f"phase 4 C8 batch 8, 4 blocks, dither on: card vs the port's CPU run "
+        f"{e:.1f} dB (<= {CHAIN_DB})")
+
+    # the float64 oracle: 4 streams, 4 blocks, dither off
+    ocfg = c8_config(sz, batch=4, dither_kind="off")
+    pipe = Pipeline(ocfg, dev)
+    design = PipelineParams.design(pipe.cfg)
+    params = pipe.device_params(design)
+    x = (np.random.default_rng(5).standard_normal((4, 4 * sz.c8_block)) * 0.1
+         ).astype(np.float32)
+    x[0, : sz.c8_block] *= 8.0
+    x[1] *= 1e-2
+    _, out = pipe.process_signal(params, pipe.init_state(), x, fold=False)
+    e = err_db(out.cpu().numpy(), c8_oracle(x, pipe.cfg, design))
+    check(e < ORACLE_DB, f"C8 oracle: {e:.1f} dB breaks the {ORACLE_DB} dB contract")
+    say(f"phase 4 C8 oracle: 4 streams, 4 blocks, dither off: {e:.1f} dB vs "
+        f"the float64 AGC + chain (< {ORACLE_DB})")
+
+
+def phase_c8_serving(torch, dev, sz: Sizes) -> None:
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.runtime import RingServer
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    src = (torch.randn(sz.serve_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                       device=dev) * 0.1).cpu().numpy()
+    pipe = Pipeline(c8_config(sz), dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    # a first server over the same blocks warms the allocators (rings, the
+    # pinned staging buffers of every in-flight block) and the kernels'
+    # first launches; the second is the one measured and checked
+    RingServer(pipe, params, slots=sz.slots, chunk=sz.chunk, max_inflight=2,
+               seed=0).serve(iter(src), lambda _: None)
+    srv = RingServer(pipe, params, slots=sz.slots, chunk=sz.chunk,
+                     max_inflight=2, seed=0)
+    got = []
+    stats = srv.serve(iter(src), got.append)
+    check(stats["blocks"] == sz.serve_blocks, "C8 RingServer lost blocks")
+    st = pipe.init_state(seed=0)
+    same = True
+    for blk, o in zip(src, got):
+        st, y = pipe.step(params, st, blk)
+        same = same and np.array_equal(o, y.cpu().numpy())
+    check(same and torch.equal(st.agc_gain, srv.state.agc_gain),
+          "C8 RingServer differs from the staged steps (dither on)")
+    lat = stats["latency"]
+    say(f"phase 5 C8 RingServer per-step ring, {sz.slots} slots, chunk "
+        f"{sz.chunk}: {stats['blocks']} blocks in {stats['wall_s'] * 1e3:.1f} ms "
+        f"({stats['xrt']:.0f}x realtime, p50 {lat['p50_ms']:.1f} ms, p95 "
+        f"{lat['p95_ms']:.1f} ms land-to-drain, host clock); ring == staged "
+        f"bit for bit, dither on")
+
+
+def phase_c8_engine(torch, dev, sz: Sizes) -> None:
+    from afp_tpu_torch.engine import StreamEngine
+
+    cfg = c8_config(sz)
+    eng = StreamEngine(cfg, device=dev)
+    rng = np.random.default_rng(13)
+    outs = []
+    for i in range(6):
+        if i == 4:
+            check(eng.apply_config(replace(eng.cfg, agc_target_level=0.2)),
+                  "C8 apply_config with a new AGC target was not a dynamic swap")
+        blk = (rng.standard_normal((sz.c8_batch, sz.c8_block)) * 0.1).astype(np.float32)
+        outs.append(eng.process_block(blk))
+    m = eng.metrics
+    check(m.underruns == m.fallback_replays == m.fallback_silence == 0,
+          f"C8 StreamEngine ladder fired: {m.snapshot()}")
+    check(all(o.shape == (sz.c8_batch, sz.c8_block) and np.isfinite(o).all()
+              and np.abs(o).max() <= 0.99 + 2.0 ** -14 for o in outs)
+          and float(eng.params.agc_target) == np.float32(0.2),
+          "C8 StreamEngine outputs: shape, finiteness, clip or the swap")
+    say(f"phase 6 C8 StreamEngine batch {sz.c8_batch}: 4 blocks + apply_config "
+        f"(agc_target_level 0.1 -> 0.2, dynamic) + 2 blocks, metrics {m.snapshot()}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -357,6 +673,14 @@ REPLACES = {
                                  "afp_tpu/ops/pallas/fir_td.py:1612"),
     "dither_cuda": ("afp_tpu_torch/csrc/dither.cu",
                     "afp_tpu/ops/pallas/dither_pl.py:69"),
+    "rms_desired": ("afp_tpu_torch/csrc/agc_rms.cu",
+                    "afp_tpu/ops/pallas/agc_rms.py:330"),
+    "smooth_gain_apply": ("afp_tpu_torch/csrc/agc_scan.cu",
+                          "afp_tpu/ops/pallas/agc_scan.py:384"),
+    "fir_td_mxu_pair_to_ring": ("afp_tpu_torch/csrc/fir_td.cu",
+                                "afp_tpu/ops/pallas/fir_td.py:828"),
+    "fir_td_mxu_pair": ("afp_tpu_torch/csrc/fir_td.cu",
+                        "afp_tpu/ops/pallas/fir_td.py:700"),
 }
 
 
@@ -384,13 +708,16 @@ def main() -> int:
 
     sz = Sizes()
     res = phase_kernels(torch, dev, sz)
+    res.update(phase_kernels_agc(torch, dev, sz))
 
     for k in KERNELS:  # count only the main path's launches from here on
         k.launches = 0
-    phase_pipeline(torch, dev, sz)
-    phase_serving(torch, dev, sz)
-    phase_engine(torch, dev, sz)
-    torch.cuda.synchronize()
+    for phase in (phase_pipeline, phase_c8_pipeline, phase_serving,
+                  phase_c8_serving, phase_engine, phase_c8_engine):
+        t0 = time.perf_counter()
+        phase(torch, dev, sz)
+        torch.cuda.synchronize()
+        say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
     launches = {k.__name__: k.launches for k in KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")

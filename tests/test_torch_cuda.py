@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 edge shapes the smoke's headline run does not reach: ragged time tiles,
 masked batch rows, one tap, k_pad > T, n_steps > S, an unaligned dither
-buffer.  Marked ``cuda``: they skip without a CUDA device.  The card's
-machine has no jax, so run them there without the suite's conftest:
+buffer; for the AGC kernels, a window wider than the block, batches that
+fill no tile, a block that is not whole recurrence chunks.  Marked
+``cuda``: they skip without a CUDA device.  The card's machine has no jax,
+so run them there without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -10,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from afp_tpu_torch.ops.cuda import agc_rms as R
+from afp_tpu_torch.ops.cuda import agc_scan as S
 from afp_tpu_torch.ops.cuda import dither_cuda
 from afp_tpu_torch.ops.cuda import fir_td as F
 from afp_tpu_torch.ops.dither import dither_plain
@@ -100,3 +104,69 @@ def test_k2_vs_plain(dev, numel, offset):
     for kind in ("tpdf", "rpdf"):
         assert torch.equal(dither_cuda(x, (2, 3), 20, kind),
                            dither_plain(x, (2, 3), 20, kind))
+
+
+@pytest.mark.parametrize("B,T,W,transposed,mean_chunk", [
+    (5, 256, 384, True, 0),     # two-level window wider than the block
+    (13, 128, 300, False, 0),   # direct, 1/300 not exact in bf16, W > T
+    (3, 384, 100, True, 32),    # chunk means, batch below one row tile
+    (9, 640, 1, False, 0),      # one-sample window
+])
+def test_k5_vs_plain(dev, B, T, W, transposed, mean_chunk):
+    x = randn(dev, B, T)
+    x[0] *= 10.0
+    band = F.band_matrix(np.full(W, 1.0 / W, np.float32)).to(dev)
+    exact = R.band_is_exact_bf16(band.cpu())
+    lp, rp = W // 2, W - 1 - W // 2
+    kw = dict(transposed=transposed, mean_chunk=mean_chunk)
+    d = R.rms_desired(x, band, lp, rp, 0.1, 10.0, exact, **kw)
+    e = err_db(d, R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, exact, **kw))
+    print(f"K5 B={B} T={T} W={W} {kw}: {e:.1f} dB")
+    assert e <= CONV_DB
+    ring = torch.stack([randn(dev, B, T, seed=3), x])
+    assert torch.equal(R.rms_desired(ring, band, lp, rp, 0.1, 10.0, exact,
+                                     ring_idx=1, **kw), d)
+
+
+@pytest.mark.parametrize("B,T,blockwise", [(45, 200, None), (7, 96, 32),
+                                           (33, 384, 32)])
+def test_k6_vs_plain(dev, B, T, blockwise):
+    """Bit-exact: the f32 and pair stores, with and without a carry; a
+    block that is not whole 128-step chunks and batches that fill no
+    32-stream block."""
+    x = randn(dev, B, T)
+    d = (torch.rand(T, B, generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev) * 6.0 + 0.1)
+    init = torch.linspace(0.2, 8.0, B, device=dev)
+    for kw in (dict(init=None), dict(init=init), dict(init=init, emit_split=True)):
+        a = S.smooth_gain_apply(d, x, 0.3, 0.02, 10.0, blockwise=blockwise, **kw)
+        b = S.smooth_gain_apply_plain(d, x, 0.3, 0.02, 10.0, blockwise=blockwise, **kw)
+        (ya, ca), (yb, cb) = a, b
+        assert torch.equal(ca, cb)
+        if isinstance(ya, tuple):
+            assert all(torch.equal(u, v) for u, v in zip(ya, yb))
+        else:
+            assert torch.equal(ya, yb)
+    y0, _ = S.smooth_gain_apply(d, x, 0.3, 0.02, 10.0, blockwise=blockwise)
+    y1, _ = S.smooth_gain_apply(d, x, 0.3, 0.02, 10.0, init=init, blockwise=blockwise)
+    assert not torch.equal(y0, y1)  # the carry reaches the output
+
+
+@pytest.mark.parametrize("B,T,n", [(6, 128, 300), (5, 256, 129), (1, 384, 2)])
+def test_k8_k7_vs_plain(dev, B, T, n):
+    """k_pad > T (the next tail reaches into the old one) and ragged last
+    row tiles: the conv ≤ −110 dB, the tail bit-exact, K7's slot ≡ K8."""
+    h = randn(dev, n, seed=1)
+    xh, xl = F.split_bf16(randn(dev, B, T))
+    th, tl = F.split_bf16(randn(dev, B, F.ring_k_pad(n), seed=2))
+    y, nh, nl = F.fir_td_mxu_pair(xh, xl, th, tl, h)
+    yp, ph, pl = F.fir_td_mxu_pair_plain(xh, xl, th, tl, h)
+    e = err_db(y, yp)
+    print(f"K8 B={B} T={T} n={n}: {e:.1f} dB")
+    assert e <= CONV_DB and torch.equal(nh, ph) and torch.equal(nl, pl)
+    ye, _, _ = F.fir_td_mxu_pair(xh, xl, th, tl, h, **EPI)
+    assert torch.equal(ye, F._finish(y, 0.3, (9, 4), 16, True))
+    out = torch.full((3, B, T), 5.0, device=dev)
+    out, rh, rl = F.fir_td_mxu_pair_to_ring(xh, xl, th, tl, h, 2, out, **EPI)
+    assert torch.equal(out[2], ye) and torch.equal(rh, nh) and torch.equal(rl, nl)
+    assert bool((out[:2] == 5.0).all())

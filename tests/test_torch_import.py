@@ -1,6 +1,6 @@
 """The port imports no jax and nothing of `afp_tpu`: in a fresh interpreter
 whose import system refuses both, the package and its subpackages import,
-and a small pipeline runs end to end on the CPU."""
+and a small pipeline, with and without AGC, runs end to end on the CPU."""
 import subprocess
 import sys
 from pathlib import Path
@@ -33,10 +33,12 @@ print("ok")
 _RUN = """
 import numpy as np
 from afp_tpu_torch.engine import StreamConfig, StreamEngine
-eng = StreamEngine(StreamConfig(blocksize=256, batch=2, numtaps=31,
-                                conv_strategy="td_mxu"), device="cpu")
-out = eng.process_block(np.zeros((2, 256), np.float32))
-assert out.shape == (2, 256) and eng.metrics.underruns == 0
+for agc in (False, True):
+    eng = StreamEngine(StreamConfig(blocksize=256, batch=2, numtaps=31,
+                                    conv_strategy="td_mxu", agc_enabled=agc,
+                                    agc_window_size=128), device="cpu")
+    out = eng.process_block(np.full((2, 256), 0.1, np.float32))
+    assert out.shape == (2, 256) and eng.metrics.underruns == 0
 """
 
 
@@ -49,8 +51,9 @@ def _probe(mods, extra=""):
 
 @pytest.mark.parametrize("mods,extra", [
     (["afp_tpu_torch", "afp_tpu_torch.engine", "afp_tpu_torch.runtime",
-      "afp_tpu_torch.ops", "afp_tpu_torch.ops.cuda", "afp_tpu_torch.design",
-      "afp_tpu_torch.utils"], ""),
+      "afp_tpu_torch.ops", "afp_tpu_torch.ops.agc", "afp_tpu_torch.ops.cuda",
+      "afp_tpu_torch.ops.cuda.agc_rms", "afp_tpu_torch.ops.cuda.agc_scan",
+      "afp_tpu_torch.design", "afp_tpu_torch.utils"], ""),
     (["afp_tpu_torch.engine"], _RUN)], ids=["import", "run"])
 def test_imports_without_jax(mods, extra):
     r = _probe(mods, extra)
