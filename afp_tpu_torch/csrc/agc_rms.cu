@@ -23,6 +23,11 @@
 // across streams per step); or the time-major chunk means [T/mc, B] of the
 // bf16 split of d, sum(hi)/mc + sum(lo)/mc (`agc_rms.py:50-90`).
 //
+// x is f32 or, under `ingest='pcm16'`, the raw int16 PCM block or ring slot,
+// converted n * 2^-15 as it is staged (`agc_rms.py:111-113, 352-372`).  The
+// convert is exact, so an int16 x gives the bits of an f32 x of n/32768 and
+// moves half the input bytes.
+//
 // What bounds it on H100 at the C8 shape (batch 4096, block 2048, W = 512):
 // 32 MiB in and 32 MiB out (~20 us at 3.35 TB/s); a direct window sum would
 // cost W adds per output (4.3 G adds).  Design: a block of 256 threads owns
@@ -48,11 +53,11 @@ constexpr int kLayoutTB = 1;     // d [T, B]
 constexpr int kLayoutMeans = 2;  // chunk means [T / mean_chunk, B]
 
 struct RmsArgs {
-  const float* x;     // [B, T]
+  const void* x;      // [B, T] f32, or int16 PCM with x_i16
   const float* band;  // boxcar band [W-1+128, 128]: entry (W-1, 0) is 1/w
   float* out;
   int B, T, W, lp;
-  int two_level, exact, layout, mean_chunk;
+  int two_level, exact, layout, mean_chunk, x_i16;
   float target, max_gain, inv_w;
 };
 
@@ -81,7 +86,12 @@ __global__ void __launch_bounds__(kThreads)
     const int tx = t0 + p - a.lp;
     float v = 0.f, hv = 0.f;
     if (b < a.B && tx >= 0 && tx < a.T) {
-      const float xv = a.x[static_cast<long long>(b) * a.T + tx];
+      const long long k = static_cast<long long>(b) * a.T + tx;
+      const float xv =
+          a.x_i16 ? __fmul_rn(static_cast<float>(
+                                  static_cast<const int16_t*>(a.x)[k]),
+                              1.0f / 32768.0f)
+                  : static_cast<const float*>(a.x)[k];
       const float2 s = afp::split_bf16(__fmul_rn(xv, xv));
       v = __fadd_rn(s.x, s.y);  // exact: the halves' bits do not overlap
       hv = s.x;
@@ -220,14 +230,14 @@ size_t smem_bytes(int rows, int W, bool need_hi) {
 
 }  // namespace
 
-// K5.  x [B, T] (a ring slot is passed as its own [B, T] view) -> out in
-// `layout`.  The band supplies the direct form's weight; `inv_w` the
-// two-level form's 1/W.
+// K5.  x [B, T], f32 or (x_i16) int16 PCM (a ring slot is passed as its own
+// [B, T] view) -> out in `layout`.  The band supplies the direct form's
+// weight; `inv_w` the two-level form's 1/W.
 extern "C" int afp_rms_desired(const void* x, const void* band, void* out,
                                int B, int T, int W, int lp, int two_level,
                                int exact, int layout, int mean_chunk,
-                               float target, float max_gain, float inv_w,
-                               void* stream) {
+                               int x_i16, float target, float max_gain,
+                               float inv_w, void* stream) {
   if (B <= 0 || T <= 0 || W <= 0 || lp < 0 || lp > W - 1 ||
       layout < kLayoutBT || layout > kLayoutMeans ||
       (two_level && W % kLane) ||
@@ -245,7 +255,7 @@ extern "C" int afp_rms_desired(const void* x, const void* band, void* out,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   RmsArgs a;
-  a.x = static_cast<const float*>(x);
+  a.x = x;
   a.band = static_cast<const float*>(band);
   a.out = static_cast<float*>(out);
   a.B = B;
@@ -256,6 +266,7 @@ extern "C" int afp_rms_desired(const void* x, const void* band, void* out,
   a.exact = exact;
   a.layout = layout;
   a.mean_chunk = mean_chunk;
+  a.x_i16 = x_i16;
   a.target = target;
   a.max_gain = max_gain;
   a.inv_w = inv_w;

@@ -11,9 +11,12 @@
 //   carry[b] = clip(g_last, 0.1, max_gain)
 //
 // optionally storing y as its bf16 (hi, lo) pair for the pair-input conv
-// (K8/K7).  Blockwise ('fast' mode): one step per chunk mean (given, or the
-// in-order sum of the chunk's rows times 1/chunk) with the compounded
-// alphas from the wrapper, and the linear ramp g + (gn - g) * (t+1)/chunk
+// (K8/K7).  x is f32 or, under `ingest='pcm16'`, the raw int16 PCM block or
+// ring slot, converted n * 2^-15 as it is read (`agc_scan.py:273-277,
+// 418-439`): exact, so the apply sees the bits of an f32 x of n/32768.
+// Blockwise ('fast' mode): one step per chunk mean (given, or the in-order
+// sum of the chunk's rows times 1/chunk) with the compounded alphas from the
+// wrapper, and the linear ramp g + (gn - g) * (t+1)/chunk
 // inside the chunk.  The updates round as XLA's CPU backend evaluates the
 // reference's expressions, a·d + (1−a)·g as fma(a, d, (1−a)·g) and the ramp
 // as fma(gn − g, fr, g) (measured bit-exact against `afp_tpu` on the CPU);
@@ -45,7 +48,8 @@ constexpr int kTC = 128;      // time steps per staged chunk
 
 struct ScanArgs {
   const float* d;     // [T, B], or the chunk means [T / chunk, B]
-  const float* x;     // [B, T] (a ring slot is passed as its own view)
+  const void* x;      // [B, T] f32, or int16 PCM with x_i16 (a ring slot is
+                      // passed as its own view)
   const float* init;  // [B] carried gain, or null
   float* y;           // [B, T] f32 output, or null with the pair
   uint16_t* yh;       // [B, T] bf16 pair output (raw bits), or null
@@ -54,6 +58,7 @@ struct ScanArgs {
   int B, T;
   int chunk;    // 0: per-sample recurrence; else the blockwise chunk
   int d_means;  // blockwise: d holds the chunk means
+  int x_i16;
   float a_att, a_rel, max_gain, out_clip;
 };
 
@@ -135,7 +140,12 @@ __global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
       const int r = i / n;
       const int t = i - r * n;
       const long long o = static_cast<long long>(b0 + r) * a.T + tc + t;
-      const float v = fminf(fmaxf(__fmul_rn(a.x[o], gs[t][r]), -a.out_clip),
+      const float xv =
+          a.x_i16 ? __fmul_rn(static_cast<float>(
+                                  static_cast<const int16_t*>(a.x)[o]),
+                              1.0f / 32768.0f)
+                  : static_cast<const float*>(a.x)[o];
+      const float v = fminf(fmaxf(__fmul_rn(xv, gs[t][r]), -a.out_clip),
                             a.out_clip);
       if (a.y != nullptr) {
         a.y[o] = v;
@@ -152,12 +162,13 @@ __global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
 
 }  // namespace
 
-// K6.  d [T, B] (or [T/chunk, B] means), x [B, T] -> y [B, T] f32 or the
-// pair (yh, yl), and carry [B].  a_att/a_rel arrive compounded when
-// blockwise (chunk > 0).
+// K6.  d [T, B] (or [T/chunk, B] means), x [B, T] f32 or (x_i16) int16 PCM
+// -> y [B, T] f32 or the pair (yh, yl), and carry [B].  a_att/a_rel arrive
+// compounded when blockwise (chunk > 0).
 extern "C" int afp_agc_apply(const void* d, const void* x, const void* init,
                              void* y, void* yh, void* yl, void* carry, int B,
-                             int T, int chunk, int d_means, float a_att,
+                             int T, int chunk, int d_means, int x_i16,
+                             float a_att,
                              float a_rel, float max_gain, float out_clip,
                              void* stream) {
   if (B <= 0 || T <= 0 || chunk < 0 || (chunk && (kTC % chunk || T % chunk)) ||
@@ -165,7 +176,7 @@ extern "C" int afp_agc_apply(const void* d, const void* x, const void* init,
     return static_cast<int>(cudaErrorInvalidValue);
   ScanArgs a;
   a.d = static_cast<const float*>(d);
-  a.x = static_cast<const float*>(x);
+  a.x = x;
   a.init = static_cast<const float*>(init);
   a.y = static_cast<float*>(y);
   a.yh = static_cast<uint16_t*>(yh);
@@ -175,6 +186,7 @@ extern "C" int afp_agc_apply(const void* d, const void* x, const void* init,
   a.T = T;
   a.chunk = chunk;
   a.d_means = d_means;
+  a.x_i16 = x_i16;
   a.a_att = a_att;
   a.a_rel = a_rel;
   a.max_gain = max_gain;

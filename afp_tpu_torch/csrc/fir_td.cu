@@ -1,9 +1,9 @@
-// K1, K3, K4, K7, K8: the fused single-rate FIR of the filter chain, in
-// bf16x3.
+// K1, K3, K4, K7, K8, K12, K13: the fused single-rate FIR of the filter
+// chain, in bf16x3.
 //
-// Replaces five TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
+// Replaces nine TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
 // one conv body here and differ only in where a block's input window comes
-// from (the loader, `load_split`):
+// from (the loader, `load_split`) and in the store:
 //   K1  fir_td_mxu               (_fir_kernel_b3 + _finish_tile): windows of a
 //       staged x_ext [B, n-1+T];
 //   K3  fir_td_mxu_ring_f32      (_fir_kernel_b3t_f32): slot idx of an f32
@@ -14,15 +14,24 @@
 //       order to carry the tail in VMEM; here the input ring is read-only for
 //       the whole dispatch, so step i's history is simply the end of the
 //       earlier slots (or the carried tail), and every (row tile, time tile,
-//       step) block is independent;
+//       step) block is independent.  K3 is this form with n_steps = 1;
+//   K12 fir_td_mxu_ring_pcm16 (fir_td.py:1270) and fir_td_mxu_ring_mega_pcm16
+//       (fir_td.py:1638): K3/K4 over a raw int16 PCM ring and int16 tail; the
+//       loader converts n * 2^-15 (exact) and splits (exact for 16-bit data,
+//       `_load_f32`), so K12 on n equals K3/K4 on n/32768 bit for bit, and
+//       the next tail is the raw int16 history;
+//   K13 fir_td_mxu_ring (fir_td.py:946) and fir_td_mxu_ring_mega
+//       (fir_td.py:1445, _fir_kernel_b3mega): K3/K4 over bf16 (hi, lo) pair
+//       rings and a pair tail; the loader reads the stored halves;
 //   K8  fir_td_mxu_pair          (_fir_td_pair_call, body _fir_kernel_b3t):
 //       the block and the carried tail arrive already split, as bf16 (hi, lo)
 //       pairs [B, T] and [B, k_pad] (the AGC apply kernel K6 stores y that
 //       way), so the loader reads the halves and skips the split;
 //   K7  fir_td_mxu_pair_to_ring  (_fir_td_pair_to_ring_call): K8's loader with
 //       K3's slot store, writing out_ring[idx] in place, plus the next pair
-//       tail (`pair_tail_kernel`).  K7 and K8 run the same body on the same
-//       windows, so K7's slot equals K8's output bit for bit.
+//       tail.  K7 and K8 run the same body on the same windows, so K7's slot
+//       equals K8's output bit for bit, and K13 on a slot equals K7 on that
+//       slot's views.
 //
 // Numerics: y[b,t] = sum_k (xh*hh + xh*hl + xl*hh), where xh/xl and hh/hl are
 // the bf16 hi/lo halves of the input and the taps made with split_bf16's
@@ -30,20 +39,23 @@
 // exact in fp32, so this is the TPU's bf16x3 class; only the order of the
 // fp32 sums differs.  The taps are read directly, not through a band matrix
 // (band[i, j] = h[n-1+j-i] is the same sum).  Epilogue: clip, then Philox
-// dither (philox.cuh), then the store.
+// dither (philox.cuh), then the store: f32, or with `emit_i16` the int16 PCM
+// quantizer int16(clip(rint(y * 32768), -32768, 32767)) (`_finish_tile`,
+// round half to even, clamped in float before the exact convert).
 //
 // What bounds it on H100 at the headline shape (batch 4096, block 4096,
-// 379 taps): traffic is 128 MiB per block (~40 us at 3.35 TB/s), while the
-// FMA form does 3 * 379 FMAs per output, 19 G FMAs per block (~0.57 ms at
-// the ~33.5 T FMA/s of the fp32 CUDA cores).  So it is compute-bound on the
-// CUDA cores.  Design: a block of 128 threads owns a tile of 4 batch rows x
-// 512 outputs; it stages the split window and taps in shared memory, and each
-// thread accumulates 4 rows x 4 consecutive outputs in registers, sliding a
-// 4-sample register window so each tap costs one shared load per row.  The
-// window is stored in four phase-interleaved sub-arrays (position p at
-// [p % 4][p / 4]) so those loads are free of bank conflicts.  The later
-// route is the TPU's own: bf16 mma.sync/wgmma on the Toeplitz band with fp32
-// accumulators.
+// 379 taps): traffic is 128 MiB per block in f32 (~40 us at 3.35 TB/s; the
+// int16 forms move half the input or output bytes), while the FMA form does
+// 3 * 379 FMAs per output, 19 G FMAs per block (~0.57 ms at the ~33.5 T FMA/s
+// of the fp32 CUDA cores).  So it is compute-bound on the CUDA cores, and
+// the int16 loads and stores change its time little.  Design: a block of 128
+// threads owns a tile of 4 batch rows x 512 outputs; it stages the split
+// window and taps in shared memory, and each thread accumulates 4 rows x 4
+// consecutive outputs in registers, sliding a 4-sample register window so
+// each tap costs one shared load per row.  The window is stored in four
+// phase-interleaved sub-arrays (position p at [p % 4][p / 4]) so those loads
+// are free of bank conflicts.  The later route is the TPU's own: bf16
+// mma.sync/wgmma on the Toeplitz band with fp32 accumulators.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,61 +71,96 @@ constexpr int kThreads = 128;
 constexpr int kCols = 4 * kThreads;  // outputs per tile along time
 constexpr int kRows = 4;             // batch rows per tile
 constexpr int kModeExt = 0;          // K1: staged x_ext
-constexpr int kModeRing = 1;         // K3: one ring step
-constexpr int kModeMega = 2;         // K4: n_steps ring steps
-constexpr int kModePair = 3;         // K8/K7: bf16 pair block + pair tail
+constexpr int kModeRing = 1;         // K3/K4, K12, K13: n_steps ring steps
+constexpr int kModePair = 2;         // K8/K7: bf16 pair block + pair tail
+
+// element type of a ring and its tail
+constexpr int kInF32 = 0;   // K1, K3/K4: f32
+constexpr int kInI16 = 1;   // K12: int16 PCM, n / 32768
+constexpr int kInPair = 2;  // K13, K7/K8: bf16 (hi, lo) halves, raw bits
 
 struct Src {
-  const float* x;     // K1: x_ext [B, hist+T]; K3/K4: ring [S, B, T]
-  const float* tail;  // K3/K4: carried tail [B, hist]
-  // K7/K8: the block's bf16 halves [B, T] and the tail's [B, hist], raw bits
-  const uint16_t* xh;
-  const uint16_t* xl;
-  const uint16_t* th;
-  const uint16_t* tl;
+  // K1: x_ext [B, hist+T]; ring forms: the ring [S, B, T] (f32, int16 or the
+  // hi halves); K7/K8: the block's hi halves [B, T]
+  const void* x;
+  const void* xl;  // pair forms: the lo halves of x
+  const void* t;   // ring and pair forms: the carried tail [B, hist]
+  const void* tl;  // pair forms: the tail's lo halves
   int B, T;
-  int hist;  // history columns before output 0: n-1 (K1) or k_pad (K3/K4/K7/K8)
+  int hist;  // history columns before output 0: n-1 (K1) or k_pad (others)
   int S, start;
 };
 
-// Sample e of step `step`'s extended signal, e in [0, hist+T); 0 outside.
-// K3/K4 read the stream tail ++ slot(start) ++ slot(start+1) ++ ...: step s
-// starts at stream position s*T.
-template <int MODE>
-__device__ __forceinline__ float load_ext(const Src& s, int b, int step,
-                                          int e) {
-  if (e < 0 || e >= s.hist + s.T) return 0.f;
-  if (MODE == kModeExt)
-    return s.x[static_cast<long long>(b) * (s.hist + s.T) + e];
+// Ring forms: where sample e of step `step`'s extended signal lives.  The
+// stream is tail ++ slot(start) ++ slot(start+1) ++ ...; step s starts at
+// stream position s*T.  Returns true for the carried tail (index *i into
+// it), false for a ring slot (index *i into the ring).
+__device__ __forceinline__ bool ring_pos(const Src& s, int b, int step, int e,
+                                         long long* i) {
   const int p = step * s.T + e;
-  if (p < s.hist) return s.tail[static_cast<long long>(b) * s.hist + p];
+  if (p < s.hist) {
+    *i = static_cast<long long>(b) * s.hist + p;
+    return true;
+  }
   const int q = p - s.hist;
   const int m = q / s.T;
   const int slot = (s.start + m) % s.S;
-  return s.x[(static_cast<long long>(slot) * s.B + b) * s.T + (q - m * s.T)];
+  *i = (static_cast<long long>(slot) * s.B + b) * s.T + (q - m * s.T);
+  return false;
 }
 
-// The split (hi, lo) of sample e: K7/K8 read the stored halves, the other
-// loaders split the f32 sample.
-template <int MODE>
-__device__ __forceinline__ float2 load_split(const Src& s, int b, int step,
-                                             int e) {
-  if constexpr (MODE == kModePair) {
-    if (e < 0 || e >= s.hist + s.T) return make_float2(0.f, 0.f);
-    const bool in_tail = e < s.hist;
-    const long long i = in_tail ? static_cast<long long>(b) * s.hist + e
-                                : static_cast<long long>(b) * s.T + (e - s.hist);
-    return make_float2(afp::bf16_bits_to_float((in_tail ? s.th : s.xh)[i]),
-                       afp::bf16_bits_to_float((in_tail ? s.tl : s.xl)[i]));
+// The split (hi, lo) of element i of an array of type IN.  The int16 convert
+// n * 2^-15 is exact, and so is the split of the result.
+template <int IN>
+__device__ __forceinline__ float2 read_split(const void* hi, const void* lo,
+                                             long long i) {
+  if constexpr (IN == kInF32) {
+    return afp::split_bf16(static_cast<const float*>(hi)[i]);
+  } else if constexpr (IN == kInI16) {
+    return afp::split_bf16(__fmul_rn(
+        static_cast<float>(static_cast<const int16_t*>(hi)[i]),
+        1.0f / 32768.0f));
   } else {
-    return afp::split_bf16(load_ext<MODE>(s, b, step, e));
+    return make_float2(
+        afp::bf16_bits_to_float(static_cast<const uint16_t*>(hi)[i]),
+        afp::bf16_bits_to_float(static_cast<const uint16_t*>(lo)[i]));
   }
 }
 
-template <int MODE>
+// The split of sample e, e in [0, hist+T), of step `step`'s extended
+// signal; 0 outside.
+template <int MODE, int IN>
+__device__ __forceinline__ float2 load_split(const Src& s, int b, int step,
+                                             int e) {
+  if (e < 0 || e >= s.hist + s.T) return make_float2(0.f, 0.f);
+  if constexpr (MODE == kModeExt) {
+    return read_split<kInF32>(
+        s.x, nullptr, static_cast<long long>(b) * (s.hist + s.T) + e);
+  } else if constexpr (MODE == kModePair) {
+    const bool in_tail = e < s.hist;
+    const long long i = in_tail ? static_cast<long long>(b) * s.hist + e
+                                : static_cast<long long>(b) * s.T + (e - s.hist);
+    return read_split<kInPair>(in_tail ? s.t : s.x, in_tail ? s.tl : s.xl, i);
+  } else {
+    long long i;
+    const bool in_tail = ring_pos(s, b, step, e, &i);
+    return read_split<IN>(in_tail ? s.t : s.x, in_tail ? s.tl : s.xl, i);
+  }
+}
+
+// The int16 PCM quantizer: rint (half to even), clamp in float, then an
+// exact convert of the integral value.
+__device__ __forceinline__ int16_t pcm16(float y) {
+  const float v =
+      fminf(fmaxf(rintf(__fmul_rn(y, 32768.0f)), -32768.0f), 32767.0f);
+  return static_cast<int16_t>(__float2int_rn(v));
+}
+
+template <int MODE, int IN>
 __global__ void __launch_bounds__(kThreads)
     fir_b3_kernel(Src src, const float* __restrict__ h, int n_taps, int np,
-                  float* __restrict__ out, afp::Epilogue epi, int n_steps) {
+                  void* __restrict__ out, afp::Epilogue epi, int n_steps,
+                  int emit_i16) {
   extern __shared__ float2 smem[];
   const int W = kCols + np - 1;  // window length
   const int W4 = (W + 3) / 4;    // length of each phase sub-array
@@ -134,9 +181,9 @@ __global__ void __launch_bounds__(kThreads)
     const int b = b0 + r;
     float2* wr = win + r * 4 * W4;
     for (int p = j; p < W; p += kThreads)
-      wr[(p & 3) * W4 + (p >> 2)] = b < src.B
-                                        ? load_split<MODE>(src, b, step, e0 + p)
-                                        : make_float2(0.f, 0.f);
+      wr[(p & 3) * W4 + (p >> 2)] =
+          b < src.B ? load_split<MODE, IN>(src, b, step, e0 + p)
+                    : make_float2(0.f, 0.f);
   }
   __syncthreads();
 
@@ -185,11 +232,13 @@ __global__ void __launch_bounds__(kThreads)
   const int t = t0 + 4 * j;  // T % 4 == 0: the four columns are in or out
   if (t >= src.T) return;
   int slot = 0;
-  if (MODE != kModeExt) {
+  if (MODE == kModeRing) {
     // with n_steps > S a slot is written by several steps; the last one wins,
     // as in the reference's sequential walk
     if (step + src.S < n_steps) return;
     slot = (src.start + step) % src.S;
+  } else if (MODE == kModePair) {
+    slot = src.start;  // K7's output slot (K8: 0)
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -205,41 +254,43 @@ __global__ void __launch_bounds__(kThreads)
     y.y = afp::finish(acc[r][1], epi, bits.w[1]);
     y.z = afp::finish(acc[r][2], epi, bits.w[2]);
     y.w = afp::finish(acc[r][3], epi, bits.w[3]);
-    const long long o =
-        MODE == kModeExt ? flat
-                         : static_cast<long long>(slot) * src.B * src.T + flat;
-    *reinterpret_cast<float4*>(out + o) = y;
+    const long long o = static_cast<long long>(slot) * src.B * src.T + flat;
+    if (emit_i16) {
+      // four int16 samples, one 8-byte store (o is a multiple of 4)
+      short4 q;
+      q.x = pcm16(y.x);
+      q.y = pcm16(y.y);
+      q.z = pcm16(y.z);
+      q.w = pcm16(y.w);
+      *reinterpret_cast<short4*>(static_cast<int16_t*>(out) + o) = q;
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = y;
+    }
   }
 }
 
 // Next tail after n_steps ring steps: the last hist samples of the stream,
-// i.e. step n_steps's history.
-__global__ void ring_tail_kernel(Src src, int n_steps, float* __restrict__ tail_out) {
+// i.e. step n_steps's history, in the ring's own element type (raw int16 for
+// K12, both halves for K13 and K7/K8).
+template <int IN>
+__global__ void ring_tail_kernel(Src src, int n_steps, void* __restrict__ out,
+                                 void* __restrict__ out_lo) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= static_cast<long long>(src.B) * src.hist) return;
   const int b = static_cast<int>(i / src.hist);
   const int e = static_cast<int>(i - static_cast<long long>(b) * src.hist);
-  tail_out[i] = load_ext<kModeRing>(src, b, n_steps, e);
-}
-
-// K7/K8's next pair tail: the last hist samples of concat(tail, block), so
-// columns before T come from the carried tail when hist > T.
-__global__ void pair_tail_kernel(Src src, uint16_t* __restrict__ th_out,
-                                 uint16_t* __restrict__ tl_out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(src.B) * src.hist) return;
-  const int b = static_cast<int>(i / src.hist);
-  const int p = src.T + static_cast<int>(i - static_cast<long long>(b) * src.hist);
-  if (p < src.hist) {
-    const long long k = static_cast<long long>(b) * src.hist + p;
-    th_out[i] = src.th[k];
-    tl_out[i] = src.tl[k];
+  long long k;
+  const bool in_tail = ring_pos(src, b, n_steps, e, &k);
+  const void* from = in_tail ? src.t : src.x;
+  if constexpr (IN == kInF32) {
+    static_cast<float*>(out)[i] = static_cast<const float*>(from)[k];
+  } else if constexpr (IN == kInI16) {
+    static_cast<int16_t*>(out)[i] = static_cast<const int16_t*>(from)[k];
   } else {
-    const long long k = static_cast<long long>(b) * src.T + (p - src.hist);
-    th_out[i] = src.xh[k];
-    tl_out[i] = src.xl[k];
+    static_cast<uint16_t*>(out)[i] = static_cast<const uint16_t*>(from)[k];
+    static_cast<uint16_t*>(out_lo)[i] =
+        static_cast<const uint16_t*>(in_tail ? src.tl : src.xl)[k];
   }
 }
 
@@ -256,9 +307,10 @@ afp::Epilogue make_epilogue(int has_clip, float clip, int dither,
   return e;
 }
 
-template <int MODE>
-int launch_conv(const Src& s, const float* h, int n_taps, float* out,
-                const afp::Epilogue& epi, int n_steps, cudaStream_t stream) {
+template <int MODE, int IN>
+int launch_conv(const Src& s, const float* h, int n_taps, void* out,
+                const afp::Epilogue& epi, int n_steps, int emit_i16,
+                cudaStream_t stream) {
   if (s.B <= 0 || s.T <= 0 || s.T % 4 || n_taps <= 0 || n_steps <= 0 ||
       n_steps > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -267,135 +319,135 @@ int launch_conv(const Src& s, const float* h, int n_taps, float* out,
   const size_t smem =
       sizeof(float2) * (static_cast<size_t>(np) + 4u * kRows * ((W + 3) / 4));
   cudaError_t err = cudaFuncSetAttribute(
-      fir_b3_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fir_b3_kernel<MODE, IN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s.B + kRows - 1) / kRows, (s.T + kCols - 1) / kCols,
                   n_steps);
-  fir_b3_kernel<MODE><<<grid, kThreads, smem, stream>>>(s, h, n_taps, np, out,
-                                                       epi, n_steps);
+  fir_b3_kernel<MODE, IN><<<grid, kThreads, smem, stream>>>(
+      s, h, n_taps, np, out, epi, n_steps, emit_i16);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_ring(int mode, const float* ring, const float* tail, const float* h,
-                float* out_ring, float* tail_out, int S, int B, int T,
-                int k_pad, int n_taps, int start, int n_steps,
-                const afp::Epilogue& epi, cudaStream_t stream) {
-  // stream positions are int: (n_steps + 1) * T + k_pad must fit
-  if (S <= 0 || k_pad < n_taps - 1 || k_pad <= 0 || start < 0 ||
-      static_cast<long long>(n_steps + 1) * T + k_pad > 0x7FFFFFFFLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Src s{};
-  s.x = ring;
-  s.tail = tail;
-  s.B = B;
-  s.T = T;
-  s.hist = k_pad;
-  s.S = S;
-  s.start = start % S;
-  const int rc = mode == kModeRing
-                     ? launch_conv<kModeRing>(s, h, n_taps, out_ring, epi,
-                                              n_steps, stream)
-                     : launch_conv<kModeMega>(s, h, n_taps, out_ring, epi,
-                                              n_steps, stream);
-  if (rc) return rc;
-  const long long n = static_cast<long long>(B) * k_pad;
+template <int IN>
+int launch_tail(const Src& s, int n_steps, void* out, void* out_lo,
+                cudaStream_t stream) {
+  const long long n = static_cast<long long>(s.B) * s.hist;
   const int threads = 256;
-  ring_tail_kernel<<<static_cast<unsigned int>((n + threads - 1) / threads),
-                     threads, 0, stream>>>(s, n_steps, tail_out);
+  ring_tail_kernel<IN><<<static_cast<unsigned int>((n + threads - 1) / threads),
+                         threads, 0, stream>>>(s, n_steps, out, out_lo);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int IN>
+int launch_ring(const Src& s, const float* h, int n_taps, void* out_ring,
+                void* tail_out, void* tail_out_lo, int n_steps,
+                const afp::Epilogue& epi, int emit_i16, cudaStream_t stream) {
+  const int rc = launch_conv<kModeRing, IN>(s, h, n_taps, out_ring, epi,
+                                            n_steps, emit_i16, stream);
+  if (rc) return rc;
+  return launch_tail<IN>(s, n_steps, tail_out, tail_out_lo, stream);
 }
 
 }  // namespace
 
-// K1.  x_ext [B, n_taps-1+T] -> out [B, T].
+// K1.  x_ext [B, n_taps-1+T] -> out [B, T], f32 or (emit_i16) int16.
 extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
                           int T, int n_taps, int has_clip, float clip,
                           int dither, unsigned int seed, unsigned int counter,
-                          float lsb, void* stream) {
+                          float lsb, int emit_i16, void* stream) {
   Src s{};
-  s.x = static_cast<const float*>(x_ext);
-  s.tail = nullptr;
+  s.x = x_ext;
   s.B = B;
   s.T = T;
   s.hist = n_taps - 1;
   s.S = 1;
   s.start = 0;
-  return launch_conv<kModeExt>(
-      s, static_cast<const float*>(h), n_taps, static_cast<float*>(out),
-      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1,
+  return launch_conv<kModeExt, kInF32>(
+      s, static_cast<const float*>(h), n_taps, out,
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, emit_i16,
       static_cast<cudaStream_t>(stream));
 }
 
-// K3.  One step: ring slot idx behind tail [B, k_pad] -> out_ring slot idx
-// (in place) and tail_out [B, k_pad].
-extern "C" int afp_fir_td_ring(const void* ring, const void* tail,
+// K3/K4 (in_kind 0: f32), K12 (1: int16 PCM), K13 (2: bf16 pair; the lo
+// halves in ring_lo, tail_lo, tail_out_lo).  n_steps steps over ring slots
+// (start+i) mod S behind the carried tail [B, k_pad]; step i writes
+// out_ring slot (start+i) mod S in place (f32, or int16 with emit_i16) and
+// dithers under block counter counter+i; tail_out [B, k_pad] gets the tail
+// after the last step, in the ring's element type.
+extern "C" int afp_fir_td_ring(const void* ring, const void* ring_lo,
+                               const void* tail, const void* tail_lo,
                                const void* h, void* out_ring, void* tail_out,
-                               int S, int B, int T, int k_pad, int n_taps,
-                               int idx, int has_clip, float clip, int dither,
-                               unsigned int seed, unsigned int counter,
-                               float lsb, void* stream) {
-  return launch_ring(kModeRing, static_cast<const float*>(ring),
-                     static_cast<const float*>(tail),
-                     static_cast<const float*>(h),
-                     static_cast<float*>(out_ring),
-                     static_cast<float*>(tail_out), S, B, T, k_pad, n_taps,
-                     idx, 1,
-                     make_epilogue(has_clip, clip, dither, seed, counter, lsb),
-                     static_cast<cudaStream_t>(stream));
-}
-
-// K4.  n_steps steps over slots (start+i) mod S; step i dithers under block
-// counter counter+i.
-extern "C" int afp_fir_td_ring_mega(const void* ring, const void* tail,
-                                    const void* h, void* out_ring,
-                                    void* tail_out, int S, int B, int T,
-                                    int k_pad, int n_taps, int start,
-                                    int n_steps, int has_clip, float clip,
-                                    int dither, unsigned int seed,
-                                    unsigned int counter, float lsb,
-                                    void* stream) {
-  return launch_ring(kModeMega, static_cast<const float*>(ring),
-                     static_cast<const float*>(tail),
-                     static_cast<const float*>(h),
-                     static_cast<float*>(out_ring),
-                     static_cast<float*>(tail_out), S, B, T, k_pad, n_taps,
-                     start, n_steps,
-                     make_epilogue(has_clip, clip, dither, seed, counter, lsb),
-                     static_cast<cudaStream_t>(stream));
+                               void* tail_out_lo, int in_kind, int S, int B,
+                               int T, int k_pad, int n_taps, int start,
+                               int n_steps, int has_clip, float clip,
+                               int dither, unsigned int seed,
+                               unsigned int counter, float lsb, int emit_i16,
+                               void* stream) {
+  // stream positions are int: (n_steps + 1) * T + k_pad must fit
+  if (S <= 0 || k_pad < n_taps - 1 || k_pad <= 0 || start < 0 ||
+      in_kind < kInF32 || in_kind > kInPair ||
+      static_cast<long long>(n_steps + 1) * T + k_pad > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Src s{};
+  s.x = ring;
+  s.xl = ring_lo;
+  s.t = tail;
+  s.tl = tail_lo;
+  s.B = B;
+  s.T = T;
+  s.hist = k_pad;
+  s.S = S;
+  s.start = start % S;
+  const afp::Epilogue epi =
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb);
+  const float* hf = static_cast<const float*>(h);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_kind) {
+    case kInF32:
+      return launch_ring<kInF32>(s, hf, n_taps, out_ring, tail_out, nullptr,
+                                 n_steps, epi, emit_i16, st);
+    case kInI16:
+      return launch_ring<kInI16>(s, hf, n_taps, out_ring, tail_out, nullptr,
+                                 n_steps, epi, emit_i16, st);
+    default:
+      return launch_ring<kInPair>(s, hf, n_taps, out_ring, tail_out,
+                                  tail_out_lo, n_steps, epi, emit_i16, st);
+  }
 }
 
 // K8 and K7.  The bf16 pair of the block [B, T] behind the pair tail
-// [B, k_pad] -> slot idx of out [S, B, T] (K8: S = 1, idx = 0), and the next
-// pair tail [B, k_pad].
+// [B, k_pad] -> slot idx of out [S, B, T] (K8: S = 1, idx = 0), f32 or
+// (emit_i16) int16, and the next pair tail [B, k_pad].
 extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
                                const void* tl, const void* h, void* out,
                                void* th_out, void* tl_out, int S, int B, int T,
                                int k_pad, int n_taps, int idx, int has_clip,
                                float clip, int dither, unsigned int seed,
-                               unsigned int counter, float lsb, void* stream) {
+                               unsigned int counter, float lsb, int emit_i16,
+                               void* stream) {
   if (S <= 0 || idx < 0 || k_pad <= 0 || k_pad < n_taps - 1 ||
       static_cast<long long>(T) + k_pad > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
   Src s{};
-  s.xh = static_cast<const uint16_t*>(xh);
-  s.xl = static_cast<const uint16_t*>(xl);
-  s.th = static_cast<const uint16_t*>(th);
-  s.tl = static_cast<const uint16_t*>(tl);
+  s.x = xh;
+  s.xl = xl;
+  s.t = th;
+  s.tl = tl;
   s.B = B;
   s.T = T;
   s.hist = k_pad;
   s.S = S;
   s.start = idx % S;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = launch_conv<kModePair>(
-      s, static_cast<const float*>(h), n_taps, static_cast<float*>(out),
-      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, st);
+  const int rc = launch_conv<kModePair, kInPair>(
+      s, static_cast<const float*>(h), n_taps, out,
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, emit_i16,
+      st);
   if (rc) return rc;
-  const long long n = static_cast<long long>(B) * k_pad;
-  const int threads = 256;
-  pair_tail_kernel<<<static_cast<unsigned int>((n + threads - 1) / threads),
-                     threads, 0, st>>>(s, static_cast<uint16_t*>(th_out),
-                                       static_cast<uint16_t*>(tl_out));
-  return static_cast<int>(cudaGetLastError());
+  // the block is a one-slot ring for the tail: the last k_pad samples of
+  // concat(tail, block)
+  s.S = 1;
+  s.start = 0;
+  return launch_tail<kInPair>(s, 1, th_out, tl_out, st);
 }

@@ -15,6 +15,12 @@ and streaming state, and implements the reference's two disciplines on top:
   counted in :class:`EngineMetrics` — the ladder swallows exceptions by
   design, so callers that need to know read the counters.
 
+Host blocks carry the transport dtypes (`afp_tpu/engine/engine.py:118-128`):
+int16 PCM in under ``ingest='pcm16'`` (a float block raises ``ValueError``
+before the ladder: coercing it would silently quantize), int16 PCM out
+under ``emit='pcm16'`` (the ladder's silence and the underrun blend stay
+int16; the blend requantizes).
+
 Not in this slice: the host ASRC frontend (`process_source_block`), the
 arbitrary-frames framer (`process_frames`), checkpoints and the chunked
 upload of `process_signal` (ROADMAP.md §1 item 5).
@@ -88,6 +94,8 @@ class StreamEngine:
         self.params: DeviceParams = self.pipeline.device_params(design)
         self.state: StreamState = self.pipeline.init_state(seed=self._seed)
         self._last_good: deque = deque(maxlen=LAST_GOOD_DEPTH)
+        self._in_dtype = np.int16 if self.pipeline._i16_ingest else np.float32
+        self._out_dtype = np.int16 if self.pipeline._emit16 else np.float32
         self._block_seconds = self.cfg.blocksize / self.cfg.samplerate
         self._out_shape = (self.cfg.batch, self.cfg.blocksize)
 
@@ -134,11 +142,23 @@ class StreamEngine:
 
     def process_block(self, block: np.ndarray) -> np.ndarray:
         """One [batch, blocksize] block in → [batch, blocksize] out (numpy).
-        Never raises: on failure, degrades per the reference ladder."""
-        block = np.asarray(block, dtype=np.float32)
+        Never raises once the block has the ingest's dtype: on failure,
+        degrades per the reference ladder."""
+        block = self._coerce_in(block)
         if block.ndim == 1:
             block = block[None, :]
         return self._process_engine_block(block)
+
+    def _coerce_in(self, block) -> np.ndarray:
+        """The host block's dtype contract (`afp_tpu/engine/engine.py:273-284`):
+        f32 ingest coerces; pcm16 ingest requires int16."""
+        block = np.asarray(block)
+        if self._in_dtype == np.int16:
+            if block.dtype != np.int16:
+                raise ValueError(f"ingest='pcm16' engine blocks must be "
+                                 f"int16, got {block.dtype}")
+            return block
+        return np.asarray(block, dtype=np.float32)
 
     def process_frames(self, chunk: np.ndarray) -> np.ndarray:
         """Arbitrary-length ingest through the residual framer."""
@@ -149,7 +169,7 @@ class StreamEngine:
         expected = (self.cfg.batch, self.cfg.blocksize)
         if block.shape != expected:
             # pad/trim rung (`stream_process_EQ.py:110-117`)
-            fixed = np.zeros(expected, dtype=np.float32)
+            fixed = np.zeros(expected, dtype=self._in_dtype)
             b = min(block.shape[0], expected[0])
             t = min(block.shape[1], expected[1])
             fixed[:b, :t] = block[:b, :t]
@@ -160,7 +180,8 @@ class StreamEngine:
                 pipeline, params, state_in = self.pipeline, self.params, self.state
             state, out = pipeline.step(params, state_in, block)
             out_np = out.cpu().numpy()  # waits for the device
-            if not np.all(np.isfinite(out_np)):
+            # int16 output is finite by construction: the rung guards floats
+            if out_np.dtype != np.int16 and not np.all(np.isfinite(out_np)):
                 raise FloatingPointError("non-finite output")
             with self._swap_lock:
                 if self.pipeline is pipeline:  # drop state if rebuilt mid-block
@@ -176,22 +197,31 @@ class StreamEngine:
                 self.metrics.fallback_replays += 1
                 return self._last_good[-1]
             self.metrics.fallback_silence += 1
-            return np.zeros(self._out_shape, dtype=np.float32)
+            return np.zeros(self._out_shape, dtype=self._out_dtype)
+
+    def _scale_out(self, block: np.ndarray, factor: float) -> np.ndarray:
+        """Scale an output block in the output dtype: f32 directly, int16
+        PCM in float64 and requantized, round half to even
+        (`afp_tpu/engine/engine.py:376-383`)."""
+        if self._out_dtype == np.int16:
+            return np.clip(np.round(factor * block.astype(np.float64)),
+                           -32768, 32767).astype(np.int16)
+        return (factor * block).astype(np.float32)
 
     def underrun_block(self) -> np.ndarray:
         """Output to emit when no processed block is ready: the reference's
         0.8·last + 0.2·silence blend (`stream_process_EQ_GUI.py:476-480`)."""
         self.metrics.underruns += 1
         if self._last_good:
-            return (0.8 * self._last_good[-1]).astype(np.float32)
+            return self._scale_out(self._last_good[-1], 0.8)
         self.metrics.fallback_silence += 1
-        return np.zeros(self._out_shape, dtype=np.float32)
+        return np.zeros(self._out_shape, dtype=self._out_dtype)
 
     def process_signal(self, signal: np.ndarray, fold="auto") -> np.ndarray:
         """Whole-signal convenience: [batch, T] → [batch, T''] (whole
         blocks), streamed block by block; ``fold`` as
         :meth:`Pipeline.process_signal`."""
-        signal = np.asarray(signal, dtype=np.float32)
+        signal = self._coerce_in(signal)
         if signal.ndim == 1:
             signal = np.broadcast_to(
                 signal[None, :], (self.cfg.batch, signal.shape[-1]))

@@ -30,6 +30,30 @@ tail; under 'fft' K6 stores f32 for the overlap-save.  'fast' mode is the
 same kernels with the blockwise options (chunk 32; the chunk means flow
 from K5 to K6 unless the AGC is linked).
 
+Transport forms (`pipeline.py:303-345`; `StreamConfig.validate` restricts
+both ingest forms to 'td_mxu'):
+
+* ``ingest='pcm16'``: blocks and rings are raw int16 PCM, ``n/32768``
+  full scale, and floats are refused (never silently quantized).  Without
+  AGC the conv reads the int16 block itself and carries its raw int16
+  history: the serving rings run K12, and the staged step runs K12 over a
+  one-slot view of the block (the same loader, so staged ≡ ring bit for
+  bit).  With AGC, K5 and K6 read the int16 block or ring slot and the
+  conv consumes K6's pair as for f32 input.  Every convert is exact, so
+  the output equals the f32 chain's on ``n/32768`` bit for bit.
+* ``ingest='pair'`` (no AGC): blocks arrive as the bf16 (hi, lo) pair, or
+  as f32 split at entry; the staged step runs K8, the rings K13, behind
+  the carried pair tail.
+* ``emit='pcm16'``: the output is int16 PCM, the quantizer
+  `quantize_pcm16` fused into the conv store after the clip and the
+  dither ('td_mxu'), or run after K2 ('fft').  Output rings are int16.
+
+The reference refuses int16-output ring serving and `run_ring_mega` with
+dither on in its interpret mode (`pipeline.py:1133-1137, 1381-1386`): its
+TPU dither has no interpret lowering.  Here the plain versions fuse the
+same Philox noise as the kernels, so both forms run with dither on, on
+every device.
+
 Not in this slice: each raises NotImplementedError naming its ROADMAP.md §1
 item (`_check_slice`).  Nothing falls back to another path.
 """
@@ -46,9 +70,12 @@ from ..ops.cuda.agc_rms import band_is_exact_bf16, rms_desired
 from ..ops.cuda.agc_scan import smooth_gain_apply
 from ..ops.cuda.dither import dither_cuda
 from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_pair,
-                               fir_td_mxu_pair_to_ring, fir_td_mxu_ring_f32,
-                               fir_td_mxu_ring_mega_f32, merge_bf16,
-                               ring_k_pad, split_bf16)
+                               fir_td_mxu_pair_to_ring, fir_td_mxu_ring,
+                               fir_td_mxu_ring_f32, fir_td_mxu_ring_mega,
+                               fir_td_mxu_ring_mega_f32,
+                               fir_td_mxu_ring_mega_pcm16,
+                               fir_td_mxu_ring_pcm16, merge_bf16,
+                               quantize_pcm16, ring_k_pad, split_bf16)
 from ..ops.resample import streaming_kernel
 from .config import PipelineParams, StreamConfig
 
@@ -61,19 +88,32 @@ def _host_scalar(v) -> torch.Tensor:
     return torch.as_tensor(np.array(v, dtype=np.float32))
 
 
+def bf16_tensor(a, device) -> torch.Tensor:
+    """One bf16 half on `device`: a torch bfloat16 tensor, or a numpy array
+    of `ml_dtypes`' bfloat16 (`afp_tpu`'s pairs; numpy has no bf16 of
+    torch's, so the bits move as int16)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != torch.bfloat16:
+            raise ValueError(f"pair halves must be bfloat16, got {a.dtype}")
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype.name != "bfloat16":
+        raise ValueError(f"pair halves must be bfloat16, got {a.dtype}")
+    return torch.from_numpy(np.array(a).view(np.int16)).view(
+        torch.bfloat16).to(device)
+
+
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md §1 item {item}")
 
 
 def _check_slice(cfg: StreamConfig) -> None:
-    """Reject every configuration outside the ported f32 fused chain and its
-    AGC ('exact' and 'fast').  `validate()` makes the block a power of two
-    of at least 256 samples, so the AGC's block is always whole 128-sample
-    lanes (the TPU's K9 + XLA route for other lengths cannot arise)."""
-    if cfg.ingest != "f32" or cfg.emit != "f32":
-        raise _not_in_slice(f"ingest={cfg.ingest!r}/emit={cfg.emit!r}",
-                            "8 (transport forms)")
+    """Reject every configuration outside the ported fused chain, its AGC
+    ('exact' and 'fast') and its transport forms.  `validate()` makes the
+    block a power of two of at least 256 samples, so the AGC's block is
+    always whole 128-sample lanes (the TPU's K9 + XLA route for other
+    lengths cannot arise)."""
     if cfg.agc_enabled and cfg.agc_mode == "parallel":
         raise _not_in_slice("agc_mode='parallel' (the associative-scan "
                             "solver)", "6 (AGC: 'parallel' mode)")
@@ -132,8 +172,10 @@ class StreamState(NamedTuple):
     """Carried streaming state: the conv tail and the AGC gain on the
     device, and the dither key on the host — ``seed`` and ``step``, the
     count of blocks processed (block i dithers under Philox key
-    ``(seed, step_i)``).  Under AGC with 'td_mxu' the conv tail is the bf16
-    (hi, lo) pair of the gained signal's history, the form K8/K7 read."""
+    ``(seed, step_i)``).  Under AGC with 'td_mxu' and under pair ingest the
+    conv tail is the bf16 (hi, lo) pair of the conv input's history, the
+    form K8/K7/K13 read; under pcm16 ingest without AGC it is the raw int16
+    history (K12)."""
 
     conv_tail: "torch.Tensor | tuple[torch.Tensor, torch.Tensor]"  # [B, k_pad]
     seed: int
@@ -186,8 +228,19 @@ class Pipeline:
         self._k_pad = ring_k_pad(self.n_casc)
         self.agc = AGCParams.from_config(cfg)
         self._agc_on = cfg.agc_enabled
-        #: the conv reads the bf16 pair K6 stores, and the tail is carried so
-        self._pair_tail = self._agc_on and self._use_td
+        #: transport forms (`afp_tpu/engine/pipeline.py:303-345`, without its
+        #: precision gate: the port's conv is always the bf16×3 class).  K5
+        #: and K6 take int16 x on every route, so pcm16 + AGC needs no flag
+        #: of its own (`_i16_agc_raw` in the reference)
+        self._pair_ingest = cfg.ingest == "pair"
+        self._i16_ingest = cfg.ingest == "pcm16"
+        #: pcm16 without AGC: the conv reads x itself and carries its raw
+        #: int16 history
+        self._i16_tail = self._i16_ingest and not self._agc_on
+        self._emit16 = cfg.emit == "pcm16"
+        #: the conv reads a bf16 pair (K6's store, or the ingest's), and the
+        #: tail is carried so
+        self._pair_tail = (self._agc_on and self._use_td) or self._pair_ingest
         if self._agc_on:
             w = cfg.agc_window_size
             band = band_matrix(np.full(w, 1.0 / w, dtype=np.float32))
@@ -292,9 +345,22 @@ class Pipeline:
 
     # ---------------- state ----------------
 
+    @property
+    def out_dtype(self) -> torch.dtype:
+        """The output's dtype: int16 PCM under ``emit='pcm16'``, else f32."""
+        return torch.int16 if self._emit16 else torch.float32
+
+    @property
+    def in_dtype(self) -> torch.dtype:
+        """A block's dtype: int16 PCM under ``ingest='pcm16'``, else f32
+        (pair ingest also takes f32 blocks and splits them at entry)."""
+        return torch.int16 if self._i16_ingest else torch.float32
+
     def init_state(self, seed: int = 0) -> StreamState:
         B, kp, dev = self.batch, self._k_pad, self.device
-        if self._pair_tail:
+        if self._i16_tail:
+            tail = torch.zeros((B, kp), dtype=torch.int16, device=dev)
+        elif self._pair_tail:
             tail = (torch.zeros((B, kp), dtype=torch.bfloat16, device=dev),
                     torch.zeros((B, kp), dtype=torch.bfloat16, device=dev))
         else:
@@ -315,18 +381,26 @@ class Pipeline:
     def state_from_numpy(self, conv_tail, seed: int, step: int,
                          agc_gain=None) -> StreamState:
         """A state from `afp_tpu`'s carried state as numpy arrays, each
-        tail zero-padded on the left to k_pad.  The conv tail comes in
-        either of `afp_tpu`'s forms: f32 [B, <= k_pad], or the bf16 pair
-        ``(hi, lo)`` its fused AGC route carries (`pipeline.py:519-528`),
-        converted to this pipeline's form (split, or widened).  ``agc_gain``
-        is the [B] gain carry (unity when absent); `seed`/`step` key the
-        dither."""
+        tail zero-padded on the left to k_pad.  The conv tail comes in any
+        of `afp_tpu`'s forms: f32 [B, <= k_pad], the bf16 pair ``(hi, lo)``
+        its fused AGC route and pair ingest carry (`pipeline.py:519-528`),
+        converted to this pipeline's form (split, or widened), or the raw
+        int16 history of pcm16 ingest without AGC (`pipeline.py:511-518`),
+        which only such a pipeline takes.  ``agc_gain`` is the [B] gain
+        carry (unity when absent); `seed`/`step` key the dither."""
         dev = self.device
-        if isinstance(conv_tail, (tuple, list)):
-            # bf16 has no numpy dtype of torch's: move the bits as int16
-            hi, lo = (self._padded(torch.from_numpy(
-                np.ascontiguousarray(a).view(np.int16)).view(
-                    torch.bfloat16).to(dev)) for a in conv_tail)
+        i16 = (not isinstance(conv_tail, (tuple, list))
+               and np.asarray(conv_tail).dtype == np.int16)
+        if i16 != self._i16_tail:
+            raise ValueError(
+                "the conv tail is int16 exactly when ingest='pcm16' runs "
+                f"without AGC (this pipeline: ingest={self.cfg.ingest!r}, "
+                f"agc_enabled={self._agc_on})")
+        if i16:
+            tail = self._padded(torch.from_numpy(
+                np.array(conv_tail, dtype=np.int16)).to(dev))
+        elif isinstance(conv_tail, (tuple, list)):
+            hi, lo = (self._padded(bf16_tensor(a, dev)) for a in conv_tail)
             tail = (hi, lo) if self._pair_tail else merge_bf16(hi, lo)
         else:
             t = self._padded(torch.as_tensor(
@@ -348,11 +422,33 @@ class Pipeline:
                     dither_bits=cfg.dither_bits if on else None,
                     dither_tpdf=cfg.dither_kind == "tpdf")
 
-    def _block(self, block) -> torch.Tensor:
-        x = torch.as_tensor(block, dtype=torch.float32, device=self.device)
-        if x.shape != (self.batch, self.block):
+    def _signal(self, a) -> torch.Tensor:
+        """A block, block stack or signal on the device in its transport
+        dtype: int16 PCM under pcm16 ingest (floats are refused, never
+        silently quantized, `pipeline.py:1540-1548`), else f32."""
+        if not self._i16_ingest:
+            return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        t = torch.as_tensor(a, device=self.device)
+        if t.dtype != torch.int16:
+            raise ValueError(f"ingest='pcm16' blocks and signals must be "
+                             f"int16, got {t.dtype}")
+        return t
+
+    def _block(self, block):
+        """One [B, L] block in its transport form: int16 PCM (pcm16), the
+        bf16 (hi, lo) pair (pair ingest: a pair as given, an f32 block split
+        here, `pipeline.py:597-612`), else f32."""
+        if self._pair_ingest:
+            x = (tuple(bf16_tensor(a, self.device) for a in block)
+                 if isinstance(block, (tuple, list))
+                 else split_bf16(self._signal(block)))
+            shapes = [tuple(t.shape) for t in x]
+        else:
+            x = self._signal(block)
+            shapes = [tuple(x.shape)]
+        if any(sh != (self.batch, self.block) for sh in shapes):
             raise ValueError(f"block must be [{self.batch}, {self.block}], "
-                             f"got {tuple(x.shape)}")
+                             f"got {shapes}")
         return x
 
     def _linked(self, d: torch.Tensor) -> torch.Tensor:
@@ -386,19 +482,30 @@ class Pipeline:
         x = self._block(block)
         kp, n, L = self._k_pad, self.n_casc, self.block
         tail, gain = state.conv_tail, state.agc_gain
+        dkw = self._dither_kw(state, cfg.output_clip)
         if self._agc_on:
             x, gain = self._agc(params, x, gain)
+        if self._i16_tail:
+            # K12 over a one-slot view of the block: the serving ring's own
+            # loader (staged ≡ ring bit for bit), emitting the int16 tail
+            out = torch.empty((1, self.batch, L), dtype=self.out_dtype,
+                              device=self.device)
+            out, new_tail = fir_td_mxu_ring_pcm16(
+                x[None], 0, tail, params.combined_cascade(self.has_eq), out,
+                **dkw)
+            return (StreamState(new_tail, state.seed, state.step + 1, gain),
+                    out[0])
         if self._pair_tail:
             y, th, tl = fir_td_mxu_pair(
                 x[0], x[1], tail[0], tail[1],
-                params.combined_cascade(self.has_eq),
-                **self._dither_kw(state, cfg.output_clip))
+                params.combined_cascade(self.has_eq), emit_i16=self._emit16,
+                **dkw)
             return StreamState((th, tl), state.seed, state.step + 1, gain), y
         # the conv needs n−1 history columns; the carried tail is k_pad wide
         ext = torch.cat([tail[:, kp - (n - 1):], x], dim=-1)
         if self._use_td:
             y = fir_td_mxu(ext, params.combined_cascade(self.has_eq),
-                           **self._dither_kw(state, cfg.output_clip))
+                           emit_i16=self._emit16, **dkw)
         else:
             H = params.combined_response(self.has_eq)
             Y = torch.fft.rfft(ext, n=self.nfft) * H
@@ -407,20 +514,27 @@ class Pipeline:
                 y = torch.clamp(y, -cfg.output_clip, cfg.output_clip)
             y = dither_cuda(y.contiguous(), (state.seed, state.step),
                             cfg.dither_bits, cfg.dither_kind)
+            if self._emit16:  # the reference's XLA epilogue after K2
+                y = quantize_pcm16(y)
         new_tail = (x[:, L - kp:].clone() if kp <= L
                     else torch.cat([tail[:, L:], x], dim=-1))
         return StreamState(new_tail, state.seed, state.step + 1, gain), y
 
     def run(self, params: DeviceParams, state: StreamState, blocks):
-        """Step over [N, B, L] blocks → (state, [N, B, L])."""
-        blocks = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
+        """Step over [N, B, L] blocks → (state, [N, B, L]).  Under pair
+        ingest `blocks` may also be the ``(hi, lo)`` pair of [N, B, L]
+        halves."""
+        if self._pair_ingest and isinstance(blocks, tuple):
+            blocks = zip(*(bf16_tensor(a, self.device) for a in blocks))
+        else:
+            blocks = self._signal(blocks)
         outs = []
         for blk in blocks:
             state, y = self.step(params, state, blk)
             outs.append(y)
         if not outs:
             return state, torch.zeros((0, self.batch, self.block),
-                                      device=self.device)
+                                      dtype=self.out_dtype, device=self.device)
         return state, torch.stack(outs)
 
     def process_signal(self, params: DeviceParams, state: StreamState,
@@ -429,14 +543,14 @@ class Pipeline:
         whole blocks of T.  ``fold=False`` and ``'auto'`` stream block by
         block; the offline fold ('prefer'/True) is ROADMAP §1 item 9 ('auto'
         may always decline to fold, `afp_tpu/engine/pipeline.py:1507-1514`).
-        """
+        Under pcm16 ingest the signal is int16 PCM."""
         if fold in (True, "prefer"):
             raise _not_in_slice(f"fold={fold!r} (the offline fold)",
                                 "9 (offline fold)")
         if fold not in (False, "auto"):
             raise ValueError(
                 f"fold must be 'auto', 'prefer', True, or False; got {fold!r}")
-        signal = torch.as_tensor(signal, dtype=torch.float32, device=self.device)
+        signal = self._signal(signal)
         B, T = signal.shape
         L = self.block
         nb = T // L
@@ -448,32 +562,49 @@ class Pipeline:
 
     @property
     def supports_ring_step(self) -> bool:
-        """True when the ring forms are available: the f32 conv ring or, with
-        AGC, the fused AGC chain over one f32 input ring; both need the
-        'td_mxu' strategy (the other ring forms of `afp_tpu` are outside
-        this slice and rejected at construction)."""
+        """True when the ring forms are available, which needs the 'td_mxu'
+        strategy: the conv ring over one f32 or int16 PCM input ring, the
+        pair rings of pair ingest, or, with AGC, the fused AGC chain over one
+        f32 or int16 input ring."""
         return self._use_td
 
-    def _ring_taps(self, params: DeviceParams, ring_lo) -> torch.Tensor:
-        if ring_lo is not None:
-            raise _not_in_slice("bf16 (hi, lo) pair rings (ingest='pair')",
-                                "8 (transport forms)")
+    def _ring_taps(self, params: DeviceParams, ring_hi, ring_lo,
+                   out_ring) -> torch.Tensor:
+        """The checks of every ring form (`pipeline.py:1116-1141,
+        1180-1191, 1220-1228, 1387-1391`): pair rings exactly for pair
+        ingest, an int16 input ring exactly for pcm16 ingest, an int16
+        output ring exactly under ``emit='pcm16'``.  Returns the live
+        taps."""
+        cfg = self.cfg
         if not self.supports_ring_step:
             raise ValueError(
-                "ring_step requires the f32 conv ring: conv_strategy="
-                "'td_mxu' (see supports_ring_step)")
+                "ring_step requires a conv ring: conv_strategy='td_mxu' "
+                "(see supports_ring_step)")
+        if (ring_lo is None) == self._pair_ingest:
+            raise ValueError(
+                "ring form mismatch: pair-ingest pipelines take (hi, lo) "
+                "rings, the others one ring (ring_lo=None)")
+        if not self._pair_ingest and ring_hi.dtype != self.in_dtype:
+            raise ValueError(
+                f"ingest={cfg.ingest!r} serving rings must be "
+                f"{self.in_dtype}, got {ring_hi.dtype}")
+        if out_ring.dtype != self.out_dtype:
+            raise ValueError(
+                f"emit={cfg.emit!r} output rings must be {self.out_dtype}, "
+                f"got {out_ring.dtype}")
         return params.combined_cascade(self.has_eq)
 
     def ring_step(self, params: DeviceParams, state: StreamState,
                   ring_hi: torch.Tensor, ring_lo, idx: int,
                   out_ring: torch.Tensor):
-        """One serving step: convolve slot `idx` of the f32 input ring
+        """One serving step: convolve slot `idx` of the input ring
         ``ring_hi`` [S, B, L] into slot `idx` of `out_ring`, written in
-        place (K3).  With AGC, K5 and K6 read the slot in place and K7
-        convolves K6's pair into the output slot
-        (`afp_tpu/engine/pipeline.py:1212-1273`).  ``ring_lo`` must be None
-        (the pair-ingest form is not ported)."""
-        h = self._ring_taps(params, ring_lo)
+        place: K3 over an f32 ring, K12 over an int16 PCM ring, K13 over the
+        pair rings ``(ring_hi, ring_lo)`` of pair ingest.  With AGC, K5 and
+        K6 read the slot in place and K7 convolves K6's pair into the
+        output slot (`afp_tpu/engine/pipeline.py:1093-1299`).  ``ring_lo``
+        is None except under pair ingest."""
+        h = self._ring_taps(params, ring_hi, ring_lo, out_ring)
         dkw = self._dither_kw(state, self.cfg.output_clip)
         if self._agc_on:
             (xh, xl), gain = self._agc(params, ring_hi, state.agc_gain,
@@ -483,16 +614,22 @@ class Pipeline:
                 out_ring, **dkw)
             return (StreamState((th, tl), state.seed, state.step + 1, gain),
                     out_ring)
-        out_ring, tail = fir_td_mxu_ring_f32(ring_hi, idx, state.conv_tail, h,
-                                             out_ring, **dkw)
+        if self._pair_ingest:
+            out_ring, th, tl = fir_td_mxu_ring(
+                ring_hi, ring_lo, idx, *state.conv_tail, h, out_ring, **dkw)
+            return StreamState((th, tl), state.seed, state.step + 1), out_ring
+        ring = (fir_td_mxu_ring_pcm16 if self._i16_ingest
+                else fir_td_mxu_ring_f32)
+        out_ring, tail = ring(ring_hi, idx, state.conv_tail, h, out_ring,
+                              **dkw)
         return StreamState(tail, state.seed, state.step + 1), out_ring
 
     def run_ring(self, params: DeviceParams, state: StreamState,
                  ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
                  n_steps: int, start: int = 0):
-        """`n_steps` ring steps over slots ``(start+i) mod S`` (one K3 launch
-        each; with AGC, K5, K6 and K7 each); `out_ring` is written in
-        place."""
+        """`n_steps` ring steps over slots ``(start+i) mod S`` (one K3, K12
+        or K13 launch each; with AGC, K5, K6 and K7 each); `out_ring` is
+        written in place."""
         S = ring_hi.shape[0]
         for i in range(int(n_steps)):
             state, out_ring = self.ring_step(params, state, ring_hi, ring_lo,
@@ -502,15 +639,24 @@ class Pipeline:
     def run_ring_mega(self, params: DeviceParams, state: StreamState,
                       ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
                       n_steps: int, start: int = 0):
-        """:meth:`run_ring` as ONE kernel launch (K4): same slots, outputs,
-        tail and dither as the chained steps.  The AGC chain has no such
-        form (`afp_tpu/engine/pipeline.py:1371-1376`)."""
+        """:meth:`run_ring` as ONE kernel launch (K4; K12 for pcm16, K13 for
+        pair rings): same slots, outputs, tail and dither as the chained
+        steps.  The AGC chain has no such form
+        (`afp_tpu/engine/pipeline.py:1358-1467`)."""
         if self._agc_on:
             raise ValueError(
-                "run_ring_mega requires the f32 conv ring without AGC: the "
-                "AGC chain serves through run_ring")
-        h = self._ring_taps(params, ring_lo)
-        out_ring, tail = fir_td_mxu_ring_mega_f32(
-            ring_hi, start, state.conv_tail, h, out_ring, n_steps,
-            **self._dither_kw(state, self.cfg.output_clip))
+                "run_ring_mega requires a conv ring without AGC: the AGC "
+                "chain serves through run_ring")
+        h = self._ring_taps(params, ring_hi, ring_lo, out_ring)
+        dkw = self._dither_kw(state, self.cfg.output_clip)
+        if self._pair_ingest:
+            out_ring, th, tl = fir_td_mxu_ring_mega(
+                ring_hi, ring_lo, start, *state.conv_tail, h, out_ring,
+                n_steps, **dkw)
+            tail = (th, tl)
+        else:
+            mega = (fir_td_mxu_ring_mega_pcm16 if self._i16_ingest
+                    else fir_td_mxu_ring_mega_f32)
+            out_ring, tail = mega(ring_hi, start, state.conv_tail, h,
+                                  out_ring, n_steps, **dkw)
         return StreamState(tail, state.seed, state.step + int(n_steps)), out_ring

@@ -4,23 +4,35 @@ package builds nothing: the kernels compile on first launch (`_build.py`)."""
 from .agc_rms import band_is_exact_bf16, rms_desired, rms_desired_plain
 from .agc_scan import smooth_gain_apply, smooth_gain_apply_plain
 from .dither import dither_cuda
-from .fir_td import (LANE, band_matrix, fir_td_mxu, fir_td_mxu_pair,
-                     fir_td_mxu_pair_plain, fir_td_mxu_pair_to_ring,
-                     fir_td_mxu_pair_to_ring_plain, fir_td_mxu_plain,
-                     fir_td_mxu_ring_f32, fir_td_mxu_ring_f32_plain,
+from .fir_td import (LANE, PCM16_SCALE, band_matrix, fir_td_mxu,
+                     fir_td_mxu_pair, fir_td_mxu_pair_plain,
+                     fir_td_mxu_pair_to_ring, fir_td_mxu_pair_to_ring_plain,
+                     fir_td_mxu_plain, fir_td_mxu_ring, fir_td_mxu_ring_f32,
+                     fir_td_mxu_ring_f32_plain, fir_td_mxu_ring_mega,
                      fir_td_mxu_ring_mega_f32, fir_td_mxu_ring_mega_f32_plain,
-                     merge_bf16, ring_k_pad, split_bf16)
+                     fir_td_mxu_ring_mega_pcm16,
+                     fir_td_mxu_ring_mega_pcm16_plain,
+                     fir_td_mxu_ring_mega_plain, fir_td_mxu_ring_pcm16,
+                     fir_td_mxu_ring_pcm16_plain, fir_td_mxu_ring_plain,
+                     merge_bf16, pcm16_to_f32, quantize_pcm16, ring_k_pad,
+                     split_bf16)
 
 #: every kernel wrapper of the package, each with its ``launches`` count
 KERNELS = (fir_td_mxu, fir_td_mxu_ring_f32, fir_td_mxu_ring_mega_f32,
            dither_cuda, rms_desired, smooth_gain_apply, fir_td_mxu_pair_to_ring,
-           fir_td_mxu_pair)
+           fir_td_mxu_pair, fir_td_mxu_ring_pcm16, fir_td_mxu_ring_mega_pcm16,
+           fir_td_mxu_ring, fir_td_mxu_ring_mega)
 
-__all__ = ["LANE", "KERNELS", "band_is_exact_bf16", "band_matrix",
-           "dither_cuda", "fir_td_mxu", "fir_td_mxu_pair",
+__all__ = ["LANE", "KERNELS", "PCM16_SCALE", "band_is_exact_bf16",
+           "band_matrix", "dither_cuda", "fir_td_mxu", "fir_td_mxu_pair",
            "fir_td_mxu_pair_plain", "fir_td_mxu_pair_to_ring",
            "fir_td_mxu_pair_to_ring_plain", "fir_td_mxu_plain",
-           "fir_td_mxu_ring_f32", "fir_td_mxu_ring_f32_plain",
+           "fir_td_mxu_ring", "fir_td_mxu_ring_f32",
+           "fir_td_mxu_ring_f32_plain", "fir_td_mxu_ring_mega",
            "fir_td_mxu_ring_mega_f32", "fir_td_mxu_ring_mega_f32_plain",
-           "merge_bf16", "ring_k_pad", "rms_desired", "rms_desired_plain",
-           "smooth_gain_apply", "smooth_gain_apply_plain", "split_bf16"]
+           "fir_td_mxu_ring_mega_pcm16", "fir_td_mxu_ring_mega_pcm16_plain",
+           "fir_td_mxu_ring_mega_plain", "fir_td_mxu_ring_pcm16",
+           "fir_td_mxu_ring_pcm16_plain", "fir_td_mxu_ring_plain",
+           "merge_bf16", "pcm16_to_f32", "quantize_pcm16", "ring_k_pad",
+           "rms_desired", "rms_desired_plain", "smooth_gain_apply",
+           "smooth_gain_apply_plain", "split_bf16"]

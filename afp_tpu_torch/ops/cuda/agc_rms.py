@@ -9,7 +9,10 @@ into bf16 halves and the halves are summed; a window that is a multiple of
 128 runs the two-level form (128-wide sums of weight 1, the ``W/128``
 shifted sums added, then ``· (1/W)`` in fp32); any other window weighs the
 sums with the band's bf16-split ``1/w`` (a third product when ``1/w`` is
-not exact in bf16).  A CPU tensor takes :func:`rms_desired_plain` (the
+not exact in bf16).  x is f32 or, under ``ingest='pcm16'``, raw int16 PCM
+that the kernel converts ``n/32768`` as it loads (exact: the result is the
+f32 form's bit for bit, `agc_rms.py:111-113`).  A CPU tensor takes
+:func:`rms_desired_plain` (the
 split products as fp32 matmuls against the band, as
 :func:`~afp_tpu_torch.ops.cuda.fir_td.fir_td_mxu_plain` does), a CUDA tensor
 launches `csrc/agc_rms.cu` or raises.  ``rms_desired.launches`` counts
@@ -22,7 +25,7 @@ import torch
 
 from . import _build
 from .fir_td import (LANE, _full_fp32_matmul, _on_cuda, _raise_on,
-                     _split_f32, _stream, band_matrix)
+                     _split_f32, _stream, band_matrix, pcm16_to_f32)
 
 __all__ = ["rms_desired", "rms_desired_plain", "band_is_exact_bf16"]
 
@@ -55,8 +58,8 @@ def _check(x, band, lp, rp, transposed, ring_idx, mean_chunk):
         raise ValueError(
             f"mean_chunk={mean_chunk} requires transposed=True and a power "
             f"of two dividing {LANE} (the 1/chunk weight must be exact)")
-    if x.dtype != torch.float32:
-        raise ValueError(f"x must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"x must be float32 or int16 PCM, got {x.dtype}")
     if ring_idx is not None:
         if x.ndim != 3:
             raise ValueError(f"ring mode needs an [S, B, T] ring, got "
@@ -85,8 +88,9 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
     """Plain K5, same contract as :func:`rms_desired`: the padded x² split
     into bf16 halves, unfolded into LANE-wide output tiles and multiplied
     against the band (two-level: a ones(LANE) band, then the shifted sums)
-    in full fp32."""
+    in full fp32; int16 x converts n/32768 first."""
     x, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
+    x = pcm16_to_f32(x)
     target, max_gain = _scalar(target, "target"), _scalar(max_gain, "max_gain")
     B, T = x.shape
     sq = torch.nn.functional.pad(x * x, (lp, rp))  # [B, T + W − 1]
@@ -127,9 +131,9 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
 def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
                 target, max_gain, exact_band: bool, transposed: bool = False,
                 ring_idx=None, mean_chunk: int = 0) -> torch.Tensor:
-    """K5: the desired AGC gain of the block ``x`` [B, T] f32 (or of slot
-    ``ring_idx`` of an [S, B, T] ring, read in place).  ``band`` is the
-    boxcar band matrix [W−1+LANE, LANE] of ``ones(W)/W``
+    """K5: the desired AGC gain of the block ``x`` [B, T], f32 or int16 PCM
+    (or of slot ``ring_idx`` of an [S, B, T] ring, read in place).
+    ``band`` is the boxcar band matrix [W−1+LANE, LANE] of ``ones(W)/W``
     (:func:`~afp_tpu_torch.ops.cuda.fir_td.band_matrix`); ``lp``/``rp`` the
     'same' pads; ``target``/``max_gain`` scalars; ``exact_band`` from
     :func:`band_is_exact_bf16`.  Returns d [B, T], or [T, B] with
@@ -158,7 +162,8 @@ def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
         rc = lib.afp_rms_desired(
             xs.data_ptr(), band.data_ptr(), out.data_ptr(), B, T, W, int(lp),
             int(_two_level(W)), int(bool(exact_band)), layout, int(mean_chunk),
-            target, max_gain, 1.0 / W, _stream(xs))
+            int(xs.dtype == torch.int16), target, max_gain, 1.0 / W,
+            _stream(xs))
     _raise_on(rc, "rms_desired (K5)")
     rms_desired.launches += 1
     return out

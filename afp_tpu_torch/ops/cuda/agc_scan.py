@@ -10,7 +10,9 @@ The start value is ``init`` when given, else the first chunk mean
 (blockwise) or ``d[0]`` (`agc_scan.py:472-482`).  Blockwise ('fast' mode):
 one step per chunk mean with the compounded alphas ``1 − (1 − a)^chunk``
 (f32, by repeated squaring as `lax.integer_pow` does), and the ramp
-``g + (gn − g)·(t+1)/chunk`` inside the chunk.  A CPU tensor takes
+``g + (gn − g)·(t+1)/chunk`` inside the chunk.  x is f32 or, under
+``ingest='pcm16'``, raw int16 PCM that the kernel converts ``n/32768`` as it
+reads (exact, `agc_scan.py:273-277`).  A CPU tensor takes
 :func:`smooth_gain_apply_plain` (a loop over time of whole-batch torch ops),
 a CUDA tensor launches `csrc/agc_scan.cu` or raises.  Both round the
 updates as XLA's CPU backend rounds the reference's expressions,
@@ -26,7 +28,7 @@ import torch
 from ..agc import compound_alpha, fma_f32
 from . import _build
 from .agc_rms import _scalar
-from .fir_td import _on_cuda, _raise_on, _stream, split_bf16
+from .fir_td import _on_cuda, _raise_on, _stream, pcm16_to_f32, split_bf16
 
 __all__ = ["smooth_gain_apply", "smooth_gain_apply_plain"]
 
@@ -49,8 +51,8 @@ def _check(desired_tm, x, init, ring_idx, blockwise, d_is_means):
     if desired_tm.ndim != 2 or desired_tm.dtype != torch.float32:
         raise ValueError(f"desired_tm must be [T, B] float32, got "
                          f"{tuple(desired_tm.shape)} {desired_tm.dtype}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"x must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"x must be float32 or int16 PCM, got {x.dtype}")
     if ring_idx is not None:
         if x.ndim != 3:
             raise ValueError(f"ring mode needs an [S, B, T] ring, got "
@@ -104,7 +106,7 @@ def smooth_gain_apply_plain(desired_tm: torch.Tensor, x: torch.Tensor,
             g = fma_f32(a, d[t], (1 - a) * g)
             gs[t] = g
     gc = torch.clamp(gs, 0.1, max_gain).T
-    y = torch.clamp(x * gc, -out_clip, out_clip)
+    y = torch.clamp(pcm16_to_f32(x) * gc, -out_clip, out_clip)
     carry = torch.clamp(g, 0.1, max_gain)
     return (split_bf16(y) if emit_split else y), carry
 
@@ -115,9 +117,9 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
                       blockwise: int | None = None, d_is_means: bool = False):
     """K6: the attack/release recurrence over ``desired_tm`` [T, B] (the
     layout :func:`~afp_tpu_torch.ops.cuda.agc_rms.rms_desired` emits with
-    ``transposed``), applied to ``x`` [B, T] f32 (or to slot ``ring_idx`` of
-    an [S, B, T] ring, read in place).  ``init`` [B] is the carried gain, or
-    None to restart.  Returns ``(y, carry)``: y [B, T] f32 or, with
+    ``transposed``), applied to ``x`` [B, T], f32 or int16 PCM (or to slot
+    ``ring_idx`` of an [S, B, T] ring, read in place).  ``init`` [B] is the
+    carried gain, or None to restart.  Returns ``(y, carry)``: y [B, T] f32 or, with
     ``emit_split``, its bf16 pair ``(y_hi, y_lo)``; carry [B] the clipped
     last gain.  ``blockwise=chunk`` runs the 'fast' recurrence; with
     ``d_is_means`` the input is the [T/chunk, B] chunk-mean matrix."""
@@ -147,7 +149,8 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
             d.data_ptr(), xs.data_ptr(),
             None if init is None else init.data_ptr(), *ptrs,
             carry.data_ptr(), B, T, int(blockwise or 0), int(bool(d_is_means)),
-            a_att, a_rel, max_gain, float(out_clip), _stream(xs))
+            int(xs.dtype == torch.int16), a_att, a_rel, max_gain,
+            float(out_clip), _stream(xs))
     _raise_on(rc, "smooth_gain_apply (K6)")
     smooth_gain_apply.launches += 1
     return ((yh, yl) if emit_split else y), carry

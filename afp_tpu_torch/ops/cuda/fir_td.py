@@ -1,5 +1,6 @@
-"""The fused FIR of the filter chain: kernels K1, K3, K4, K7, K8 and their
-plain PyTorch versions (counterpart of `afp_tpu/ops/pallas/fir_td.py`).
+"""The fused FIR of the filter chain: kernels K1, K3, K4, K7, K8, K12, K13
+and their plain PyTorch versions (counterpart of
+`afp_tpu/ops/pallas/fir_td.py`).
 
 Every output is the causal/valid convolution
 
@@ -8,21 +9,33 @@ Every output is the causal/valid convolution
 of an extended signal ``ext`` (H history columns, then the block) with the
 fused cascade taps ``h``, in the TPU's bf16×3 numerics class: x and h are
 split into bf16 hi/lo halves (:func:`split_bf16`) and the three products
-hi·hi + hi·lo + lo·hi accumulate in fp32.  The clip, then the dither, fuse
-into the store.
+hi·hi + hi·lo + lo·hi accumulate in fp32.  The clip, then the dither, then
+(``emit='pcm16'``) the int16 quantizer :func:`quantize_pcm16` fuse into
+the store.
 
-===  ====================================  ================================
-K    wrapper (CUDA kernel in csrc/fir_td)  replaces (afp_tpu/ops/pallas/…)
-===  ====================================  ================================
-K1   :func:`fir_td_mxu`                    fir_td.py:fir_td_mxu
-K3   :func:`fir_td_mxu_ring_f32`           fir_td.py:fir_td_mxu_ring_f32
-K4   :func:`fir_td_mxu_ring_mega_f32`      fir_td.py:fir_td_mxu_ring_mega_f32
-K8   :func:`fir_td_mxu_pair`               fir_td.py:fir_td_mxu_pair
-K7   :func:`fir_td_mxu_pair_to_ring`       fir_td.py:fir_td_mxu_pair_to_ring
-===  ====================================  ================================
+===  ======================================  ================================
+K    wrapper (CUDA kernel in csrc/fir_td)    replaces (afp_tpu/ops/pallas/…)
+===  ======================================  ================================
+K1   :func:`fir_td_mxu`                      fir_td.py:fir_td_mxu
+K3   :func:`fir_td_mxu_ring_f32`             fir_td.py:fir_td_mxu_ring_f32
+K4   :func:`fir_td_mxu_ring_mega_f32`        fir_td.py:fir_td_mxu_ring_mega_f32
+K8   :func:`fir_td_mxu_pair`                 fir_td.py:fir_td_mxu_pair
+K7   :func:`fir_td_mxu_pair_to_ring`         fir_td.py:fir_td_mxu_pair_to_ring
+K12  :func:`fir_td_mxu_ring_pcm16`           fir_td.py:fir_td_mxu_ring_pcm16
+K12  :func:`fir_td_mxu_ring_mega_pcm16`      fir_td.py:fir_td_mxu_ring_mega_pcm16
+K13  :func:`fir_td_mxu_ring`                 fir_td.py:fir_td_mxu_ring
+K13  :func:`fir_td_mxu_ring_mega`            fir_td.py:fir_td_mxu_ring_mega
+===  ======================================  ================================
 
-K8 and K7 take the block and the carried tail as bf16 (hi, lo) pairs, the
-form the AGC apply kernel (K6) stores, and skip the split.
+K8, K7 and K13 take the block (or the rings) and the carried tail as bf16
+(hi, lo) pairs, the form the AGC apply kernel (K6) stores and
+``ingest='pair'`` delivers, and skip the split.  K12 reads raw int16 PCM
+and converts ``n/32768`` in the kernel (exact, and so is the split of the
+result), so K12 on ``n`` equals K3/K4 on ``n/32768`` bit for bit.
+
+The int16 store: K1 and K8 take ``emit_i16``; the ring forms (K3, K4, K7,
+K12, K13) quantize when their ``out_ring`` is int16, as `afp_tpu`'s ring
+kernels follow their output ring's dtype.
 
 Each wrapper dispatches on the device of its input: a CPU tensor takes the
 plain version beside it (``*_plain``: the three split products as fp32
@@ -41,18 +54,28 @@ import torch
 from ..dither import lsb_for_bits, noise
 from . import _build
 
-__all__ = ["LANE", "split_bf16", "merge_bf16", "band_matrix", "ring_k_pad",
+__all__ = ["LANE", "PCM16_SCALE", "split_bf16", "merge_bf16", "band_matrix",
+           "ring_k_pad", "quantize_pcm16", "pcm16_to_f32",
            "fir_td_mxu", "fir_td_mxu_plain",
            "fir_td_mxu_ring_f32", "fir_td_mxu_ring_f32_plain",
            "fir_td_mxu_ring_mega_f32", "fir_td_mxu_ring_mega_f32_plain",
            "fir_td_mxu_pair", "fir_td_mxu_pair_plain",
-           "fir_td_mxu_pair_to_ring", "fir_td_mxu_pair_to_ring_plain"]
+           "fir_td_mxu_pair_to_ring", "fir_td_mxu_pair_to_ring_plain",
+           "fir_td_mxu_ring_pcm16", "fir_td_mxu_ring_pcm16_plain",
+           "fir_td_mxu_ring_mega_pcm16", "fir_td_mxu_ring_mega_pcm16_plain",
+           "fir_td_mxu_ring", "fir_td_mxu_ring_plain",
+           "fir_td_mxu_ring_mega", "fir_td_mxu_ring_mega_plain"]
 
 #: output-tile width of the band-matrix form and the granule of the block
 #: length and of the ring tail (`fir_td.py:LANE`)
 LANE = 128
 
+#: int16 PCM full scale: sample n is n/32768 (`fir_td.py:207`).  A power of
+#: two, so the convert is exact in f32.
+PCM16_SCALE = 1.0 / 32768.0
+
 _M32 = 0xFFFFFFFF
+_IN_F32, _IN_I16, _IN_PAIR = 0, 1, 2  # csrc/fir_td.cu kInF32, kInI16, kInPair
 
 
 def split_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,6 +101,19 @@ def _split_f32(v: torch.Tensor):
     return hi.to(torch.float32), lo.to(torch.float32)
 
 
+def quantize_pcm16(y: torch.Tensor) -> torch.Tensor:
+    """f32 → int16 PCM, ``int16(clip(round(y·32768), −32768, 32767))`` with
+    round half to even (`fir_td.py:210-218`): the quantizer of the kernels'
+    int16 store, bit for bit."""
+    return torch.clamp(torch.round(y * 32768.0), -32768.0,
+                       32767.0).to(torch.int16)
+
+
+def pcm16_to_f32(x: torch.Tensor) -> torch.Tensor:
+    """int16 PCM → f32, ``n/32768`` (exact); f32 passes through."""
+    return x.to(torch.float32) * PCM16_SCALE if x.dtype == torch.int16 else x
+
+
 def band_matrix(h, tile: int = LANE) -> torch.Tensor:
     """Banded-Toeplitz operator [N−1+tile, tile], ``T_h[i, j] = h[N−1+j−i]``
     (zero outside the band), on `h`'s device (`fir_td.py:101-117`)."""
@@ -96,15 +132,16 @@ def ring_k_pad(n_taps: int) -> int:
     return -(-max(n_taps - 1, 1) // LANE) * LANE
 
 
-def _finish(y, out_clip, dither_key, dither_bits, dither_tpdf):
+def _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16=False):
     """Plain output stage, `fir_td.py:_finish_tile`'s order: clip, then
-    dither (flat index of `y` [B, T] as the noise counter)."""
+    dither (flat index of `y` [B, T] as the noise counter), then the int16
+    quantizer with ``emit_i16``."""
     if out_clip is not None:
         y = torch.clamp(y, -out_clip, out_clip)
     if dither_bits is not None:
         y = y + noise(y.shape, dither_key, lsb_for_bits(dither_bits),
                       dither_tpdf, y.device)
-    return y
+    return quantize_pcm16(y) if emit_i16 else y
 
 
 def _check_taps(h: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -154,6 +191,24 @@ def _full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _out_ring_emit(out_ring: torch.Tensor, shape, device) -> bool:
+    """Checks of an output ring written in place, four outputs per store
+    (16 bytes f32, 8 bytes int16).  Returns True for an int16 ring (the
+    int16 store)."""
+    if tuple(out_ring.shape) != tuple(shape) or out_ring.dtype not in (
+            torch.float32, torch.int16):
+        raise ValueError(f"out_ring must be {tuple(shape)} float32 or int16, "
+                         f"got {tuple(out_ring.shape)} {out_ring.dtype}")
+    emit = out_ring.dtype == torch.int16
+    align = 8 if emit else 16
+    if not out_ring.is_contiguous() or out_ring.data_ptr() % align:
+        raise ValueError(f"out_ring must be contiguous and {align}-byte "
+                         "aligned")
+    if _on_cuda(out_ring) and out_ring.device != device:
+        raise ValueError(f"out_ring must be on {device}, got {out_ring.device}")
+    return emit
+
+
 # ---------------------------------------------------------------- K1
 
 
@@ -174,18 +229,19 @@ def _conv_split(xh: torch.Tensor, xl: torch.Tensor, h: torch.Tensor):
 
 def fir_td_mxu_plain(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
                      dither_key=(0, 0), dither_bits=None,
-                     dither_tpdf=True) -> torch.Tensor:
+                     dither_tpdf=True, emit_i16=False) -> torch.Tensor:
     """Plain K1: ``[B, n−1+T] → [B, T]``."""
     y = _conv_split(*_split_f32(x_ext), h)
-    return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf)
+    return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
 
 
 def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
                dither_key=(0, 0), dither_bits=None,
-               dither_tpdf=True) -> torch.Tensor:
+               dither_tpdf=True, emit_i16=False) -> torch.Tensor:
     """K1: causal/valid conv of ``x_ext`` [B, n−1+T] with taps ``h`` [n] →
-    [B, T] f32, with the optional clip then dither fused into the store.
-    ``T`` must be a multiple of :data:`LANE` (`fir_td.py:1665-1698`)."""
+    [B, T] f32 (int16 PCM with ``emit_i16``), with the optional clip then
+    dither fused into the store.  ``T`` must be a multiple of :data:`LANE`
+    (`fir_td.py:1665-1698`)."""
     if x_ext.ndim != 2 or x_ext.dtype != torch.float32:
         raise ValueError(f"x_ext must be [B, n-1+T] float32, got "
                          f"{tuple(x_ext.shape)} {x_ext.dtype}")
@@ -197,15 +253,16 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
         raise ValueError(f"output length {T} must be a multiple of {LANE}")
     if not _on_cuda(x_ext):
         return fir_td_mxu_plain(x_ext, h, out_clip, dither_key, dither_bits,
-                                dither_tpdf)
+                                dither_tpdf, emit_i16)
     x_ext = x_ext.contiguous()
-    out = torch.empty((B, T), dtype=torch.float32, device=x_ext.device)
+    out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
+                      device=x_ext.device)
     lib = _build.load()
     with torch.cuda.device(x_ext.device):
         rc = lib.afp_fir_td(
             x_ext.data_ptr(), h.data_ptr(), out.data_ptr(), B, T, n,
             *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
-            _stream(x_ext))
+            int(bool(emit_i16)), _stream(x_ext))
     _raise_on(rc, "fir_td_mxu (K1)")
     fir_td_mxu.launches += 1
     return out
@@ -214,28 +271,26 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
 fir_td_mxu.launches = 0
 
 
-# ---------------------------------------------------------------- K3 / K4
+# ---------------------------------------------------------------- ring forms
 
 
-def _ring_args(ring, tail, h, out_ring):
-    """Shared checks of the ring forms (`fir_td.py:_ring_geometry`): the LANE
+def _ring_args(ring, tail, h, out_ring, dtype):
+    """Shared checks of the raw-input ring forms, K3/K4 (f32) and K12
+    (int16) (`fir_td.py:_ring_geometry`): the ring and tail dtype, the LANE
     rule on the slot length, and a narrow tail zero-padded on the left to
-    k_pad (the padded history meets only zero taps)."""
-    if ring.ndim != 3 or ring.dtype != torch.float32:
-        raise ValueError(f"ring must be [S, B, T] float32, got "
+    k_pad (the padded history meets only zero taps).  Returns (h, tail,
+    k_pad, emit_i16)."""
+    name = "float32" if dtype == torch.float32 else "int16"
+    if ring.ndim != 3 or ring.dtype != dtype:
+        raise ValueError(f"ring must be [S, B, T] {name}, got "
                          f"{tuple(ring.shape)} {ring.dtype}")
     S, B, T = ring.shape
     if T % LANE:
         raise ValueError(f"T={T} must be a multiple of {LANE}")
-    if out_ring.shape != ring.shape or out_ring.dtype != torch.float32:
-        raise ValueError(f"out_ring must be {tuple(ring.shape)} float32, got "
-                         f"{tuple(out_ring.shape)} {out_ring.dtype}")
-    if not out_ring.is_contiguous() or out_ring.data_ptr() % 16:
-        # written in place, four outputs per 16-byte store
-        raise ValueError("out_ring must be contiguous and 16-byte aligned")
+    emit = _out_ring_emit(out_ring, ring.shape, ring.device)
     h = _check_taps(h, ring)
-    if tail.dtype != torch.float32 or tail.device != ring.device:
-        raise ValueError(f"tail must be float32 on {ring.device}, got "
+    if tail.dtype != dtype or tail.device != ring.device:
+        raise ValueError(f"tail must be {name} on {ring.device}, got "
                          f"{tail.dtype} on {tail.device}")
     k_pad = ring_k_pad(h.shape[0])
     if tail.ndim != 2 or tail.shape[0] != B or tail.shape[1] > k_pad:
@@ -243,7 +298,55 @@ def _ring_args(ring, tail, h, out_ring):
                          f"{tuple(tail.shape)}")
     if tail.shape[1] < k_pad:
         tail = torch.nn.functional.pad(tail, (k_pad - tail.shape[1], 0))
-    return h, tail.contiguous(), k_pad
+    return h, tail.contiguous(), k_pad, emit
+
+
+def _launch_ring(kind, rings, tails, h, out_ring, k_pad, start, n_steps,
+                 epi, emit, what):
+    """Launch `csrc/fir_td.cu:afp_fir_td_ring` over `rings` (the ring, or
+    the (hi, lo) pair) behind `tails`; returns the next tail(s)."""
+    S, B, T = rings[0].shape
+    rings = [r.contiguous() for r in rings]
+    new = [torch.empty((B, k_pad), dtype=t.dtype, device=t.device)
+           for t in tails]
+    lo = (lambda ts: ts[1].data_ptr() if len(ts) > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(rings[0].device):
+        rc = lib.afp_fir_td_ring(
+            rings[0].data_ptr(), lo(rings), tails[0].data_ptr(), lo(tails),
+            h.data_ptr(), out_ring.data_ptr(), new[0].data_ptr(), lo(new),
+            kind, S, B, T, k_pad, h.shape[0], start, n_steps, *epi,
+            int(emit), _stream(rings[0]))
+    _raise_on(rc, what)
+    return new
+
+
+def _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
+                dither_bits, dither_tpdf):
+    """One plain ring step over an f32 or int16 ring: concat(tail,
+    ring[idx]) (converted n/32768 when int16) through the plain K1 into
+    ``out_ring[idx]`` (quantized when the ring is int16); the next tail is
+    the raw last k_pad samples."""
+    n = h.shape[0]
+    k_pad = tail.shape[1]
+    ext = torch.cat([tail, ring[idx]], dim=-1)
+    out_ring[idx] = fir_td_mxu_plain(
+        pcm16_to_f32(ext[:, k_pad - (n - 1):]), h, out_clip, dither_key,
+        dither_bits, dither_tpdf, out_ring.dtype == torch.int16)
+    return out_ring, ext[:, -k_pad:].clone()
+
+
+def _ring_mega_plain(step, ring, start, tail, h, out_ring, n_steps, out_clip,
+                     dither_key, dither_bits, dither_tpdf):
+    """`step` (a plain ring step) looped over slots ``(start+i) mod S``,
+    block counter ``counter+i`` for step i."""
+    S = ring.shape[0]
+    seed, counter = dither_key
+    for i in range(n_steps):
+        out_ring, tail = step(ring, (start + i) % S, tail, h, out_ring,
+                              out_clip, (seed, counter + i), dither_bits,
+                              dither_tpdf)
+    return out_ring, tail
 
 
 def fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring, out_clip=None,
@@ -251,12 +354,8 @@ def fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring, out_clip=None,
                               dither_tpdf=True):
     """Plain K3: concat(tail, ring[idx]) through the plain K1; writes
     ``out_ring[idx]`` in place.  Returns ``(out_ring, next_tail)``."""
-    n = h.shape[0]
-    k_pad = tail.shape[1]
-    ext = torch.cat([tail, ring[idx]], dim=-1)
-    out_ring[idx] = fir_td_mxu_plain(ext[:, k_pad - (n - 1):], h, out_clip,
-                                     dither_key, dither_bits, dither_tpdf)
-    return out_ring, ext[:, -k_pad:].clone()
+    return _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
+                       dither_bits, dither_tpdf)
 
 
 def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
@@ -264,26 +363,19 @@ def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
                         dither_key=(0, 0), dither_bits=None, dither_tpdf=True):
     """K3: one serving step over an f32 input ring [S, B, T].  Convolves slot
     `idx` behind the carried tail [B, k_pad] (narrower tails are zero-padded)
-    into slot `idx` of `out_ring`, in place.  Returns ``(out_ring,
-    next_tail)``; the next tail is the last k_pad samples of
-    concat(tail, slot) (`fir_td.py:1058-1063`)."""
-    h, tail, k_pad = _ring_args(ring, tail, h, out_ring)
-    S, B, T = ring.shape
-    idx = int(idx) % S
+    into slot `idx` of `out_ring` (f32, or int16 for the int16 store), in
+    place.  Returns ``(out_ring, next_tail)``; the next tail is the last
+    k_pad samples of concat(tail, slot) (`fir_td.py:1058-1063`)."""
+    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.float32)
+    idx = int(idx) % ring.shape[0]
     if not _on_cuda(ring):
         return fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring,
                                          out_clip, dither_key, dither_bits,
                                          dither_tpdf)
-    ring = ring.contiguous()
-    new_tail = torch.empty((B, k_pad), dtype=torch.float32, device=ring.device)
-    lib = _build.load()
-    with torch.cuda.device(ring.device):
-        rc = lib.afp_fir_td_ring(
-            ring.data_ptr(), tail.data_ptr(), h.data_ptr(), out_ring.data_ptr(),
-            new_tail.data_ptr(), S, B, T, k_pad, h.shape[0], idx,
-            *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
-            _stream(ring))
-    _raise_on(rc, "fir_td_mxu_ring_f32 (K3)")
+    (new_tail,) = _launch_ring(
+        _IN_F32, (ring,), (tail,), h, out_ring, k_pad, idx, 1,
+        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
+        "fir_td_mxu_ring_f32 (K3)")
     fir_td_mxu_ring_f32.launches += 1
     return out_ring, new_tail
 
@@ -291,18 +383,21 @@ def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
 fir_td_mxu_ring_f32.launches = 0
 
 
+def _check_steps(n_steps) -> int:
+    n_steps = int(n_steps)
+    if not 1 <= n_steps <= 65535:
+        raise ValueError(f"n_steps must be in [1, 65535], got {n_steps}")
+    return n_steps
+
+
 def fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring, n_steps,
                                    out_clip=None, dither_key=(0, 0),
                                    dither_bits=None, dither_tpdf=True):
     """Plain K4: the plain K3 looped over slots ``(start+i) mod S``, block
     counter ``counter+i`` for step i."""
-    S = ring.shape[0]
-    seed, counter = dither_key
-    for i in range(n_steps):
-        out_ring, tail = fir_td_mxu_ring_f32_plain(
-            ring, (start + i) % S, tail, h, out_ring, out_clip,
-            (seed, counter + i), dither_bits, dither_tpdf)
-    return out_ring, tail
+    return _ring_mega_plain(fir_td_mxu_ring_f32_plain, ring, start, tail, h,
+                            out_ring, n_steps, out_clip, dither_key,
+                            dither_bits, dither_tpdf)
 
 
 def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
@@ -314,26 +409,17 @@ def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
     equal to chained :func:`fir_td_mxu_ring_f32` calls (same per-step math
     and noise).  ``k_pad > T`` and ``n_steps > S`` are both allowed.
     Returns ``(out_ring, next_tail)``."""
-    h, tail, k_pad = _ring_args(ring, tail, h, out_ring)
-    S, B, T = ring.shape
-    n_steps = int(n_steps)
-    if not 1 <= n_steps <= 65535:
-        raise ValueError(f"n_steps must be in [1, 65535], got {n_steps}")
-    start = int(start) % S
+    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.float32)
+    n_steps = _check_steps(n_steps)
+    start = int(start) % ring.shape[0]
     if not _on_cuda(ring):
         return fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring,
                                               n_steps, out_clip, dither_key,
                                               dither_bits, dither_tpdf)
-    ring = ring.contiguous()
-    new_tail = torch.empty((B, k_pad), dtype=torch.float32, device=ring.device)
-    lib = _build.load()
-    with torch.cuda.device(ring.device):
-        rc = lib.afp_fir_td_ring_mega(
-            ring.data_ptr(), tail.data_ptr(), h.data_ptr(), out_ring.data_ptr(),
-            new_tail.data_ptr(), S, B, T, k_pad, h.shape[0], start, n_steps,
-            *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
-            _stream(ring))
-    _raise_on(rc, "fir_td_mxu_ring_mega_f32 (K4)")
+    (new_tail,) = _launch_ring(
+        _IN_F32, (ring,), (tail,), h, out_ring, k_pad, start, n_steps,
+        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
+        "fir_td_mxu_ring_mega_f32 (K4)")
     fir_td_mxu_ring_mega_f32.launches += 1
     return out_ring, new_tail
 
@@ -341,25 +427,92 @@ def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
 fir_td_mxu_ring_mega_f32.launches = 0
 
 
+# ---------------------------------------------------------------- K12
+
+
+def fir_td_mxu_ring_pcm16_plain(ring, idx, tail, h, out_ring, out_clip=None,
+                                dither_key=(0, 0), dither_bits=None,
+                                dither_tpdf=True):
+    """Plain K12: the plain K3 on the int16 ring and tail converted
+    n/32768 (exact); the next tail is the raw int16 history."""
+    return _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
+                       dither_bits, dither_tpdf)
+
+
+def fir_td_mxu_ring_pcm16(ring: torch.Tensor, idx: int, tail: torch.Tensor,
+                          h: torch.Tensor, out_ring: torch.Tensor,
+                          out_clip=None, dither_key=(0, 0), dither_bits=None,
+                          dither_tpdf=True):
+    """K12: :func:`fir_td_mxu_ring_f32` over a raw int16 PCM ring [S, B, T]
+    and int16 tail [B, <= k_pad]; the kernel converts ``n/32768`` and
+    splits (both exact), so the output equals K3's on the f32 ring of
+    ``n/32768`` bit for bit, at half the input bytes.  Returns ``(out_ring,
+    next_tail)``, the next tail in int16 (`fir_td.py:1270-1304`)."""
+    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.int16)
+    idx = int(idx) % ring.shape[0]
+    if not _on_cuda(ring):
+        return fir_td_mxu_ring_pcm16_plain(ring, idx, tail, h, out_ring,
+                                           out_clip, dither_key, dither_bits,
+                                           dither_tpdf)
+    (new_tail,) = _launch_ring(
+        _IN_I16, (ring,), (tail,), h, out_ring, k_pad, idx, 1,
+        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
+        "fir_td_mxu_ring_pcm16 (K12)")
+    fir_td_mxu_ring_pcm16.launches += 1
+    return out_ring, new_tail
+
+
+fir_td_mxu_ring_pcm16.launches = 0
+
+
+def fir_td_mxu_ring_mega_pcm16_plain(ring, start, tail, h, out_ring, n_steps,
+                                     out_clip=None, dither_key=(0, 0),
+                                     dither_bits=None, dither_tpdf=True):
+    """Plain K12 megakernel: the plain K12 step looped over slots
+    ``(start+i) mod S``, block counter ``counter+i`` for step i."""
+    return _ring_mega_plain(fir_td_mxu_ring_pcm16_plain, ring, start, tail, h,
+                            out_ring, n_steps, out_clip, dither_key,
+                            dither_bits, dither_tpdf)
+
+
+def fir_td_mxu_ring_mega_pcm16(ring: torch.Tensor, start: int,
+                               tail: torch.Tensor, h: torch.Tensor,
+                               out_ring: torch.Tensor, n_steps: int,
+                               out_clip=None, dither_key=(0, 0),
+                               dither_bits=None, dither_tpdf=True):
+    """K12, megakernel form: ``n_steps`` :func:`fir_td_mxu_ring_pcm16` steps
+    in one launch (K4's form over the int16 ring; `fir_td.py:1638-1662`).
+    Returns ``(out_ring, next_tail)``."""
+    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.int16)
+    n_steps = _check_steps(n_steps)
+    start = int(start) % ring.shape[0]
+    if not _on_cuda(ring):
+        return fir_td_mxu_ring_mega_pcm16_plain(
+            ring, start, tail, h, out_ring, n_steps, out_clip, dither_key,
+            dither_bits, dither_tpdf)
+    (new_tail,) = _launch_ring(
+        _IN_I16, (ring,), (tail,), h, out_ring, k_pad, start, n_steps,
+        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
+        "fir_td_mxu_ring_mega_pcm16 (K12)")
+    fir_td_mxu_ring_mega_pcm16.launches += 1
+    return out_ring, new_tail
+
+
+fir_td_mxu_ring_mega_pcm16.launches = 0
+
+
 # ---------------------------------------------------------------- K8 / K7
 
 
-def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
-    """Shared checks of the pair forms: bf16 pairs [B, T] and [B, <= k_pad]
-    on one device, the LANE rule on T, and a narrow tail zero-padded on the
-    left to k_pad (`fir_td.py:727-738`; the padded history meets only zero
-    taps).  Returns (h, tail_hi, tail_lo, k_pad)."""
-    for name, t in (("x_hi", x_hi), ("x_lo", x_lo), ("tail_hi", tail_hi),
-                    ("tail_lo", tail_lo)):
-        if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != x_hi.device:
-            raise ValueError(f"{name} must be 2-D bfloat16 on {x_hi.device}, "
+def _pair_tail_args(B, tail_hi, tail_lo, h, ref):
+    """The pair tail [B, n−1 .. k_pad], zero-padded on the left to k_pad
+    (`fir_td.py:727-738`; the padded history meets only zero taps).
+    Returns (h, tail_hi, tail_lo, k_pad)."""
+    for name, t in (("tail_hi", tail_hi), ("tail_lo", tail_lo)):
+        if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != ref.device:
+            raise ValueError(f"{name} must be 2-D bfloat16 on {ref.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    B, T = x_hi.shape
-    if x_lo.shape != x_hi.shape or T % LANE:
-        raise ValueError(f"the block pair must be two [B, T] halves with T a "
-                         f"multiple of {LANE}, got {tuple(x_hi.shape)} and "
-                         f"{tuple(x_lo.shape)}")
-    h = _check_taps(h, x_hi)
+    h = _check_taps(h, ref)
     k_pad = ring_k_pad(h.shape[0])
     if tail_lo.shape != tail_hi.shape or tail_hi.shape[0] != B or (
             not h.shape[0] - 1 <= tail_hi.shape[1] <= k_pad):
@@ -370,7 +523,22 @@ def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
     if pad:
         tail_hi = torch.nn.functional.pad(tail_hi, (pad, 0))
         tail_lo = torch.nn.functional.pad(tail_lo, (pad, 0))
-    return h, tail_hi, tail_lo, k_pad
+    return h, tail_hi.contiguous(), tail_lo.contiguous(), k_pad
+
+
+def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
+    """Shared checks of K8/K7: a bf16 block pair [B, T] on one device with
+    T a multiple of LANE, and the pair tail (:func:`_pair_tail_args`)."""
+    for name, t in (("x_hi", x_hi), ("x_lo", x_lo)):
+        if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != x_hi.device:
+            raise ValueError(f"{name} must be 2-D bfloat16 on {x_hi.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    B, T = x_hi.shape
+    if x_lo.shape != x_hi.shape or T % LANE:
+        raise ValueError(f"the block pair must be two [B, T] halves with T a "
+                         f"multiple of {LANE}, got {tuple(x_hi.shape)} and "
+                         f"{tuple(x_lo.shape)}")
+    return _pair_tail_args(B, tail_hi, tail_lo, h, x_hi)
 
 
 def _next_pair_tail(tail, x, k_pad):
@@ -383,7 +551,7 @@ def _next_pair_tail(tail, x, k_pad):
 
 def fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h, out_clip=None,
                           dither_key=(0, 0), dither_bits=None,
-                          dither_tpdf=True):
+                          dither_tpdf=True, emit_i16=False):
     """Plain K8: the pairs widened to f32 (exact) and concatenated, then
     the split conv of the plain K1."""
     h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
@@ -391,24 +559,23 @@ def fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h, out_clip=None,
     eh = torch.cat([tail_hi, x_hi], dim=-1)[:, k_pad - (n - 1):].float()
     el = torch.cat([tail_lo, x_lo], dim=-1)[:, k_pad - (n - 1):].float()
     y = _finish(_conv_split(eh, el, h), out_clip, dither_key, dither_bits,
-                dither_tpdf)
+                dither_tpdf, emit_i16)
     return (y, _next_pair_tail(tail_hi, x_hi, k_pad),
             _next_pair_tail(tail_lo, x_lo, k_pad))
 
 
 def _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out, S, idx, epi,
-                 what):
+                 emit, what):
     B, T = x_hi.shape
     th = torch.empty((B, k_pad), dtype=torch.bfloat16, device=x_hi.device)
     tl = torch.empty_like(th)
     x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
-    tail_hi, tail_lo = tail_hi.contiguous(), tail_lo.contiguous()
     lib = _build.load()
     with torch.cuda.device(x_hi.device):
         rc = lib.afp_fir_td_pair(
             x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
             tail_lo.data_ptr(), h.data_ptr(), out.data_ptr(), th.data_ptr(),
-            tl.data_ptr(), S, B, T, k_pad, h.shape[0], idx, *epi,
+            tl.data_ptr(), S, B, T, k_pad, h.shape[0], idx, *epi, int(emit),
             _stream(x_hi))
     _raise_on(rc, what)
     return th, tl
@@ -417,23 +584,26 @@ def _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out, S, idx, epi,
 def fir_td_mxu_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
                     tail_hi: torch.Tensor, tail_lo: torch.Tensor,
                     h: torch.Tensor, out_clip=None, dither_key=(0, 0),
-                    dither_bits=None, dither_tpdf=True):
+                    dither_bits=None, dither_tpdf=True, emit_i16=False):
     """K8: causal/valid conv of the bf16 pair of the block [B, T] behind the
     carried pair tail [B, n−1 .. k_pad] (narrower tails are zero-padded)
-    with taps ``h``, clip then dither fused into the store as in K1.  Equal
-    to K1 on concat(tail, block) when the pairs are :func:`split_bf16` of
-    f32 inputs.  Returns ``(y, next_tail_hi, next_tail_lo)``: y [B, T] f32
-    and the last k_pad samples of concat(tail, block), the pair tail of the
-    next block (`fir_td.py:700-743` with ``emit_tail``)."""
+    with taps ``h``, clip then dither fused into the store as in K1 (and
+    the int16 quantizer with ``emit_i16``).  Equal to K1 on concat(tail,
+    block) when the pairs are :func:`split_bf16` of f32 inputs.  Returns
+    ``(y, next_tail_hi, next_tail_lo)``: y [B, T] f32 (int16) and the last
+    k_pad samples of concat(tail, block), the pair tail of the next block
+    (`fir_td.py:700-743` with ``emit_tail``)."""
     if not _on_cuda(x_hi):
         return fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
                                      out_clip, dither_key, dither_bits,
-                                     dither_tpdf)
+                                     dither_tpdf, emit_i16)
     h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
-    y = torch.empty(x_hi.shape, dtype=torch.float32, device=x_hi.device)
+    y = torch.empty(x_hi.shape,
+                    dtype=torch.int16 if emit_i16 else torch.float32,
+                    device=x_hi.device)
     th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, y, 1, 0,
                           _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-                          "fir_td_mxu_pair (K8)")
+                          emit_i16, "fir_td_mxu_pair (K8)")
     fir_td_mxu_pair.launches += 1
     return y, th, tl
 
@@ -445,10 +615,11 @@ def fir_td_mxu_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo, h, idx,
                                   out_ring, out_clip=None, dither_key=(0, 0),
                                   dither_bits=None, dither_tpdf=True):
     """Plain K7: the plain K8 with its tail, written into ``out_ring[idx]``
-    in place."""
+    in place (quantized when the ring is int16)."""
     y, th, tl = fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
                                       out_clip, dither_key, dither_bits,
-                                      dither_tpdf)
+                                      dither_tpdf,
+                                      out_ring.dtype == torch.int16)
     out_ring[int(idx) % out_ring.shape[0]] = y
     return out_ring, th, tl
 
@@ -459,31 +630,132 @@ def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
                             out_clip=None, dither_key=(0, 0),
                             dither_bits=None, dither_tpdf=True):
     """K7: :func:`fir_td_mxu_pair` writing its output into slot ``idx`` of
-    the f32 ``out_ring`` [S, B, T] in place (every other slot untouched),
-    the same body and so the same bits as K8.  Returns ``(out_ring,
-    next_tail_hi, next_tail_lo)`` (`fir_td.py:828-862`)."""
-    if out_ring.ndim != 3 or out_ring.shape[1:] != x_hi.shape or (
-            out_ring.dtype != torch.float32):
+    ``out_ring`` [S, B, T] (f32, or int16 for the int16 store) in place
+    (every other slot untouched), the same body and so the same bits as
+    K8.  Returns ``(out_ring, next_tail_hi, next_tail_lo)``
+    (`fir_td.py:828-862`)."""
+    if out_ring.ndim != 3:
         raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
-                         f"{x_hi.shape[-1]}] float32, got "
-                         f"{tuple(out_ring.shape)} {out_ring.dtype}")
+                         f"{x_hi.shape[-1]}], got {tuple(out_ring.shape)}")
+    emit = _out_ring_emit(out_ring, (out_ring.shape[0], *x_hi.shape),
+                          x_hi.device)
     if not _on_cuda(x_hi):
         return fir_td_mxu_pair_to_ring_plain(
             x_hi, x_lo, tail_hi, tail_lo, h, idx, out_ring, out_clip,
             dither_key, dither_bits, dither_tpdf)
-    if not out_ring.is_contiguous() or out_ring.data_ptr() % 16 or (
-            out_ring.device != x_hi.device):
-        # written in place, four outputs per 16-byte store
-        raise ValueError("out_ring must be contiguous, 16-byte aligned and "
-                         f"on {x_hi.device}")
     h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
     S = out_ring.shape[0]
     th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out_ring, S,
                           int(idx) % S,
                           _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-                          "fir_td_mxu_pair_to_ring (K7)")
+                          emit, "fir_td_mxu_pair_to_ring (K7)")
     fir_td_mxu_pair_to_ring.launches += 1
     return out_ring, th, tl
 
 
 fir_td_mxu_pair_to_ring.launches = 0
+
+
+# ---------------------------------------------------------------- K13
+
+
+def _pair_ring_args(ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring):
+    """Shared checks of K13: bf16 pair rings [S, B, T] on one device, the
+    LANE rule, the pair tail and the output ring.  Returns (h, tail_hi,
+    tail_lo, k_pad, emit_i16)."""
+    for name, t in (("ring_hi", ring_hi), ("ring_lo", ring_lo)):
+        if t.dtype != torch.bfloat16 or t.ndim != 3 or (
+                t.device != ring_hi.device):
+            raise ValueError(f"{name} must be [S, B, T] bfloat16 on "
+                             f"{ring_hi.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if ring_lo.shape != ring_hi.shape:
+        raise ValueError(f"the ring pair must be two [S, B, T] halves, got "
+                         f"{tuple(ring_hi.shape)} and {tuple(ring_lo.shape)}")
+    S, B, T = ring_hi.shape
+    if T % LANE:
+        raise ValueError(f"T={T} must be a multiple of {LANE}")
+    emit = _out_ring_emit(out_ring, ring_hi.shape, ring_hi.device)
+    return (*_pair_tail_args(B, tail_hi, tail_lo, h, ring_hi), emit)
+
+
+def fir_td_mxu_ring_plain(ring_hi, ring_lo, idx, tail_hi, tail_lo, h,
+                          out_ring, out_clip=None, dither_key=(0, 0),
+                          dither_bits=None, dither_tpdf=True):
+    """Plain K13: the plain K7 on slot ``idx`` of the pair rings."""
+    idx = int(idx) % ring_hi.shape[0]
+    return fir_td_mxu_pair_to_ring_plain(
+        ring_hi[idx], ring_lo[idx], tail_hi, tail_lo, h, idx, out_ring,
+        out_clip, dither_key, dither_bits, dither_tpdf)
+
+
+def fir_td_mxu_ring(ring_hi: torch.Tensor, ring_lo: torch.Tensor, idx: int,
+                    tail_hi: torch.Tensor, tail_lo: torch.Tensor,
+                    h: torch.Tensor, out_ring: torch.Tensor, out_clip=None,
+                    dither_key=(0, 0), dither_bits=None, dither_tpdf=True):
+    """K13: one serving step over the bf16 (hi, lo) pair rings [S, B, T]
+    (``ingest='pair'``): slot ``idx`` behind the pair tail into slot
+    ``idx`` of `out_ring` (f32 or int16), in place.  Equal to K7 on that
+    slot's views, and to K3 on the f32 ring when the pairs are its
+    :func:`split_bf16`.  Returns ``(out_ring, next_tail_hi, next_tail_lo)``
+    (`fir_td.py:946-996` with ``emit_tail``)."""
+    h, tail_hi, tail_lo, k_pad, emit = _pair_ring_args(
+        ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring)
+    idx = int(idx) % ring_hi.shape[0]
+    if not _on_cuda(ring_hi):
+        return fir_td_mxu_ring_plain(ring_hi, ring_lo, idx, tail_hi, tail_lo,
+                                     h, out_ring, out_clip, dither_key,
+                                     dither_bits, dither_tpdf)
+    th, tl = _launch_ring(
+        _IN_PAIR, (ring_hi, ring_lo), (tail_hi, tail_lo), h, out_ring, k_pad,
+        idx, 1, _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
+        "fir_td_mxu_ring (K13)")
+    fir_td_mxu_ring.launches += 1
+    return out_ring, th, tl
+
+
+fir_td_mxu_ring.launches = 0
+
+
+def fir_td_mxu_ring_mega_plain(ring_hi, ring_lo, start, tail_hi, tail_lo, h,
+                               out_ring, n_steps, out_clip=None,
+                               dither_key=(0, 0), dither_bits=None,
+                               dither_tpdf=True):
+    """Plain K13 megakernel: the plain K13 step looped over slots
+    ``(start+i) mod S``, block counter ``counter+i`` for step i."""
+    S = ring_hi.shape[0]
+    seed, counter = dither_key
+    for i in range(n_steps):
+        out_ring, tail_hi, tail_lo = fir_td_mxu_ring_plain(
+            ring_hi, ring_lo, (start + i) % S, tail_hi, tail_lo, h, out_ring,
+            out_clip, (seed, counter + i), dither_bits, dither_tpdf)
+    return out_ring, tail_hi, tail_lo
+
+
+def fir_td_mxu_ring_mega(ring_hi: torch.Tensor, ring_lo: torch.Tensor,
+                         start: int, tail_hi: torch.Tensor,
+                         tail_lo: torch.Tensor, h: torch.Tensor,
+                         out_ring: torch.Tensor, n_steps: int, out_clip=None,
+                         dither_key=(0, 0), dither_bits=None,
+                         dither_tpdf=True):
+    """K13, megakernel form: ``n_steps`` :func:`fir_td_mxu_ring` steps over
+    slots ``(start+i) mod S`` in one launch, equal to the chained steps
+    (`fir_td.py:1445-1485`).  Returns ``(out_ring, next_tail_hi,
+    next_tail_lo)``."""
+    h, tail_hi, tail_lo, k_pad, emit = _pair_ring_args(
+        ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring)
+    n_steps = _check_steps(n_steps)
+    start = int(start) % ring_hi.shape[0]
+    if not _on_cuda(ring_hi):
+        return fir_td_mxu_ring_mega_plain(
+            ring_hi, ring_lo, start, tail_hi, tail_lo, h, out_ring, n_steps,
+            out_clip, dither_key, dither_bits, dither_tpdf)
+    th, tl = _launch_ring(
+        _IN_PAIR, (ring_hi, ring_lo), (tail_hi, tail_lo), h, out_ring, k_pad,
+        start, n_steps, _epi(out_clip, dither_key, dither_bits, dither_tpdf),
+        emit, "fir_td_mxu_ring_mega (K13)")
+    fir_td_mxu_ring_mega.launches += 1
+    return out_ring, th, tl
+
+
+fir_td_mxu_ring_mega.launches = 0

@@ -1,12 +1,15 @@
 """Host pump for the device-resident serving rings (counterpart of
-`afp_tpu/runtime/serving.py`: the f32 conv ring and the AGC chain over one
-f32 input ring).
+`afp_tpu/runtime/serving.py`: the conv rings and the AGC chain over one
+input ring).
 
-The device side is `Pipeline.run_ring` (one K3 launch per block; with AGC,
-K5 → K6 → K7 per block) or `Pipeline.run_ring_mega` (one K4 launch per
-chunk, no AGC): a dispatch advances
-`chunk` blocks around a preallocated f32 input ring, writing the output
-ring's slots in place.  This module is the pump:
+The device side is `Pipeline.run_ring` (one K3, K12 or K13 launch per
+block; with AGC, K5 → K6 → K7 per block) or `Pipeline.run_ring_mega` (one
+K4, K12 or K13 launch per chunk, no AGC): a dispatch advances `chunk`
+blocks around preallocated input rings, writing the output ring's slots in
+place.  The rings take the pipeline's transport forms: one f32 input ring,
+one raw int16 PCM ring (``ingest='pcm16'``: half the ingest bytes), or the
+bf16 (hi, lo) pair rings (``ingest='pair'``); the output ring is int16
+under ``emit='pcm16'`` (half the drain bytes).  This module is the pump:
 
 1. land incoming [batch, blocksize] blocks in the next input slots (a
    host→device copy through pinned memory),
@@ -34,8 +37,10 @@ import numpy as np
 import torch
 
 from ..engine.config import PipelineParams, StreamConfig
-from ..engine.pipeline import DeviceParams, Pipeline, StreamState, _not_in_slice
+from ..engine.pipeline import (DeviceParams, Pipeline, StreamState,
+                               _not_in_slice, bf16_tensor)
 from ..ops.agc import AGCParams
+from ..ops.cuda.fir_td import split_bf16
 from ..utils.log import get_logger
 
 logger = get_logger("serving")
@@ -99,8 +104,15 @@ class RingServer:
         self._state: StreamState = pipeline.init_state(seed=seed)
         dev = pipeline.device
         self._cuda = dev.type == "cuda"
-        self._ring = torch.zeros((slots, B, T), dtype=torch.float32, device=dev)
-        self._out = torch.zeros((slots, B, T), dtype=torch.float32, device=dev)
+
+        def ring(dtype):
+            return torch.zeros((slots, B, T), dtype=dtype, device=dev)
+
+        #: the rings by form (`afp_tpu/runtime/serving.py:170-192`)
+        pair = pipeline._pair_ingest
+        self._ring = ring(torch.bfloat16 if pair else pipeline.in_dtype)
+        self._ring_lo = ring(torch.bfloat16) if pair else None
+        self._out = ring(pipeline.out_dtype)
         self.blocks_served = 0
         #: blocks landed into input slots so far
         self.blocks_landed = 0
@@ -159,21 +171,49 @@ class RingServer:
 
     # -------------------------------------------------- core pump
 
-    def _land(self, slot: int, block) -> None:
-        """Copy one [batch, blocksize] block into input slot `slot`."""
-        src = torch.as_tensor(np.asarray(block, dtype=np.float32))
-        if src.shape != self._ring.shape[1:]:
-            raise ValueError(f"blocks must be {tuple(self._ring.shape[1:])}, "
+    def _copy_in(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """Copy a host block into the device tensor `dst`: through pinned
+        memory of the block's own dtype on a card, so the copy queues
+        behind the stream instead of waiting for it (the host allocator
+        keeps the staging buffer until the copy has run)."""
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"blocks must be {tuple(dst.shape)}, "
                              f"got {tuple(src.shape)}")
         if self._cuda:
-            # through pinned memory, so the copy queues behind the stream
-            # instead of waiting for it (the host allocator keeps the
-            # staging buffer until the copy has run)
-            staged = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+            staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             staged.copy_(src)
-            self._ring[slot].copy_(staged, non_blocking=True)
+            dst.copy_(staged, non_blocking=True)
         else:
-            self._ring[slot].copy_(src)
+            dst.copy_(src)
+
+    def _land(self, slot: int, block) -> None:
+        """Copy one [batch, blocksize] block into input slot `slot` in the
+        pipeline's transport form (`afp_tpu/runtime/serving.py:339-363`):
+        int16 PCM under pcm16 ingest (floats are refused, never silently
+        quantized); under pair ingest a ``(hi, lo)`` pair as given, or an
+        f32 block split on the device; else f32."""
+        pipe = self.pipe
+        if pipe._pair_ingest and isinstance(block, (tuple, list)):
+            for dst, half in zip((self._ring[slot], self._ring_lo[slot]),
+                                 block):
+                self._copy_in(dst, bf16_tensor(half, "cpu"))
+            return
+        if pipe._i16_ingest:
+            src = torch.as_tensor(np.asarray(block))
+            if src.dtype != torch.int16:
+                raise ValueError(
+                    f"pcm16 RingServer blocks must be int16, got {src.dtype}")
+        else:
+            src = torch.as_tensor(np.asarray(block, dtype=np.float32))
+        if not pipe._pair_ingest:
+            self._copy_in(self._ring[slot], src)
+            return
+        x = torch.empty(self._ring.shape[1:], dtype=torch.float32,
+                        device=pipe.device)
+        self._copy_in(x, src)
+        hi, lo = split_bf16(x)
+        self._ring[slot].copy_(hi)
+        self._ring_lo[slot].copy_(lo)
 
     def _fetch(self, slot: int, n: int):
         """Queue the copy of output slots [slot, slot+n) to the host; returns
@@ -188,9 +228,11 @@ class RingServer:
         return host, ev
 
     def stream(self, source: Iterable) -> Iterator[np.ndarray]:
-        """Pump `source` (an iterable of [batch, blocksize] f32 blocks)
-        through the rings; yield one [batch, blocksize] output per input
-        block, in order.  A short final chunk is served as is."""
+        """Pump `source` (an iterable of [batch, blocksize] f32 blocks, int16
+        PCM blocks under pcm16 ingest, or bf16 ``(hi, lo)`` pairs under pair
+        ingest) through the rings; yield one [batch, blocksize] output per
+        input block (int16 under ``emit='pcm16'``), in order.  A short
+        final chunk is served as is."""
         inflight: list = []
         land_ts: list[float] = []  # land time per pending block
         slot = 0
@@ -214,7 +256,7 @@ class RingServer:
                 with self._swap_lock:  # one bank for the whole chunk
                     params = self.params
                 self._state, self._out = dispatch(
-                    params, self._state, self._ring, None, self._out,
+                    params, self._state, self._ring, self._ring_lo, self._out,
                     pending, start=slot)
                 inflight.append((*self._fetch(slot, pending), land_ts))
                 land_ts = []

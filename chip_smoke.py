@@ -12,22 +12,36 @@ Phases, one output line each; any failure raises (exit code != 0):
    both timed with CUDA events: the C5 kernels K1-K4 and K2 at the C5
    headline (conv ≤ −110 dB, clip and noise bit-exact), and the C8 AGC
    kernels at the C8 point (batch 4096, block 2048, W = 512): K5 ≤ −110 dB,
-   K6 bit-exact, K8/K7 ≤ −110 dB with tails bit-exact and K7 ≡ K8;
+   K6 bit-exact, K8/K7 ≤ −110 dB with tails bit-exact and K7 ≡ K8; then the
+   transport forms: K12 and K12-mega (int16 PCM rings reaching −32768 and
+   32767) ≡ K3/K4 fed n/32768, K13 and K13-mega ≡ K3/K4 fed the split, each
+   ≤ −110 dB against its plain version; the int16 store of K1, K3, K4, K7,
+   K8, K12, K13 ≡ quantize_pcm16 of its own f32 output; K5/K6 on int16 x ≡
+   f32 x of n/32768;
 4. `Pipeline.run` at the C5 headline (batch 4096, 8 blocks), and the
    single-stream chain against the float64 oracle of `bench.py:394-418`
    (< −90 dB); then the C8 chain (`bench.py:827-843`): 'exact' and 'fast'
    AGC, 8 blocks each at batch 4096, a batch-8 run against the port's CPU
    run (≤ −100 dB), and 4 streams × 4 blocks against a float64 oracle of
-   AGC + chain (< −90 dB);
+   AGC + chain (< −90 dB); then the transport forms: C5-i16io (int16 in
+   and out, 8 blocks) and C8-i16io 'exact' and 'fast' (8 blocks each), each
+   ≡ quantize_pcm16 of the f32 chain fed n/32768, and the C5-pcm16 (one
+   stream × 4 blocks) and C8-pcm16 (4 streams × 4 blocks) oracles (< −90 dB;
+   with int16 out, ≤ 1 LSB from the quantized oracle);
 5. `RingServer` at the C5 headline (16 slots, chunk 4, 16 blocks),
    megakernel and per-step forms: bit-identical with dither on, ≤ −110 dB
    against staged steps with dither off; then the C8 chain's per-step ring
-   (16 slots, chunk 4, 16 blocks) ≡ its staged steps, dither on;
+   (16 slots, chunk 4, 16 blocks) ≡ its staged steps, dither on; then
+   C5-i16io and C5-pair, mega and per-step ≡ each other and ≡ the staged
+   steps with dither on, and C8-i16io's per-step ring ≡ its staged steps;
 6. `StreamEngine` with the README quick-start configuration ('fft', EQ on,
    batch 512): process_block ×4, set_eq_gains, ×2, process_signal; and with
    the C8 configuration: process_block ×4, apply_config with a new AGC
-   target, ×2; no degradation-ladder fallback;
-7. every kernel (K1-K8) launched during phases 4-6.
+   target, ×2; then at C8-i16io the same with int16 blocks in and out and a
+   float block refused; no degradation-ladder fallback;
+7. every kernel (K1-K8, K12, K13) launched during phases 4-6, and each
+   transport phase launched its kernels (K12, K13, the int16 store, the
+   int16 loads of K5/K6).
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error and times, and
@@ -136,6 +150,34 @@ def c8_config(sz: Sizes, **over):
 
     return StreamConfig(**{**C8, "batch": sz.c8_batch, "blocksize": sz.c8_block,
                            "agc_window_size": sz.c8_window, **over})
+
+
+def c5_config(sz: Sizes, **over):
+    from afp_tpu_torch.engine import StreamConfig
+
+    return StreamConfig(**{**HEADLINE, "batch": sz.batch, "blocksize": sz.block,
+                           **over})
+
+
+def pcm16(torch, dev, shape, seed: int, scale: float = 0.3):
+    """int16 PCM noise on `dev` (``scale`` of full scale) that reaches both
+    ends of the range, −32768 and 32767."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, generator=g, device=dev) * (scale * 32768.0)
+    x = torch.clamp(torch.round(x), -32768.0, 32767.0).to(torch.int16)
+    x.view(-1)[:2] = torch.tensor([-32768, 32767], dtype=torch.int16, device=dev)
+    return x
+
+
+def lsb_diff(a, b) -> tuple[int, int]:
+    """(max |a − b|, count of samples that differ) of two int16 arrays."""
+    d = np.abs(np.asarray(a, dtype=np.int32) - np.asarray(b, dtype=np.int32))
+    return int(d.max()), int((d > 0).sum())
+
+
+def quantized(y: np.ndarray) -> np.ndarray:
+    """`quantize_pcm16` in numpy (round half to even, then clamp)."""
+    return np.clip(np.round(y * 32768.0), -32768, 32767).astype(np.int16)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -372,6 +414,43 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
         f"equals K8 bit for bit, tail bit-exact, other slots untouched; "
         f"{res['fir_td_mxu_pair_to_ring']['ms']:.3f} ms vs plain "
         f"{res['fir_td_mxu_pair_to_ring']['plain_ms']:.3f} ms")
+
+    # the int16 store of K8 and K7 ≡ quantize_pcm16 of their f32 output
+    q8 = F.fir_td_mxu_pair(xh, xl, th, tl, h, emit_i16=True, **dkw)[0]
+    out16 = torch.zeros((Sl, B, T), dtype=torch.int16, device=dev)
+    q7 = F.fir_td_mxu_pair_to_ring(xh, xl, th, tl, h, idx, out16, **dkw)[0]
+    check(torch.equal(q8, F.quantize_pcm16(y8e)) and torch.equal(q7[idx], q8),
+          "K8/K7 int16 store differs from quantize_pcm16 of the f32 output")
+    t8 = time_ms(torch, lambda: F.fir_td_mxu_pair(xh, xl, th, tl, h,
+                                                  emit_i16=True, **dkw), 10)
+    t7 = time_ms(torch, lambda: F.fir_td_mxu_pair_to_ring(
+        xh, xl, th, tl, h, idx, out16, **dkw), 10)
+    say(f"phase 3 int16 store: K8 and K7 == quantize_pcm16 of their f32 "
+        f"output bit for bit; K8 {t8:.3f} ms, K7 {t7:.3f} ms")
+    del out16, q7
+
+    # K5 and K6 on int16 x ≡ f32 x of n/32768 (exact, chunk means, pair)
+    x16 = pcm16(torch, dev, (B, T), 14, scale=0.1)
+    x16f = F.pcm16_to_f32(x16)
+    kw5 = dict(transposed=True)
+    same = True
+    for mc in (0, 32):
+        same = same and torch.equal(
+            R.rms_desired(x16, band, lp, rp, 0.1, 10.0, True, mean_chunk=mc, **kw5),
+            R.rms_desired(x16f, band, lp, rp, 0.1, 10.0, True, mean_chunk=mc, **kw5))
+    d16 = R.rms_desired(x16, band, lp, rp, 0.1, 10.0, True, **kw5)
+    for kw6 in (dict(init=init, emit_split=True), dict(emit_split=True, blockwise=32)):
+        (ah, al), ac = S.smooth_gain_apply(d16, x16, a_att, a_rel, 10.0, **kw6)
+        (bh, bl), bc = S.smooth_gain_apply(d16, x16f, a_att, a_rel, 10.0, **kw6)
+        same = same and torch.equal(ah, bh) and torch.equal(al, bl) and torch.equal(ac, bc)
+    check(same, "K5/K6 on int16 x differ from f32 x of n/32768")
+    t5 = time_ms(torch, lambda: R.rms_desired(x16, band, lp, rp, 0.1, 10.0, True,
+                                              **kw5), 10)
+    t6 = time_ms(torch, lambda: S.smooth_gain_apply(
+        d16, x16, a_att, a_rel, 10.0, init=init, emit_split=True), 10)
+    say(f"phase 3 int16 x: K5 (exact, chunk means) and K6 (exact, blockwise, "
+        f"pair) on int16 [{B}, {T}] == f32 x of n/32768 bit for bit; K5 "
+        f"{t5:.3f} ms, K6 {t6:.3f} ms")
     return res
 
 
@@ -662,6 +741,368 @@ def phase_c8_engine(torch, dev, sz: Sizes) -> None:
         f"(agc_target_level 0.1 -> 0.2, dynamic) + 2 blocks, metrics {m.snapshot()}")
 
 
+# ---------------------------------------------------------------- transport
+
+
+def phase_kernels_transport(torch, dev, sz: Sizes) -> dict:
+    """K12 and K13 (and their megakernel forms) against their plain
+    versions and against K3/K4, and the int16 store of K1, K3, K4, K12 and
+    K13, at the C5 headline."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.cuda import fir_td as F
+
+    pipe = Pipeline(c5_config(sz), dev)
+    h = pipe.device_params(PipelineParams.design(pipe.cfg)).casc_main
+    n, kp, B, T, S = pipe.n_casc, pipe._k_pad, sz.batch, sz.block, sz.slots
+    dkw = dict(out_clip=0.2, dither_key=(5, 7), dither_bits=16, dither_tpdf=True)
+    idx, start, steps = 5 % S, S - 2, sz.chunk
+    slots = [(start + i) % S for i in range(steps)]
+
+    def z(dtype=torch.float32):
+        return torch.zeros((S, B, T), dtype=dtype, device=dev)
+
+    res = {}
+    ring16, tail16 = pcm16(torch, dev, (S, B, T), 20), pcm16(torch, dev, (B, kp), 21)
+    ringf, tailf = F.pcm16_to_f32(ring16), F.pcm16_to_f32(tail16)
+
+    # K12, one step: vs plain, ≡ K3 on n/32768, int16 store ≡ quantized
+    ok, tk = F.fir_td_mxu_ring_pcm16(ring16, idx, tail16, h, z())
+    op, tp = F.fir_td_mxu_ring_pcm16_plain(ring16, idx, tail16, h, z())
+    e12 = err_db(ok[idx].cpu(), op[idx].cpu())
+    of, tf = F.fir_td_mxu_ring_f32(ringf, idx, tailf, h, z())
+    k3 = torch.equal(ok, of) and torch.equal(F.pcm16_to_f32(tk), tf)
+    ye, _ = F.fir_td_mxu_ring_pcm16(ring16, idx, tail16, h, z(), **dkw)
+    qe, _ = F.fir_td_mxu_ring_pcm16(ring16, idx, tail16, h, z(torch.int16), **dkw)
+    store = torch.equal(qe, F.quantize_pcm16(ye))
+    check(e12 <= CONV_DB and torch.equal(tk, tp) and k3 and store,
+          f"K12: conv {e12:.1f} dB, tail {torch.equal(tk, tp)}, == K3 {k3}, "
+          f"int16 store {store}")
+    out16 = z(torch.int16)
+    res["fir_td_mxu_ring_pcm16"] = dict(
+        max_abs_err=float((ok[idx] - op[idx]).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_ring_pcm16(
+            ring16, idx, tail16, h, out16, **dkw), 10),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_pcm16_plain(
+            ring16, idx, tail16, h, out16, **dkw), 3))
+    say(f"phase 3 K12 fir_td_mxu_ring_pcm16 int16 ring [{S}, {B}, {T}] tail "
+        f"{kp}: conv {e12:.1f} dB vs plain, int16 tail bit-exact, == K3 on "
+        f"n/32768 bit for bit, int16 store == quantize_pcm16; "
+        f"{res['fir_td_mxu_ring_pcm16']['ms']:.3f} ms vs plain "
+        f"{res['fir_td_mxu_ring_pcm16']['plain_ms']:.3f} ms (int16 in and out)")
+    del ok, op, of, ye, qe
+
+    # K12 megakernel: vs plain, ≡ K4 on n/32768, int16 store
+    mk, mt = F.fir_td_mxu_ring_mega_pcm16(ring16, start, tail16, h, z(), steps)
+    mp, mpt = F.fir_td_mxu_ring_mega_pcm16_plain(ring16, start, tail16, h, z(), steps)
+    e12m = max(err_db(mk[s].cpu(), mp[s].cpu()) for s in slots)
+    m4, m4t = F.fir_td_mxu_ring_mega_f32(ringf, start, tailf, h, z(), steps, **dkw)
+    q12, q12t = F.fir_td_mxu_ring_mega_pcm16(ring16, start, tail16, h,
+                                             z(torch.int16), steps, **dkw)
+    k4 = torch.equal(q12, F.quantize_pcm16(m4)) and torch.equal(
+        F.pcm16_to_f32(q12t), m4t)
+    check(e12m <= CONV_DB and torch.equal(mt, mpt) and k4,
+          f"K12 mega: conv {e12m:.1f} dB, tail {torch.equal(mt, mpt)}, int16 "
+          f"store == quantized K4 on n/32768 {k4}")
+    res["fir_td_mxu_ring_mega_pcm16"] = dict(
+        max_abs_err=max(float((mk[s] - mp[s]).abs().max()) for s in slots),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_pcm16(
+            ring16, start, tail16, h, out16, steps, **dkw), 5),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_pcm16_plain(
+            ring16, start, tail16, h, out16, steps, **dkw), 2))
+    say(f"phase 3 K12 fir_td_mxu_ring_mega_pcm16 {steps} steps from slot "
+        f"{start}: conv {e12m:.1f} dB vs plain, int16 tail bit-exact, int16 "
+        f"store == quantize_pcm16 of K4 on n/32768 bit for bit; "
+        f"{res['fir_td_mxu_ring_mega_pcm16']['ms']:.3f} ms vs plain "
+        f"{res['fir_td_mxu_ring_mega_pcm16']['plain_ms']:.3f} ms per dispatch")
+    del ring16, mk, mp, q12, out16
+
+    # the int16 store of K1, K3, K4 ≡ quantize_pcm16 of their f32 output
+    g = torch.Generator(device=dev).manual_seed(22)
+    ring = torch.randn(S, B, T, generator=g, device=dev) * 0.3
+    tail = torch.randn(B, kp, generator=g, device=dev) * 0.3
+    ext = torch.cat([tail[:, kp - (n - 1):], ring[idx]], dim=-1)
+    y1 = F.fir_td_mxu(ext, h, **dkw)
+    s1 = torch.equal(F.fir_td_mxu(ext, h, emit_i16=True, **dkw), F.quantize_pcm16(y1))
+    y3, _ = F.fir_td_mxu_ring_f32(ring, idx, tail, h, z(), **dkw)
+    s3 = torch.equal(F.fir_td_mxu_ring_f32(ring, idx, tail, h, z(torch.int16), **dkw)[0],
+                     F.quantize_pcm16(y3))
+    y4, _ = F.fir_td_mxu_ring_mega_f32(ring, start, tail, h, z(), steps, **dkw)
+    s4 = torch.equal(F.fir_td_mxu_ring_mega_f32(ring, start, tail, h, z(torch.int16),
+                                                steps, **dkw)[0], F.quantize_pcm16(y4))
+    check(s1 and s3 and s4, f"int16 store: K1 {s1}, K3 {s3}, K4 {s4}")
+    out16 = z(torch.int16)
+    t1 = time_ms(torch, lambda: F.fir_td_mxu(ext, h, emit_i16=True, **dkw), 10)
+    t3 = time_ms(torch, lambda: F.fir_td_mxu_ring_f32(ring, idx, tail, h, out16,
+                                                      **dkw), 10)
+    t4 = time_ms(torch, lambda: F.fir_td_mxu_ring_mega_f32(
+        ring, start, tail, h, out16, steps, **dkw), 5)
+    say(f"phase 3 int16 store: K1, K3, K4 == quantize_pcm16 of their f32 "
+        f"output bit for bit; K1 {t1:.3f} ms, K3 {t3:.3f} ms, K4 {t4:.3f} ms "
+        f"per {steps} steps")
+    del y1, y3, y4, out16
+
+    # K13: the pair rings of the f32 ring ≡ K3/K4 on it, ≡ K7 on a slot
+    rh, rl = F.split_bf16(ring)
+    th, tl = F.split_bf16(tail)
+    ck, ch, cl = F.fir_td_mxu_ring(rh, rl, idx, th, tl, h, z())
+    cp, cph, cpl = F.fir_td_mxu_ring_plain(rh, rl, idx, th, tl, h, z())
+    e13 = err_db(ck[idx].cpu(), cp[idx].cpu())
+    c3, c3t = F.fir_td_mxu_ring_f32(ring, idx, tail, h, z())
+    c7, c7h, c7l = F.fir_td_mxu_pair_to_ring(rh[idx], rl[idx], th, tl, h, idx, z())
+    sh, sl = F.split_bf16(c3t)
+    same = (torch.equal(ck, c3) and torch.equal(ck, c7) and torch.equal(ch, sh)
+            and torch.equal(cl, sl) and torch.equal(ch, c7h) and torch.equal(cl, c7l))
+    q13 = F.fir_td_mxu_ring(rh, rl, idx, th, tl, h, z(torch.int16), **dkw)[0]
+    y13 = F.fir_td_mxu_ring(rh, rl, idx, th, tl, h, z(), **dkw)[0]
+    store = torch.equal(q13, F.quantize_pcm16(y13))
+    tails = torch.equal(ch, cph) and torch.equal(cl, cpl)
+    check(e13 <= CONV_DB and tails and same and store,
+          f"K13: conv {e13:.1f} dB, tails {tails}, == K3 and K7 {same}, int16 "
+          f"store {store}")
+    out_r = z()
+    res["fir_td_mxu_ring"] = dict(
+        max_abs_err=float((ck[idx] - cp[idx]).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_ring(rh, rl, idx, th, tl, h, out_r,
+                                                    **dkw), 10),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_plain(
+            rh, rl, idx, th, tl, h, out_r, **dkw), 3))
+    say(f"phase 3 K13 fir_td_mxu_ring pair rings [{S}, {B}, {T}] tail {kp}: "
+        f"conv {e13:.1f} dB vs plain, pair tail bit-exact, == K3 on the f32 "
+        f"ring and == K7 on the slot bit for bit, int16 store == "
+        f"quantize_pcm16; {res['fir_td_mxu_ring']['ms']:.3f} ms vs plain "
+        f"{res['fir_td_mxu_ring']['plain_ms']:.3f} ms")
+    del ck, cp, c3, c7, q13, y13
+
+    mk, mh, ml = F.fir_td_mxu_ring_mega(rh, rl, start, th, tl, h, z(), steps)
+    mp, mph, mpl = F.fir_td_mxu_ring_mega_plain(rh, rl, start, th, tl, h, z(), steps)
+    e13m = max(err_db(mk[s].cpu(), mp[s].cpu()) for s in slots)
+    me, meh, mel = F.fir_td_mxu_ring_mega(rh, rl, start, th, tl, h, z(), steps, **dkw)
+    m4, m4t = F.fir_td_mxu_ring_mega_f32(ring, start, tail, h, z(), steps, **dkw)
+    sh, sl = F.split_bf16(m4t)
+    k4 = torch.equal(me, m4) and torch.equal(meh, sh) and torch.equal(mel, sl)
+    q13m = F.fir_td_mxu_ring_mega(rh, rl, start, th, tl, h, z(torch.int16), steps,
+                                  **dkw)[0]
+    store = torch.equal(q13m, F.quantize_pcm16(me))
+    tails = torch.equal(mh, mph) and torch.equal(ml, mpl)
+    check(e13m <= CONV_DB and tails and k4 and store,
+          f"K13 mega: conv {e13m:.1f} dB, tails {tails}, == K4 {k4}, int16 "
+          f"store {store}")
+    res["fir_td_mxu_ring_mega"] = dict(
+        max_abs_err=max(float((mk[s] - mp[s]).abs().max()) for s in slots),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega(
+            rh, rl, start, th, tl, h, out_r, steps, **dkw), 5),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_plain(
+            rh, rl, start, th, tl, h, out_r, steps, **dkw), 2))
+    say(f"phase 3 K13 fir_td_mxu_ring_mega {steps} steps from slot {start}: "
+        f"conv {e13m:.1f} dB vs plain, pair tail bit-exact, == K4 on the f32 "
+        f"ring bit for bit, int16 store == quantize_pcm16; "
+        f"{res['fir_td_mxu_ring_mega']['ms']:.3f} ms vs plain "
+        f"{res['fir_td_mxu_ring_mega']['plain_ms']:.3f} ms per dispatch")
+    return res
+
+
+def c5_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
+    """The C5 chain in float64 over [B, N] input (`bench.py:394-418`):
+    upsample, the main FIR, decimate."""
+    import scipy.signal as sps
+
+    from afp_tpu_torch.ops.resample import streaming_kernel
+
+    upf = cfg.upsample_factor
+    h_up = streaming_kernel(upf, 1, quality=cfg.resample_quality)
+    main = design.main_taps.astype(np.float64)
+    out = []
+    for r in x.astype(np.float64):
+        y = sps.upfirdn(h_up, r, upf, 1)[: len(r) * upf]
+        out.append(np.convolve(y, main)[: len(y)][::upf])
+    return np.stack(out)
+
+
+def run_wall(torch, dev, pipe, params, blocks) -> tuple:
+    """`Pipeline.run` over `blocks` after a one-block warm-up: (outputs,
+    wall seconds, host clock ending in a synchronize)."""
+    pipe.run(params, pipe.init_state(seed=0), blocks[:1])
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    _, outs = pipe.run(params, pipe.init_state(seed=0), blocks)
+    sync(torch, dev)
+    return outs, time.perf_counter() - t0
+
+
+def phase_transport_pipeline(torch, dev, sz: Sizes) -> None:
+    """C5-i16io and C8-i16io through `Pipeline.run`, each ≡ quantize_pcm16
+    of the f32 chain fed n/32768 with the same 16-bit dither; the C5-pcm16
+    and C8-pcm16 oracles."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.cuda import fir_td as F
+
+    io = dict(ingest="pcm16", emit="pcm16")
+    runs = [("C5-i16io", c5_config(sz, **io), sz.batch, sz.block, 0.3)]
+    runs += [(f"C8-i16io {m}", c8_config(sz, agc_mode=m, **io), sz.c8_batch,
+              sz.c8_block, 0.1) for m in ("exact", "fast")]
+    for name, cfg, B, T, scale in runs:
+        pipe = Pipeline(cfg, dev)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        blocks = pcm16(torch, dev, (sz.run_blocks, B, T), 30, scale=scale)
+        outs, wall = run_wall(torch, dev, pipe, params, blocks)
+        fpipe = Pipeline(replace(pipe.cfg, ingest="f32", emit="f32"), dev)
+        fparams = fpipe.device_params(PipelineParams.design(fpipe.cfg))
+        _, fo = fpipe.run(fparams, fpipe.init_state(seed=0),
+                          F.pcm16_to_f32(blocks[:2]))
+        check(outs.dtype == torch.int16 and outs.shape == blocks.shape
+              and pipe.cfg.dither_bits == 16
+              and torch.equal(outs[:2], F.quantize_pcm16(fo)),
+              f"{name}: dtype, shape, or not quantize_pcm16 of the f32 chain")
+        audio_s = sz.run_blocks * B * T / pipe.cfg.samplerate
+        say(f"phase 4 {name} Pipeline.run batch {B} x {sz.run_blocks} blocks "
+            f"of {T}, int16 in and out: {wall * 1e3:.1f} ms wall "
+            f"({wall * 1e3 / sz.run_blocks:.2f} ms/block, {audio_s / wall:.0f}x "
+            f"realtime, host clock); == quantize_pcm16 of the f32 chain on "
+            f"n/32768 bit for bit (2 blocks, 16-bit dither)")
+        del blocks, outs, fo
+
+    # the oracles: pcm16 in, dither off; f32 out < −90 dB, int16 out ≤ 1 LSB
+    rng = np.random.default_rng(6)
+    x5 = np.clip(np.round(rng.standard_normal((1, 4 * sz.block)) * 0.3 * 32768),
+                 -32768, 32767).astype(np.int16)
+    x8 = np.clip(np.round(rng.standard_normal((4, 4 * sz.c8_block)) * 0.1 * 32768),
+                 -32768, 32767).astype(np.int16)
+    x8[0, : sz.c8_block] = np.clip(x8[0, : sz.c8_block].astype(np.int32) * 8,
+                                   -32768, 32767)
+    x8[1] //= 100
+    for name, base, x, oracle in (
+            ("C5-pcm16", c5_config(sz, batch=1), x5, c5_oracle),
+            ("C8-pcm16", c8_config(sz, batch=4), x8, c8_oracle)):
+        outs = {}
+        for emit in ("f32", "pcm16"):
+            pipe = Pipeline(replace(base, ingest="pcm16", emit=emit,
+                                    dither_kind="off"), dev)
+            design = PipelineParams.design(pipe.cfg)
+            params = pipe.device_params(design)
+            _, out = pipe.process_signal(params, pipe.init_state(), x, fold=False)
+            outs[emit] = out.cpu().numpy()
+        gold = oracle(x.astype(np.float32) / np.float32(32768.0), pipe.cfg, design)
+        e = err_db(outs["f32"], gold)
+        dmax, ndiff = lsb_diff(outs["pcm16"], quantized(gold))
+        check(e < ORACLE_DB and dmax <= 1,
+              f"{name} oracle: {e:.1f} dB, int16 out {dmax} LSB")
+        say(f"phase 4 {name} oracle: {x.shape[0]} stream(s) x 4 blocks, int16 "
+            f"in, dither off: {e:.1f} dB vs the float64 oracle on n/32768 "
+            f"(< {ORACLE_DB}); int16 out max |d| {dmax} LSB from the quantized "
+            f"oracle, {ndiff} of {gold.size} samples differ (<= 1 LSB)")
+
+
+def serve_warm(pipe, params, src, sz: Sizes, mega: bool = False):
+    """Serve `src` once to warm the allocators (rings, pinned staging) and
+    the kernels' first launches, then again: (outputs, serve() stats)."""
+    from afp_tpu_torch.runtime import RingServer
+
+    kw = dict(slots=sz.slots, chunk=sz.chunk, max_inflight=2, seed=0, mega=mega)
+    RingServer(pipe, params, **kw).serve(iter(src), lambda _: None)
+    got = []
+    stats = RingServer(pipe, params, **kw).serve(iter(src), got.append)
+    check(stats["blocks"] == len(src), "RingServer lost blocks")
+    return np.stack(got), stats
+
+
+def staged_outputs(torch, pipe, params, src) -> np.ndarray:
+    st = pipe.init_state(seed=0)
+    outs = []
+    for blk in src:
+        st, y = pipe.step(params, st, blk)
+        outs.append(y.cpu().numpy())
+    return np.stack(outs)
+
+
+def phase_transport_serving(torch, dev, sz: Sizes) -> None:
+    """RingServer at C5-i16io and C5-pair (mega and per-step) and at
+    C8-i16io (per-step), each ≡ its staged steps with dither on."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.cuda import split_bf16
+    from afp_tpu_torch.runtime import RingServer
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    srcf = list((torch.randn(sz.serve_blocks, sz.batch, sz.block, generator=g,
+                             device=dev) * 0.3).cpu().numpy())
+    src16 = list(pcm16(torch, dev, (sz.serve_blocks, sz.batch, sz.block), 41)
+                 .cpu().numpy())
+    for name, cfg, src in (
+            ("C5-i16io", c5_config(sz, ingest="pcm16", emit="pcm16"), src16),
+            ("C5-pair", c5_config(sz, ingest="pair"), srcf)):
+        pipe = Pipeline(cfg, dev)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        outs = {}
+        for mega in (True, False):
+            outs[mega], stats = serve_warm(pipe, params, src, sz, mega=mega)
+            lat = stats["latency"]
+            say(f"phase 5 {name} RingServer mega={mega}, {sz.slots} slots, chunk "
+                f"{sz.chunk}: {stats['blocks']} blocks in "
+                f"{stats['wall_s'] * 1e3:.1f} ms once warm "
+                f"({stats['wall_s'] * 1e3 / stats['blocks']:.2f} ms/block, "
+                f"{stats['xrt']:.0f}x realtime, p50 {lat['p50_ms']:.1f} ms, p95 "
+                f"{lat['p95_ms']:.1f} ms land-to-drain, host clock)")
+        staged = staged_outputs(torch, pipe, params, src)
+        same = (np.array_equal(outs[True], outs[False])
+                and np.array_equal(outs[False], staged))
+        if pipe._pair_ingest:  # the producer's own (hi, lo) pairs, landed as is
+            pairs = [split_bf16(torch.from_numpy(b)) for b in src[: sz.chunk]]
+            srv = RingServer(pipe, params, slots=sz.slots, chunk=sz.chunk,
+                             max_inflight=2, seed=0)
+            same = same and np.array_equal(np.stack(list(srv.stream(iter(pairs)))),
+                                           staged[: sz.chunk])
+        check(same, f"{name} RingServer: mega, per-step and staged differ "
+              "(dither on)")
+        say(f"phase 5 {name} RingServer: mega == per-step == staged steps bit "
+            f"for bit, dither on, output {outs[True].dtype}")
+
+    pipe = Pipeline(c8_config(sz, ingest="pcm16", emit="pcm16"), dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    src = list(pcm16(torch, dev, (sz.serve_blocks, sz.c8_batch, sz.c8_block), 42,
+                     scale=0.1).cpu().numpy())
+    got, stats = serve_warm(pipe, params, src, sz)
+    check(np.array_equal(got, staged_outputs(torch, pipe, params, src))
+          and got.dtype == np.int16,
+          "C8-i16io RingServer differs from the staged steps (dither on)")
+    lat = stats["latency"]
+    say(f"phase 5 C8-i16io RingServer per-step ring, {sz.slots} slots, chunk "
+        f"{sz.chunk}: {stats['blocks']} blocks in {stats['wall_s'] * 1e3:.1f} ms "
+        f"once warm ({stats['wall_s'] * 1e3 / stats['blocks']:.2f} ms/block, "
+        f"{stats['xrt']:.0f}x realtime, p50 {lat['p50_ms']:.1f} ms, p95 "
+        f"{lat['p95_ms']:.1f} ms land-to-drain, host clock); ring == staged bit "
+        f"for bit, dither on, int16 in and out")
+
+
+def phase_transport_engine(torch, dev, sz: Sizes) -> None:
+    """StreamEngine at C8-i16io: int16 blocks in and out through a dynamic
+    AGC swap; a float block is refused before the ladder."""
+    from afp_tpu_torch.engine import StreamEngine
+
+    eng = StreamEngine(c8_config(sz, ingest="pcm16", emit="pcm16"), device=dev)
+    blocks = pcm16(torch, dev, (6, sz.c8_batch, sz.c8_block), 50, scale=0.1).cpu().numpy()
+    outs = []
+    for i, blk in enumerate(blocks):
+        if i == 4:
+            check(eng.apply_config(replace(eng.cfg, agc_target_level=0.2)),
+                  "C8-i16io apply_config with a new AGC target was not a dynamic swap")
+        outs.append(eng.process_block(blk))
+    try:
+        eng.process_block(blocks[0].astype(np.float32))
+        refused = False
+    except ValueError:
+        refused = True
+    m = eng.metrics
+    check(refused and m.underruns == m.fallback_replays == m.fallback_silence == 0,
+          f"C8-i16io StreamEngine: float block refused {refused}, metrics "
+          f"{m.snapshot()}")
+    check(all(o.dtype == np.int16 and o.shape == (sz.c8_batch, sz.c8_block)
+              and np.abs(o.astype(np.int32)).max() <= 0.99 * 32768 + 2
+              for o in outs) and float(eng.params.agc_target) == np.float32(0.2),
+          "C8-i16io StreamEngine outputs: dtype, shape, clip or the swap")
+    say(f"phase 6 C8-i16io StreamEngine batch {sz.c8_batch}: 4 int16 blocks + "
+        f"apply_config (agc_target_level 0.1 -> 0.2, dynamic) + 2, int16 out, "
+        f"a float block refused (ValueError), metrics {m.snapshot()}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -681,6 +1122,28 @@ REPLACES = {
                                 "afp_tpu/ops/pallas/fir_td.py:828"),
     "fir_td_mxu_pair": ("afp_tpu_torch/csrc/fir_td.cu",
                         "afp_tpu/ops/pallas/fir_td.py:700"),
+    "fir_td_mxu_ring_pcm16": ("afp_tpu_torch/csrc/fir_td.cu",
+                              "afp_tpu/ops/pallas/fir_td.py:1270"),
+    "fir_td_mxu_ring_mega_pcm16": ("afp_tpu_torch/csrc/fir_td.cu",
+                                   "afp_tpu/ops/pallas/fir_td.py:1638"),
+    "fir_td_mxu_ring": ("afp_tpu_torch/csrc/fir_td.cu",
+                        "afp_tpu/ops/pallas/fir_td.py:946"),
+    "fir_td_mxu_ring_mega": ("afp_tpu_torch/csrc/fir_td.cu",
+                             "afp_tpu/ops/pallas/fir_td.py:1445"),
+}
+
+#: the kernels each transport phase must launch: K12 and K13 themselves,
+#: the int16 store (K12 at C5-i16io, K8 and K7 at C8-i16io) and K5/K6's
+#: int16 loads (C8-i16io)
+TRANSPORT_LAUNCHES = {
+    "phase_transport_pipeline": ("fir_td_mxu_ring_pcm16", "fir_td_mxu_pair",
+                                 "rms_desired", "smooth_gain_apply"),
+    "phase_transport_serving": ("fir_td_mxu_ring_pcm16",
+                                "fir_td_mxu_ring_mega_pcm16", "fir_td_mxu_ring",
+                                "fir_td_mxu_ring_mega", "fir_td_mxu_pair_to_ring",
+                                "rms_desired", "smooth_gain_apply"),
+    "phase_transport_engine": ("fir_td_mxu_pair", "rms_desired",
+                               "smooth_gain_apply"),
 }
 
 
@@ -707,17 +1170,31 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
     sz = Sizes()
-    res = phase_kernels(torch, dev, sz)
-    res.update(phase_kernels_agc(torch, dev, sz))
+    res = {}
+    for phase in (phase_kernels, phase_kernels_agc, phase_kernels_transport):
+        t0 = time.perf_counter()
+        res.update(phase(torch, dev, sz))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
 
     for k in KERNELS:  # count only the main path's launches from here on
         k.launches = 0
-    for phase in (phase_pipeline, phase_c8_pipeline, phase_serving,
-                  phase_c8_serving, phase_engine, phase_c8_engine):
+    for phase in (phase_pipeline, phase_c8_pipeline, phase_transport_pipeline,
+                  phase_serving, phase_c8_serving, phase_transport_serving,
+                  phase_engine, phase_c8_engine, phase_transport_engine):
         t0 = time.perf_counter()
+        before = {k.__name__: k.launches for k in KERNELS}
         phase(torch, dev, sz)
         torch.cuda.synchronize()
-        say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+        delta = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+        want = TRANSPORT_LAUNCHES.get(phase.__name__, ())
+        check(all(delta[k] > 0 for k in want),
+              f"{phase.__name__} did not launch all of {want}: {delta}")
+        say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s"
+            + (f"; launched {({k: delta[k] for k in want})}" if want else "")
+            + ")")
     launches = {k.__name__: k.launches for k in KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")

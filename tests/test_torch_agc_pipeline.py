@@ -281,7 +281,6 @@ def test_engine_ladder_keeps_the_gain_carry():
 
 @pytest.mark.parametrize("over,item", [
     (dict(agc_mode="parallel"), "item 6"),
-    (dict(ingest="pcm16"), "item 8"),
 ])
 def test_agc_outside_the_slice_raises(over, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -2,7 +2,9 @@
 edge shapes the smoke's headline run does not reach: ragged time tiles,
 masked batch rows, one tap, k_pad > T, n_steps > S, an unaligned dither
 buffer; for the AGC kernels, a window wider than the block, batches that
-fill no tile, a block that is not whole recurrence chunks.  Marked
+fill no tile, a block that is not whole recurrence chunks; for the
+transport forms, K12/K13 at those shapes, int16 extremes, the int16 store
+at rounding ties, and K5/K6 on int16 x.  Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
 
@@ -170,3 +172,125 @@ def test_k8_k7_vs_plain(dev, B, T, n):
     out, rh, rl = F.fir_td_mxu_pair_to_ring(xh, xl, th, tl, h, 2, out, **EPI)
     assert torch.equal(out[2], ye) and torch.equal(rh, nh) and torch.equal(rl, nl)
     assert bool((out[:2] == 5.0).all())
+
+
+def pcm(dev, *shape, seed=0):
+    """int16 PCM on the card reaching both ends of the range."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-32768, 32768, shape, generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int16)
+    x.view(-1)[:2] = torch.tensor([-32768, 32767], dtype=torch.int16, device=dev)
+    return x
+
+
+@pytest.mark.parametrize("B,T,n,S,start,steps", [
+    (5, 384, 31, 2, 1, 1),     # ragged time tile, masked rows
+    (6, 128, 300, 3, 2, 7),    # k_pad > T, n_steps > S
+    (3, 640, 129, 4, 0, 4),
+])
+def test_k12_vs_plain_and_k3(dev, B, T, n, S, start, steps):
+    """K12 (and its mega form) against the plain version: ≤ −110 dB, the
+    int16 tail bit-exact; ≡ K3/K4 on n/32768 bit for bit, int16 store and
+    dither on."""
+    ring, h = pcm(dev, S, B, T), randn(dev, n, seed=1)
+    tail = pcm(dev, B, F.ring_k_pad(n), seed=2)
+    z = torch.zeros((S, B, T), device=dev)
+    out, nt = F.fir_td_mxu_ring_mega_pcm16(ring, start, tail, h, z.clone(), steps)
+    pout, pnt = F.fir_td_mxu_ring_mega_pcm16_plain(ring, start, tail, h,
+                                                   z.clone(), steps)
+    e = err_db(out, pout)
+    print(f"K12 mega B={B} T={T} n={n} S={S} steps={steps}: {e:.1f} dB")
+    assert e <= CONV_DB and torch.equal(nt, pnt) and nt.dtype == torch.int16
+    o1, t1 = F.fir_td_mxu_ring_pcm16(ring, start, tail, h, z.clone())
+    p1, q1 = F.fir_td_mxu_ring_pcm16_plain(ring, start, tail, h, z.clone())
+    assert err_db(o1, p1) <= CONV_DB and torch.equal(t1, q1)
+    z16 = torch.zeros((S, B, T), dtype=torch.int16, device=dev)
+    a, at = F.fir_td_mxu_ring_mega_pcm16(ring, start, tail, h, z16.clone(),
+                                         steps, **EPI)
+    b, bt = F.fir_td_mxu_ring_mega_f32(F.pcm16_to_f32(ring), start,
+                                       F.pcm16_to_f32(tail), h, z16.clone(),
+                                       steps, **EPI)
+    assert torch.equal(a, b) and torch.equal(F.pcm16_to_f32(at), bt)
+
+
+@pytest.mark.parametrize("B,T,n,S,start,steps", [
+    (5, 384, 31, 2, 1, 1), (6, 128, 300, 3, 2, 7), (1, 256, 2, 2, 1, 3)])
+def test_k13_vs_plain_k3_and_k7(dev, B, T, n, S, start, steps):
+    """K13 (and its mega form) against the plain version: ≤ −110 dB, the
+    pair tail bit-exact; K13 on split(ring) ≡ K3/K4 on ring and a K13 step
+    ≡ K7 on the slot's views, bit for bit, dither on."""
+    ring, h = randn(dev, S, B, T), randn(dev, n, seed=1)
+    tail = randn(dev, B, F.ring_k_pad(n), seed=2)
+    (rh, rl), (th, tl) = F.split_bf16(ring), F.split_bf16(tail)
+    z = torch.zeros((S, B, T), device=dev)
+    out, nh, nl = F.fir_td_mxu_ring_mega(rh, rl, start, th, tl, h, z.clone(), steps)
+    pout, ph, pl = F.fir_td_mxu_ring_mega_plain(rh, rl, start, th, tl, h,
+                                                z.clone(), steps)
+    e = err_db(out, pout)
+    print(f"K13 mega B={B} T={T} n={n} S={S} steps={steps}: {e:.1f} dB")
+    assert e <= CONV_DB and torch.equal(nh, ph) and torch.equal(nl, pl)
+    a, ah, al = F.fir_td_mxu_ring_mega(rh, rl, start, th, tl, h, z.clone(),
+                                       steps, **EPI)
+    b, bt = F.fir_td_mxu_ring_mega_f32(ring, start, tail, h, z.clone(), steps,
+                                       **EPI)
+    assert torch.equal(a, b)
+    assert all(torch.equal(u, v) for u, v in zip((ah, al), F.split_bf16(bt)))
+    s1, h1, l1 = F.fir_td_mxu_ring(rh, rl, start, th, tl, h, z.clone(), **EPI)
+    s7, h7, l7 = F.fir_td_mxu_pair_to_ring(rh[start], rl[start], th, tl, h,
+                                           start, z.clone(), **EPI)
+    assert torch.equal(s1, s7) and torch.equal(h1, h7) and torch.equal(l1, l7)
+
+
+def test_int16_store_at_ties_and_full_scale(dev):
+    """One unit tap, so y is x where x splits exactly: the int16 store of
+    K1, K3 and K8 at values of y·32768 exactly ±k+0.5 (half to even) and
+    beyond ±full scale ≡ quantize_pcm16 of the same kernel's f32 output,
+    bit for bit."""
+    k = torch.arange(-256, 256, device=dev, dtype=torch.float32)
+    y = torch.cat([(k + 0.5) / 32768.0, torch.tensor(
+        [32767.5 / 32768, -32768.5 / 32768, 1.5, -1.5, 1.0, -1.0, 0.0],
+        device=dev)])
+    T = 1024
+    x = torch.zeros(4, T, device=dev)
+    x.view(-1)[: y.numel()] = y
+    h = torch.ones(1, device=dev)
+    yk = F.fir_td_mxu(x, h)
+    assert torch.equal(yk.view(-1)[:512], x.view(-1)[:512])  # the ties
+    assert torch.equal(F.fir_td_mxu(x, h, emit_i16=True), F.quantize_pcm16(yk))
+    tail = torch.zeros(4, 128, device=dev)
+    ring = x[None].contiguous()
+    yr, _ = F.fir_td_mxu_ring_f32(ring, 0, tail, h, torch.zeros_like(ring))
+    qr, _ = F.fir_td_mxu_ring_f32(ring, 0, tail, h, torch.zeros(
+        1, 4, T, dtype=torch.int16, device=dev))
+    assert torch.equal(qr, F.quantize_pcm16(yr))
+    xh, xl = F.split_bf16(x)
+    th, tl = F.split_bf16(tail)
+    yp = F.fir_td_mxu_pair(xh, xl, th, tl, h)[0]
+    assert torch.equal(F.fir_td_mxu_pair(xh, xl, th, tl, h, emit_i16=True)[0],
+                       F.quantize_pcm16(yp))
+
+
+@pytest.mark.parametrize("B,T,W,blockwise", [(5, 256, 384, None), (33, 384, 300, 32)])
+def test_k5_k6_int16_x(dev, B, T, W, blockwise):
+    """K5 and K6 on an int16 ring slot, the window wider than the block:
+    ≡ their f32 form on n/32768 bit for bit; K5 ≤ −110 dB against its
+    plain version and K6 bit-exact to its plain version."""
+    ring = pcm(dev, 2, B, T)
+    band = F.band_matrix(np.full(W, 1.0 / W, np.float32)).to(dev)
+    exact = R.band_is_exact_bf16(band.cpu())
+    lp, rp = W // 2, W - 1 - W // 2
+    d = R.rms_desired(ring, band, lp, rp, 0.1, 10.0, exact, transposed=True,
+                      ring_idx=1)
+    assert torch.equal(d, R.rms_desired(F.pcm16_to_f32(ring), band, lp, rp, 0.1,
+                                        10.0, exact, transposed=True, ring_idx=1))
+    e = err_db(d, R.rms_desired_plain(ring, band, lp, rp, 0.1, 10.0, exact,
+                                      transposed=True, ring_idx=1))
+    print(f"K5 int16 B={B} T={T} W={W}: {e:.1f} dB")
+    assert e <= CONV_DB
+    init = torch.linspace(0.2, 8.0, B, device=dev)
+    kw = dict(init=init, emit_split=True, ring_idx=1, blockwise=blockwise)
+    (yh, yl), c = S.smooth_gain_apply(d, ring, 0.3, 0.02, 10.0, **kw)
+    (fh, fl), fc = S.smooth_gain_apply(d, F.pcm16_to_f32(ring), 0.3, 0.02, 10.0, **kw)
+    (ph, pl), pc = S.smooth_gain_apply_plain(d, ring, 0.3, 0.02, 10.0, **kw)
+    assert torch.equal(yh, fh) and torch.equal(yl, fl) and torch.equal(c, fc)
+    assert torch.equal(yh, ph) and torch.equal(yl, pl) and torch.equal(c, pc)

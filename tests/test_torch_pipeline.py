@@ -241,8 +241,7 @@ def test_dither_seeded_and_bounded():
 
 @pytest.mark.parametrize("over,item", [
     (dict(agc_enabled=True, agc_mode="parallel"), "item 6"),
-    (dict(ingest="pcm16", conv_strategy="td_mxu"), "item 8"),
-    (dict(emit="pcm16"), "item 8"), (dict(waterfall_enabled=True), "item 10"),
+    (dict(waterfall_enabled=True), "item 10"),
     (dict(source_samplerate=48000), "item 5"),
     (dict(fuse_rate_conversion=False), "item 10"),
     (dict(output_rate="upsampled"), "item 10")])

@@ -155,12 +155,19 @@ def test_ring_server_validation(kw, err, match):
 
 
 def test_ring_forms_rejected():
-    """The fft strategy has no ring form; pair rings are not ported."""
+    """The fft strategy has no ring form; an f32 pipeline takes one ring,
+    not a pair, of float32, into a float32 output ring."""
     p, params = port(conv_strategy="fft")
     assert not p.supports_ring_step
     with pytest.raises(ValueError, match="ring-capable"):
         RingServer(p, params)
     q, qp = port()
     ring = torch.zeros(2, 4, 256)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="ring form mismatch"):
         q.ring_step(qp, q.init_state(), ring, ring, 0, torch.zeros_like(ring))
+    with pytest.raises(ValueError, match="float32"):
+        q.ring_step(qp, q.init_state(), ring.to(torch.int16), None, 0,
+                    torch.zeros_like(ring))
+    with pytest.raises(ValueError, match="output rings must be torch.float32"):
+        q.run_ring_mega(qp, q.init_state(), ring, None,
+                        torch.zeros(2, 4, 256, dtype=torch.int16), 2)
