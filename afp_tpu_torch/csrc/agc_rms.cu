@@ -23,6 +23,10 @@
 // across streams per step); or the time-major chunk means [T/mc, B] of the
 // bf16 split of d, sum(hi)/mc + sum(lo)/mc (`agc_rms.py:50-90`).
 //
+// target and max_gain are scalars or, for per-stream AGC policies
+// (`engine/batch.py:with_per_stream_agc`), [B] vectors on the device, read per
+// row in the epilogue; either vector promotes both (`agc_rms.py:377-390`).
+//
 // x is f32 or, under `ingest='pcm16'`, the raw int16 PCM block or ring slot,
 // converted n * 2^-15 as it is staged (`agc_rms.py:111-113, 352-372`).  The
 // convert is exact, so an int16 x gives the bits of an f32 x of n/32768 and
@@ -59,6 +63,8 @@ struct RmsArgs {
   int B, T, W, lp;
   int two_level, exact, layout, mean_chunk, x_i16;
   float target, max_gain, inv_w;
+  const float* v_target;  // [B] per-stream target and max gain, or null
+  const float* v_max;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -184,10 +190,15 @@ __global__ void __launch_bounds__(kThreads)
       s = __fmul_rn(acc[j], wh);
       if (!a.exact) s = __fadd_rn(s, __fmul_rn(hacc[j], wl));
     }
+    const int b = b0 + r;
+    float target = a.target, max_gain = a.max_gain;
+    if (a.v_target != nullptr && b < a.B) {
+      target = a.v_target[b];
+      max_gain = a.v_max[b];
+    }
     const float rms = __fsqrt_rn(fmaxf(s, 0.f));
     const float d = fminf(
-        fmaxf(__fdiv_rn(a.target, __fadd_rn(rms, 1e-10f)), 0.f), a.max_gain);
-    const int b = b0 + r;
+        fmaxf(__fdiv_rn(target, __fadd_rn(rms, 1e-10f)), 0.f), max_gain);
     const int tt = t0 + t;
     if (a.layout == kLayoutMeans) {
       acc[j] = d;  // each entry is read and rewritten by its own thread
@@ -232,14 +243,17 @@ size_t smem_bytes(int rows, int W, bool need_hi) {
 
 // K5.  x [B, T], f32 or (x_i16) int16 PCM (a ring slot is passed as its own
 // [B, T] view) -> out in `layout`.  The band supplies the direct form's
-// weight; `inv_w` the two-level form's 1/W.
+// weight; `inv_w` the two-level form's 1/W.  v_target/v_max: [B] per-stream
+// values (both or neither), else the scalars.
 extern "C" int afp_rms_desired(const void* x, const void* band, void* out,
                                int B, int T, int W, int lp, int two_level,
                                int exact, int layout, int mean_chunk,
                                int x_i16, float target, float max_gain,
-                               float inv_w, void* stream) {
+                               float inv_w, const void* v_target,
+                               const void* v_max, void* stream) {
   if (B <= 0 || T <= 0 || W <= 0 || lp < 0 || lp > W - 1 ||
       layout < kLayoutBT || layout > kLayoutMeans ||
+      (v_target == nullptr) != (v_max == nullptr) ||
       (two_level && W % kLane) ||
       (layout == kLayoutMeans &&
        (mean_chunk <= 0 || kTile % mean_chunk || T % mean_chunk)))
@@ -270,6 +284,8 @@ extern "C" int afp_rms_desired(const void* x, const void* band, void* out,
   a.target = target;
   a.max_gain = max_gain;
   a.inv_w = inv_w;
+  a.v_target = static_cast<const float*>(v_target);
+  a.v_max = static_cast<const float*>(v_max);
   const dim3 grid((B + rows - 1) / rows, (T + kTile - 1) / kTile);
   rms_desired_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       a, rows);

@@ -14,6 +14,10 @@
 // (K8/K7).  x is f32 or, under `ingest='pcm16'`, the raw int16 PCM block or
 // ring slot, converted n * 2^-15 as it is read (`agc_scan.py:273-277,
 // 418-439`): exact, so the apply sees the bits of an f32 x of n/32768.
+// The alphas and max_gain are scalars or, for per-stream AGC policies, [B]
+// vectors on the device (any one promotes all three, `agc_scan.py:460-471`;
+// blockwise alphas arrive compounded per stream), read once per stream by
+// the lane that runs its recurrence.
 // Blockwise ('fast' mode): one step per chunk mean (given, or the in-order
 // sum of the chunk's rows times 1/chunk) with the compounded alphas from the
 // wrapper, and the linear ramp g + (gn - g) * (t+1)/chunk
@@ -60,6 +64,9 @@ struct ScanArgs {
   int d_means;  // blockwise: d holds the chunk means
   int x_i16;
   float a_att, a_rel, max_gain, out_clip;
+  const float* v_att;  // [B] per-stream alphas and max gain, or null
+  const float* v_rel;
+  const float* v_max;
 };
 
 __device__ __forceinline__ float clip_gain(float g, float max_gain) {
@@ -93,7 +100,13 @@ __global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
   const float inv = a.chunk ? 1.0f / static_cast<float>(a.chunk) : 0.f;
 
   float g = 0.f;  // the recurrence state, held by warp 0
+  float a_att = a.a_att, a_rel = a.a_rel, max_gain = a.max_gain;
   if (warp == 0 && live) {
+    if (a.v_att != nullptr) {
+      a_att = a.v_att[b];
+      a_rel = a.v_rel[b];
+      max_gain = a.v_max[b];
+    }
     if (a.init != nullptr)
       g = a.init[b];
     else if (a.chunk && !a.d_means)
@@ -116,20 +129,20 @@ __global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
     if (warp == 0) {
       if (!a.chunk) {
         for (int t = 0; t < n; ++t) {
-          g = step(g, ds[t][lane], a.a_att, a.a_rel);
-          gs[t][lane] = clip_gain(g, a.max_gain);
+          g = step(g, ds[t][lane], a_att, a_rel);
+          gs[t][lane] = clip_gain(g, max_gain);
         }
       } else {
         for (int c = 0; c < n / a.chunk; ++c) {
           const float m = means ? ds[c][lane]
                                 : chunk_mean(&ds[c * a.chunk][lane], kStreams,
                                              a.chunk, inv);
-          const float gn = step(g, m, a.a_att, a.a_rel);
+          const float gn = step(g, m, a_att, a_rel);
           const float dg = __fsub_rn(gn, g);
           for (int q = 0; q < a.chunk; ++q) {
             const float fr = __fmul_rn(static_cast<float>(q + 1), inv);
             gs[c * a.chunk + q][lane] =
-                clip_gain(__fmaf_rn(dg, fr, g), a.max_gain);
+                clip_gain(__fmaf_rn(dg, fr, g), max_gain);
           }
           g = gn;
         }
@@ -157,22 +170,26 @@ __global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
     }
     __syncthreads();  // ds and gs are rewritten by the next chunk
   }
-  if (warp == 0 && live) a.carry[b] = clip_gain(g, a.max_gain);
+  if (warp == 0 && live) a.carry[b] = clip_gain(g, max_gain);
 }
 
 }  // namespace
 
 // K6.  d [T, B] (or [T/chunk, B] means), x [B, T] f32 or (x_i16) int16 PCM
 // -> y [B, T] f32 or the pair (yh, yl), and carry [B].  a_att/a_rel arrive
-// compounded when blockwise (chunk > 0).
+// compounded when blockwise (chunk > 0).  v_att/v_rel/v_max: [B] per-stream
+// values (all three or none), else the scalars.
 extern "C" int afp_agc_apply(const void* d, const void* x, const void* init,
                              void* y, void* yh, void* yl, void* carry, int B,
                              int T, int chunk, int d_means, int x_i16,
-                             float a_att,
-                             float a_rel, float max_gain, float out_clip,
+                             float a_att, float a_rel, float max_gain,
+                             float out_clip, const void* v_att,
+                             const void* v_rel, const void* v_max,
                              void* stream) {
   if (B <= 0 || T <= 0 || chunk < 0 || (chunk && (kTC % chunk || T % chunk)) ||
-      (d_means && !chunk) || (y == nullptr && (yh == nullptr || yl == nullptr)))
+      (d_means && !chunk) || (y == nullptr && (yh == nullptr || yl == nullptr)) ||
+      (v_att == nullptr) != (v_rel == nullptr) ||
+      (v_att == nullptr) != (v_max == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   ScanArgs a;
   a.d = static_cast<const float*>(d);
@@ -191,6 +208,9 @@ extern "C" int afp_agc_apply(const void* d, const void* x, const void* init,
   a.a_rel = a_rel;
   a.max_gain = max_gain;
   a.out_clip = out_clip;
+  a.v_att = static_cast<const float*>(v_att);
+  a.v_rel = static_cast<const float*>(v_rel);
+  a.v_max = static_cast<const float*>(v_max);
   agc_apply_kernel<<<(B + kStreams - 1) / kStreams, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

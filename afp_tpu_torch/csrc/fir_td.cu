@@ -1,9 +1,10 @@
-// K1, K3, K4, K7, K8, K12, K13: the fused single-rate FIR of the filter
-// chain, in bf16x3.
+// K1, K3, K4, K7, K8, K10, K11, K12, K13: the fused single-rate FIR of the
+// filter chain, in bf16x3.
 //
-// Replaces nine TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
+// Replaces eleven TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
 // one conv body here and differ only in where a block's input window comes
-// from (the loader, `load_split`) and in the store:
+// from (the loader, `load_split`), where its taps come from, and in the
+// store:
 //   K1  fir_td_mxu               (_fir_kernel_b3 + _finish_tile): windows of a
 //       staged x_ext [B, n-1+T];
 //   K3  fir_td_mxu_ring_f32      (_fir_kernel_b3t_f32): slot idx of an f32
@@ -32,6 +33,24 @@
 //       tail.  K7 and K8 run the same body on the same windows, so K7's slot
 //       equals K8's output bit for bit, and K13 on a slot equals K7 on that
 //       slot's views.
+//   K10 fir_td_mxu_banked        (fir_td.py:556, _fir_td_banked_call): K1 with
+//       per-stream filter banks.  The taps are a bank [D, n_taps] and a
+//       per-tile design assignment assign[B / bt]; the rows of a block (kRows
+//       = 4) lie in one assignment tile (bt % 4 == 0, or bt == B), so the
+//       block selects its design with one read, h + assign[b0 / bt] * n_taps.
+//       Selection is addressing: the same body, the same instantiation, so a
+//       banked row equals the shared-taps form on its design bit for bit.
+//       An entry outside [0, D) reads no taps and writes its rows as NaN
+//       (-32768 in the int16 store): checked in the kernel, with no host
+//       synchronize.  The ring forms (K3, K4, K12) take the same bank option.
+//   K11 fir_td_mxu_per_stream    (fir_td.py:1784, _fir_kernel_ps_b3): the
+//       per-stream EQ mix y[b] = sum_k g[b, k] * (x[b] conv h_k) over K band
+//       kernels.  Its own kernel (fir_ps_kernel): the split window is staged
+//       once, then the band loop runs the body's accumulation into a second
+//       register set z and mixes y += g * z in fp32 (K times K1's work; the
+//       taps are not mixed first, which would round differently).  The store
+//       is the body's (clip, dither, int16), so the fused epilogue equals
+//       K11 -> clip -> K2 -> quantize_pcm16 bit for bit.
 //
 // Numerics: y[b,t] = sum_k (xh*hh + xh*hl + xl*hh), where xh/xl and hh/hl are
 // the bf16 hi/lo halves of the input and the taps made with split_bf16's
@@ -55,7 +74,10 @@
 // each tap costs one shared load per row.  The window is stored in four
 // phase-interleaved sub-arrays (position p at [p % 4][p / 4]) so those loads
 // are free of bank conflicts.  The later route is the TPU's own: bf16
-// mma.sync/wgmma on the Toeplitz band with fp32 accumulators.
+// mma.sync/wgmma on the Toeplitz band with fp32 accumulators.  K11 at the C8
+// per-stream point (9 bands x 209 taps, batch 4096, block 2048) does 9x K8's
+// FMAs, 47 G per block (~1.4 ms at the fp32 peak), against 71 MB of traffic:
+// compute-bound the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,6 +111,9 @@ struct Src {
   int B, T;
   int hist;  // history columns before output 0: n-1 (K1) or k_pad (others)
   int S, start;
+  const int* assign;  // banked forms: design of each batch tile, else null
+  int bt;             // rows per assignment tile
+  int D;              // designs in the bank
 };
 
 // Ring forms: where sample e of step `step`'s extended signal lives.  The
@@ -148,50 +173,35 @@ __device__ __forceinline__ float2 load_split(const Src& s, int b, int step,
   }
 }
 
-// The int16 PCM quantizer: rint (half to even), clamp in float, then an
-// exact convert of the integral value.
-__device__ __forceinline__ int16_t pcm16(float y) {
-  const float v =
-      fminf(fmaxf(rintf(__fmul_rn(y, 32768.0f)), -32768.0f), 32767.0f);
-  return static_cast<int16_t>(__float2int_rn(v));
-}
-
+// Stage rows b0 .. b0+kRows-1 of the split window, positions [0, W) holding
+// extended-signal samples e0 + p, phase-interleaved: position p of row r at
+// win[r][p % 4][p / 4] (rows beyond B are zero).
 template <int MODE, int IN>
-__global__ void __launch_bounds__(kThreads)
-    fir_b3_kernel(Src src, const float* __restrict__ h, int n_taps, int np,
-                  void* __restrict__ out, afp::Epilogue epi, int n_steps,
-                  int emit_i16) {
-  extern __shared__ float2 smem[];
-  const int W = kCols + np - 1;  // window length
-  const int W4 = (W + 3) / 4;    // length of each phase sub-array
-  float2* taps = smem;           // [np], zero beyond n_taps
-  float2* win = smem + np;       // [kRows][4][W4]
-
-  const int b0 = blockIdx.x * kRows;
-  const int t0 = blockIdx.y * kCols;
-  const int step = blockIdx.z;
-  const int j = threadIdx.x;
-
-  for (int k = j; k < np; k += kThreads)
-    taps[k] = k < n_taps ? afp::split_bf16(h[k]) : make_float2(0.f, 0.f);
-  // window position p holds extended-signal sample e0 + p
-  const int e0 = t0 + src.hist - (np - 1);
+__device__ __forceinline__ void stage_window(const Src& src, int b0, int step,
+                                             int e0, int W, int W4,
+                                             float2* win) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int b = b0 + r;
     float2* wr = win + r * 4 * W4;
-    for (int p = j; p < W; p += kThreads)
+    for (int p = threadIdx.x; p < W; p += kThreads)
       wr[(p & 3) * W4 + (p >> 2)] =
           b < src.B ? load_split<MODE, IN>(src, b, step, e0 + p)
                     : make_float2(0.f, 0.f);
   }
-  __syncthreads();
+}
 
-  // Thread j owns outputs t0 + 4j + c (c = 0..3).  Tap k of output column c
-  // reads window position 4j + c + np-1-k.  w[r][(c - k) & 3] holds that
-  // sample; each new k brings in one sample (column 0's) and drops column
-  // 3's, so the register window slides with one shared load per row.
-  float acc[kRows][4];
+// The conv of thread j's 4 rows x 4 outputs against the split taps [np]
+// (zero beyond n_taps), from the staged window.  Thread j owns outputs
+// t0 + 4j + c (c = 0..3).  Tap k of output column c reads window position
+// 4j + c + np-1-k.  w[r][(c - k) & 3] holds that sample; each new k brings
+// in one sample (column 0's) and drops column 3's, so the register window
+// slides with one shared load per row.
+__device__ __forceinline__ void conv_acc(const float2* __restrict__ win,
+                                         int W4,
+                                         const float2* __restrict__ taps,
+                                         int np, int j,
+                                         float (&acc)[kRows][4]) {
   float2 w[kRows][4];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -228,18 +238,26 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+}
 
-  const int t = t0 + 4 * j;  // T % 4 == 0: the four columns are in or out
-  if (t >= src.T) return;
-  int slot = 0;
-  if (MODE == kModeRing) {
-    // with n_steps > S a slot is written by several steps; the last one wins,
-    // as in the reference's sequential walk
-    if (step + src.S < n_steps) return;
-    slot = (src.start + step) % src.S;
-  } else if (MODE == kModePair) {
-    slot = src.start;  // K7's output slot (K8: 0)
-  }
+// The int16 PCM quantizer: rint (half to even), clamp in float, then an
+// exact convert of the integral value.
+__device__ __forceinline__ int16_t pcm16(float y) {
+  const float v =
+      fminf(fmaxf(rintf(__fmul_rn(y, 32768.0f)), -32768.0f), 32767.0f);
+  return static_cast<int16_t>(__float2int_rn(v));
+}
+
+// The store of rows b0 .. b0+kRows-1, outputs t .. t+3 (t % 4 == 0, t < T),
+// into output slot `slot`: clip, the dither of block counter counter+step
+// over the flat index b*T + t, then f32 or the int16 quantizer.  With `bad`
+// the rows are NaN instead (the int16 quantizer makes that -32768).
+__device__ __forceinline__ void store_rows(const Src& src, int b0, int t,
+                                           int slot, int step,
+                                           const float (&acc)[kRows][4],
+                                           const afp::Epilogue& epi,
+                                           int emit_i16, void* out,
+                                           bool bad = false) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int b = b0 + r;
@@ -254,6 +272,10 @@ __global__ void __launch_bounds__(kThreads)
     y.y = afp::finish(acc[r][1], epi, bits.w[1]);
     y.z = afp::finish(acc[r][2], epi, bits.w[2]);
     y.w = afp::finish(acc[r][3], epi, bits.w[3]);
+    if (bad) {
+      const float nan = __int_as_float(0x7fc00000);
+      y = make_float4(nan, nan, nan, nan);
+    }
     const long long o = static_cast<long long>(slot) * src.B * src.T + flat;
     if (emit_i16) {
       // four int16 samples, one 8-byte store (o is a multiple of 4)
@@ -267,6 +289,111 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = y;
     }
   }
+}
+
+template <int MODE, int IN>
+__global__ void __launch_bounds__(kThreads)
+    fir_b3_kernel(Src src, const float* __restrict__ h, int n_taps, int np,
+                  void* __restrict__ out, afp::Epilogue epi, int n_steps,
+                  int emit_i16) {
+  extern __shared__ float2 smem[];
+  const int W = kCols + np - 1;  // window length
+  const int W4 = (W + 3) / 4;    // length of each phase sub-array
+  float2* taps = smem;           // [np], zero beyond n_taps
+  float2* win = smem + np;       // [kRows][4][W4]
+
+  const int b0 = blockIdx.x * kRows;
+  const int t0 = blockIdx.y * kCols;
+  const int step = blockIdx.z;
+  const int j = threadIdx.x;
+
+  // banked forms: this block's rows share one design of the bank; one
+  // outside [0, D) reads design 0 and marks the rows bad
+  int d = 0;
+  bool bad = false;
+  if (src.assign != nullptr) {
+    d = src.assign[b0 / src.bt];
+    bad = d < 0 || d >= src.D;
+    if (bad) d = 0;
+  }
+  const float* hb = h + static_cast<long long>(d) * n_taps;
+  for (int k = j; k < np; k += kThreads)
+    taps[k] = k < n_taps ? afp::split_bf16(hb[k]) : make_float2(0.f, 0.f);
+  // window position p holds extended-signal sample e0 + p
+  stage_window<MODE, IN>(src, b0, step, t0 + src.hist - (np - 1), W, W4, win);
+  __syncthreads();
+
+  float acc[kRows][4];
+  conv_acc(win, W4, taps, np, j, acc);
+
+  const int t = t0 + 4 * j;  // T % 4 == 0: the four columns are in or out
+  if (t >= src.T) return;
+  int slot = 0;
+  if (MODE == kModeRing) {
+    // with n_steps > S a slot is written by several steps; the last one wins,
+    // as in the reference's sequential walk
+    if (step + src.S < n_steps) return;
+    slot = (src.start + step) % src.S;
+  } else if (MODE == kModePair) {
+    slot = src.start;  // K7's output slot (K8: 0)
+  }
+  store_rows(src, b0, t, slot, step, acc, epi, emit_i16, out, bad);
+}
+
+// K11: y[b] = sum_k g[b, k] * (x[b] conv bands[k]), k in order, over the
+// staged x_ext window; the per-band conv is the body's (conv_acc).  Shared
+// memory: the split taps of every band [n_bands][np], the window, and the
+// block's gains [kRows][n_bands].
+__global__ void __launch_bounds__(kThreads)
+    fir_ps_kernel(Src src, const float* __restrict__ bands,
+                  const float* __restrict__ gains, int n_bands, int n_taps,
+                  int np, void* __restrict__ out, afp::Epilogue epi,
+                  int emit_i16) {
+  extern __shared__ float2 smem[];
+  const int W = kCols + np - 1;
+  const int W4 = (W + 3) / 4;
+  float2* taps = smem;                // [n_bands][np]
+  float2* win = taps + n_bands * np;  // [kRows][4][W4]
+  float* g = reinterpret_cast<float*>(win + kRows * 4 * W4);  // [kRows][K]
+
+  const int b0 = blockIdx.x * kRows;
+  const int t0 = blockIdx.y * kCols;
+  const int j = threadIdx.x;
+
+  for (int i = j; i < n_bands * np; i += kThreads) {
+    const int k = i / np;
+    const int q = i - k * np;
+    taps[i] = q < n_taps ? afp::split_bf16(bands[k * n_taps + q])
+                         : make_float2(0.f, 0.f);
+  }
+  for (int i = j; i < kRows * n_bands; i += kThreads) {
+    const int b = b0 + i / n_bands;
+    g[i] = b < src.B ? gains[static_cast<long long>(b0) * n_bands + i] : 0.f;
+  }
+  stage_window<kModeExt, kInF32>(src, b0, 0, t0 + src.hist - (np - 1), W, W4,
+                                 win);
+  __syncthreads();
+
+  float y[kRows][4];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[r][c] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < n_bands; ++k) {
+    float z[kRows][4];
+    conv_acc(win, W4, taps + k * np, np, j, z);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float gk = g[r * n_bands + k];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        y[r][c] = __fadd_rn(y[r][c], __fmul_rn(gk, z[r][c]));
+    }
+  }
+  const int t = t0 + 4 * j;
+  if (t >= src.T) return;
+  store_rows(src, b0, t, 0, 0, y, epi, emit_i16, out);
 }
 
 // Next tail after n_steps ring steps: the last hist samples of the stream,
@@ -349,13 +476,28 @@ int launch_ring(const Src& s, const float* h, int n_taps, void* out_ring,
   return launch_tail<IN>(s, n_steps, tail_out, tail_out_lo, stream);
 }
 
+// The bank option of K1/K3/K4/K12 (K10 and the banked rings): `assign` is
+// the per-tile design index [B / bt] into the bank h [D, n_taps], or null
+// for shared taps.  False when the tiles would split a block's rows or the
+// bank is empty.
+bool set_bank(Src* s, const void* assign, int bt, int D) {
+  s->assign = static_cast<const int*>(assign);
+  s->bt = bt;
+  s->D = D;
+  return assign == nullptr || (D > 0 && bt > 0 && s->B % bt == 0 &&
+                               (bt % kRows == 0 || bt == s->B));
+}
+
 }  // namespace
 
-// K1.  x_ext [B, n_taps-1+T] -> out [B, T], f32 or (emit_i16) int16.
+// K1 and K10.  x_ext [B, n_taps-1+T] -> out [B, T], f32 or (emit_i16) int16;
+// with `assign` (K10) h is the bank [D, n_taps] and row b takes design
+// assign[b / bt].
 extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
-                          int T, int n_taps, int has_clip, float clip,
-                          int dither, unsigned int seed, unsigned int counter,
-                          float lsb, int emit_i16, void* stream) {
+                          int T, int n_taps, const void* assign, int bt, int D,
+                          int has_clip, float clip, int dither,
+                          unsigned int seed, unsigned int counter, float lsb,
+                          int emit_i16, void* stream) {
   Src s{};
   s.x = x_ext;
   s.B = B;
@@ -363,6 +505,8 @@ extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
   s.hist = n_taps - 1;
   s.S = 1;
   s.start = 0;
+  if (!set_bank(&s, assign, bt, D))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv<kModeExt, kInF32>(
       s, static_cast<const float*>(h), n_taps, out,
       make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, emit_i16,
@@ -374,13 +518,15 @@ extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
 // (start+i) mod S behind the carried tail [B, k_pad]; step i writes
 // out_ring slot (start+i) mod S in place (f32, or int16 with emit_i16) and
 // dithers under block counter counter+i; tail_out [B, k_pad] gets the tail
-// after the last step, in the ring's element type.
+// after the last step, in the ring's element type.  `assign`/`bt`/`D`: the
+// bank option, as for K10 (f32 and int16 rings).
 extern "C" int afp_fir_td_ring(const void* ring, const void* ring_lo,
                                const void* tail, const void* tail_lo,
                                const void* h, void* out_ring, void* tail_out,
                                void* tail_out_lo, int in_kind, int S, int B,
                                int T, int k_pad, int n_taps, int start,
-                               int n_steps, int has_clip, float clip,
+                               int n_steps, const void* assign, int bt,
+                               int D, int has_clip, float clip,
                                int dither, unsigned int seed,
                                unsigned int counter, float lsb, int emit_i16,
                                void* stream) {
@@ -399,6 +545,8 @@ extern "C" int afp_fir_td_ring(const void* ring, const void* ring_lo,
   s.hist = k_pad;
   s.S = S;
   s.start = start % S;
+  if (!set_bank(&s, assign, bt, D))
+    return static_cast<int>(cudaErrorInvalidValue);
   const afp::Epilogue epi =
       make_epilogue(has_clip, clip, dither, seed, counter, lsb);
   const float* hf = static_cast<const float*>(h);
@@ -450,4 +598,40 @@ extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
   s.S = 1;
   s.start = 0;
   return launch_tail<kInPair>(s, 1, th_out, tl_out, st);
+}
+
+// K11.  x_ext [B, n_taps-1+T], the band kernels [n_bands, n_taps] and the
+// per-stream gains [B, n_bands] -> out [B, T] = sum_k gains[:, k] * (x conv
+// bands[k]), with the body's store (clip, dither, f32 or int16).
+extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
+                             const void* gains, void* out, int B, int T,
+                             int n_taps, int n_bands, int has_clip, float clip,
+                             int dither, unsigned int seed,
+                             unsigned int counter, float lsb, int emit_i16,
+                             void* stream) {
+  if (B <= 0 || T <= 0 || T % 4 || n_taps <= 0 || n_bands <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Src s{};
+  s.x = x_ext;
+  s.B = B;
+  s.T = T;
+  s.hist = n_taps - 1;
+  s.S = 1;
+  const int np = (n_taps + 3) / 4 * 4;
+  const int W = kCols + np - 1;
+  const size_t smem =
+      sizeof(float2) * (static_cast<size_t>(n_bands) * np +
+                        4u * kRows * ((W + 3) / 4)) +
+      sizeof(float) * kRows * n_bands;
+  if (smem > 227u * 1024u) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      fir_ps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + kRows - 1) / kRows, (T + kCols - 1) / kCols);
+  fir_ps_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      s, static_cast<const float*>(bands), static_cast<const float*>(gains),
+      n_bands, n_taps, np, out,
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb), emit_i16);
+  return static_cast<int>(cudaGetLastError());
 }

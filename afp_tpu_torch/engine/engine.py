@@ -64,9 +64,14 @@ def _fallback_params(n_kernel: int, n_bands: int) -> PipelineParams:
 
 
 class StreamEngine:
-    """Streaming engine over `cfg.batch` concurrent streams on `device`."""
+    """Streaming engine over `cfg.batch` concurrent streams on `device` (the
+    card by default; ``device='cpu'`` runs the plain versions).  Per-stream
+    banks (`engine/batch.py`) ride :attr:`params` like any parameter bank:
+    assign ``engine.params = with_per_stream_gains(engine.pipeline,
+    engine.params, gains)`` (or a filter or AGC bank), and
+    :meth:`set_eq_gains` then takes [batch, n_bands] gains."""
 
-    def __init__(self, cfg: StreamConfig, *, device, seed: int = 0):
+    def __init__(self, cfg: StreamConfig, *, device="cuda", seed: int = 0):
         self.cfg = cfg.validate()
         self.device = torch.device(device)
         self.metrics = EngineMetrics(streams=self.cfg.batch)
@@ -129,7 +134,9 @@ class StreamEngine:
         return False
 
     def set_eq_gains(self, gains) -> None:
-        """Live gain update — runtime data only (no redesign, no rebuild)."""
+        """Live gain update — runtime data only (no redesign, no rebuild):
+        [n_bands], or [batch, n_bands] when the live params carry
+        per-stream gains (the shape must match the live gains')."""
         g = torch.as_tensor(np.asarray(gains, dtype=np.float32),
                             device=self.device)
         with self._swap_lock:

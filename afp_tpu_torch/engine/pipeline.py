@@ -12,7 +12,8 @@ dither kernel K2.  The serving forms `ring_step`/`run_ring` (K3) and
 `run_ring_mega` (K4) read and write device-resident rings in place.
 
 PyTorch idiom where the reference used JAX's: the device is explicit
-(``Pipeline(cfg, device)``), functions run eagerly on tensors, and the
+(``Pipeline(cfg, device)``, the card by default; a CPU device runs the
+plain versions), functions run eagerly on tensors, and the
 dither is counter-based Philox keyed by the state's ``(seed, step)`` rather
 than a threefry key split per block.  The carried conv tail is always
 k_pad = n_casc−1 rounded up to 128 wide (the ring kernels' width); the
@@ -48,6 +49,24 @@ both ingest forms to 'td_mxu'):
   `quantize_pcm16` fused into the conv store after the clip and the
   dither ('td_mxu'), or run after K2 ('fft').  Output rings are int16.
 
+Per-stream banks (`engine/batch.py`; `pipeline.py:549-557, 813-904`):
+
+* ``eq_gains`` [B, n_bands] (per-stream EQ): 'td_mxu' runs K11 on the f32
+  extended block (a pair or int16 block and tail converted first), then
+  its fused clip, dither and int16 store; 'fft' contracts the gains into a
+  [B, F] response.  The rings refuse it ("use step()").
+* ``casc_bank`` [D, n_casc] + ``casc_assign`` [B / bt] (per-stream main
+  filters on 'td_mxu'): the staged step runs K10 (banked K12 over the
+  one-slot view under pcm16 ingest without AGC), the f32 and int16 rings
+  the banked K3/K4/K12.  Pair rings and the AGC ring refuse it; the offline
+  fold is refused with ``fold=True``.
+* [B] AGC vectors (per-stream AGC policies): K5 and K6 read them on every
+  route.
+
+Under a bank or per-stream gains K6 stores f32, not the pair: the pair
+tail is merged for the extended block and its next value re-split from the
+block's last k_pad columns (`pipeline.py:715-720, 796-805, 960-971`).
+
 The reference refuses int16-output ring serving and `run_ring_mega` with
 dither on in its interpret mode (`pipeline.py:1133-1137, 1381-1386`): its
 TPU dither has no interpret lowering.  Here the plain versions fuse the
@@ -69,13 +88,15 @@ from ..ops.convolve import next_pow2
 from ..ops.cuda.agc_rms import band_is_exact_bf16, rms_desired
 from ..ops.cuda.agc_scan import smooth_gain_apply
 from ..ops.cuda.dither import dither_cuda
-from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_pair,
-                               fir_td_mxu_pair_to_ring, fir_td_mxu_ring,
+from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_banked,
+                               fir_td_mxu_pair, fir_td_mxu_pair_to_ring,
+                               fir_td_mxu_per_stream, fir_td_mxu_ring,
                                fir_td_mxu_ring_f32, fir_td_mxu_ring_mega,
                                fir_td_mxu_ring_mega_f32,
                                fir_td_mxu_ring_mega_pcm16,
                                fir_td_mxu_ring_pcm16, merge_bf16,
-                               quantize_pcm16, ring_k_pad, split_bf16)
+                               pcm16_to_f32, quantize_pcm16, ring_k_pad,
+                               split_bf16)
 from ..ops.resample import streaming_kernel
 from .config import PipelineParams, StreamConfig
 
@@ -133,38 +154,49 @@ class DeviceParams(NamedTuple):
     """Runtime parameter bank on the device.  Swapping it between blocks is
     the reference's glitch-free `filter_lock` swap: same shapes, no rebuild.
     The AGC scalars are 0-d float32 tensors on the host: the kernels take
-    them as launch arguments, as the TPU kernels took them in SMEM."""
+    them as launch arguments, as the TPU kernels took them in SMEM.  The
+    per-stream banks (`engine/batch.py`) live on the device: [B, n_bands]
+    EQ gains, a [B, F] ``H_main``, the 'td_mxu' filter bank
+    ``casc_bank``/``casc_assign``, and [B] AGC vectors."""
 
     H_bands: torch.Tensor  # [n_bands, F] complex64 per-band cascade spectra
-    H_main: torch.Tensor  # [F] complex64 no-EQ cascade spectrum
-    eq_gains: torch.Tensor  # [n_bands] float32
+    H_main: torch.Tensor  # [F] (or per-stream [B, F]) no-EQ cascade spectrum
+    eq_gains: torch.Tensor  # [n_bands] (or per-stream [B, n_bands]) float32
     casc_bands: Optional[torch.Tensor] = None  # [n_bands, n_casc] ('td_mxu')
     casc_main: Optional[torch.Tensor] = None  # [n_casc] ('td_mxu')
-    agc_target: Optional[torch.Tensor] = None  # [] float32, host
-    agc_max_gain: Optional[torch.Tensor] = None  # []
-    agc_a_att: Optional[torch.Tensor] = None  # []
-    agc_a_rel: Optional[torch.Tensor] = None  # []
-
-    def _shared_gains(self) -> torch.Tensor:
-        if self.eq_gains.ndim != 1:
-            raise _not_in_slice("per-stream EQ gains (2-D eq_gains)",
-                                "7 (per-stream banks)")
-        return self.eq_gains
+    agc_target: Optional[torch.Tensor] = None  # [] float32 host, or [B] device
+    agc_max_gain: Optional[torch.Tensor] = None  # [] or [B]
+    agc_a_att: Optional[torch.Tensor] = None  # [] or [B]
+    agc_a_rel: Optional[torch.Tensor] = None  # [] or [B]
+    #: per-stream filter banks on 'td_mxu': the deduplicated designs and the
+    #: design of each batch tile (bt = B // len(casc_assign))
+    casc_bank: Optional[torch.Tensor] = None  # [D, n_casc] float32
+    casc_assign: Optional[torch.Tensor] = None  # [B // bt] int32
 
     def combined_response(self, eq_enabled: bool) -> torch.Tensor:
-        """The live fused response [F]: the gain-combined per-band cascade
-        spectra, or the no-EQ cascade.  A 9-term sum written out, so no
-        matmul precision mode (TF32) can touch it."""
+        """The live fused response, [F] or per-stream [B, F]: the
+        gain-combined per-band cascade spectra, or the no-EQ cascade.  The
+        band sum is written out (for [B, n_bands] gains one band at a
+        time, never a [B, K, F] product), so no matmul precision mode
+        (TF32) can touch it."""
         if eq_enabled and self.H_bands.shape[0] > 0:
-            g = self._shared_gains().to(self.H_bands.dtype)
-            return (g[:, None] * self.H_bands).sum(0)
+            g = self.eq_gains.to(self.H_bands.dtype)
+            if g.ndim == 1:
+                return (g[:, None] * self.H_bands).sum(0)
+            H = g[:, :1] * self.H_bands[0]
+            for k in range(1, g.shape[1]):
+                H = H + g[:, k:k + 1] * self.H_bands[k]
+            return H
         return self.H_main
 
     def combined_cascade(self, eq_enabled: bool) -> torch.Tensor:
         """The live fused taps [n_casc] ('td_mxu'): the gain combination is
-        linear in the taps, as in frequency."""
+        linear in the taps, as in frequency.  Per-stream gains have no
+        shared taps (K11 mixes the bands per stream)."""
         if eq_enabled and self.casc_bands is not None and self.casc_bands.shape[0] > 0:
-            return (self._shared_gains()[:, None] * self.casc_bands).sum(0)
+            if self.eq_gains.ndim != 1:
+                raise ValueError("per-stream EQ gains have no shared cascade")
+            return (self.eq_gains[:, None] * self.casc_bands).sum(0)
         return self.casc_main
 
 
@@ -188,18 +220,22 @@ class Pipeline:
 
     Usage::
 
-        pipe = Pipeline(cfg, "cuda")
+        pipe = Pipeline(cfg)                              # on the card
         params = pipe.device_params(PipelineParams.design(pipe.cfg))
         state = pipe.init_state(seed=0)
         state, out = pipe.step(params, state, block)      # [B, L] → [B, L]
         state, outs = pipe.run(params, state, blocks)     # [N, B, L]
     """
 
-    def __init__(self, cfg: StreamConfig, device):
+    def __init__(self, cfg: StreamConfig, device="cuda"):
         cfg = cfg.validate()
         _check_slice(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Pipeline: no CUDA device (torch.cuda.is_available() is "
+                "False); pass device='cpu' to run the plain versions")
         self.batch = cfg.batch
         self.block = cfg.blocksize
         self.upf = cfg.upsample_factor
@@ -314,12 +350,11 @@ class Pipeline:
 
     def params_from_numpy(self, arrays: dict) -> DeviceParams:
         """A parameter bank from `afp_tpu`'s ``DeviceParams`` fields as numpy
-        arrays (``{name: np.asarray(field)}``), the AGC scalars included.
-        The per-stream ``casc_wide`` is not used by this slice and is
-        ignored; per-stream filter banks raise."""
-        if arrays.get("casc_bank") is not None:
-            raise _not_in_slice("per-stream filter banks (casc_bank)",
-                                "7 (per-stream banks)")
+        arrays (``{name: np.asarray(field)}``), the per-stream banks
+        included: [B, n_bands] gains, a [B, F] ``H_main``, ``casc_bank`` /
+        ``casc_assign``, and AGC knobs as 0-d scalars (kept on the host) or
+        [B] vectors (moved to the device).  ``casc_wide`` (the TPU's wide
+        band matrix) is not used: K11 reads the band taps."""
         dev = self.device
 
         def to(name, dtype):
@@ -327,20 +362,33 @@ class Pipeline:
             return None if a is None else torch.as_tensor(
                 np.array(a), dtype=dtype, device=dev)
 
-        def host(name, default):
-            a = arrays.get(name)
-            return _host_scalar(default if a is None else a)
+        def knob(name, default):
+            a = np.asarray(default if arrays.get(name) is None
+                           else arrays[name], dtype=np.float32)
+            return (_host_scalar(a) if a.ndim == 0
+                    else torch.as_tensor(a, device=dev))
 
+        assign = arrays.get("casc_assign")
+        if assign is not None:
+            bank = np.asarray(arrays["casc_bank"])
+            assign = np.asarray(assign)
+            if assign.ndim != 1 or self.batch % len(assign) or (
+                    assign.min() < 0 or assign.max() >= bank.shape[0]):
+                raise ValueError(
+                    f"casc_assign must index the {bank.shape[0]} designs "
+                    f"per tile of batch {self.batch}, got {assign.tolist()}")
         return DeviceParams(
             H_bands=to("H_bands", torch.complex64),
             H_main=to("H_main", torch.complex64),
             eq_gains=to("eq_gains", torch.float32),
             casc_bands=to("casc_bands", torch.float32),
             casc_main=to("casc_main", torch.float32),
-            agc_target=host("agc_target", self.cfg.agc_target_level),
-            agc_max_gain=host("agc_max_gain", self.cfg.agc_max_gain),
-            agc_a_att=host("agc_a_att", self.agc.a_att),
-            agc_a_rel=host("agc_a_rel", self.agc.a_rel),
+            agc_target=knob("agc_target", self.cfg.agc_target_level),
+            agc_max_gain=knob("agc_max_gain", self.cfg.agc_max_gain),
+            agc_a_att=knob("agc_a_att", self.agc.a_att),
+            agc_a_rel=knob("agc_a_rel", self.agc.a_rel),
+            casc_bank=to("casc_bank", torch.float32),
+            casc_assign=to("casc_assign", torch.int32),
         )
 
     # ---------------- state ----------------
@@ -456,10 +504,12 @@ class Pipeline:
         [T, B] (`afp_tpu/engine/pipeline.py:559-568`); identity at 1."""
         return link_desired(d, self.cfg.agc_link_group, batch_axis=1)
 
-    def _agc(self, params: DeviceParams, x: torch.Tensor, gain, ring_idx=None):
+    def _agc(self, params: DeviceParams, x: torch.Tensor, gain, ring_idx=None,
+             emit_split=None):
         """The AGC on the block ``x`` [B, L] (or on slot ``ring_idx`` of the
         ring ``x``): K5 → link → K6.  Returns (the gained block — its bf16
-        pair when the conv reads pairs — and the new [B] gain carry)."""
+        pair when the conv reads pairs, unless `emit_split` says otherwise —
+        and the new [B] gain carry)."""
         cfg = self.cfg
         lp, rp = self._rms_pad
         mc = self._agc_blockwise if self._agc_means else 0
@@ -471,8 +521,37 @@ class Pipeline:
         return smooth_gain_apply(
             d, x, params.agc_a_att, params.agc_a_rel, params.agc_max_gain,
             init=gain if cfg.agc_carry else None, out_clip=0.99,
-            emit_split=self._pair_tail, ring_idx=ring_idx,
-            blockwise=self._agc_blockwise, d_is_means=bool(mc))
+            emit_split=self._pair_tail if emit_split is None else emit_split,
+            ring_idx=ring_idx, blockwise=self._agc_blockwise,
+            d_is_means=bool(mc))
+
+    def _per_stream(self, params: DeviceParams) -> bool:
+        """True when the params carry per-stream EQ gains."""
+        return self.has_eq and params.eq_gains.ndim == 2
+
+    def _ext(self, tail, x):
+        """The f32 extended block [B, n−1+L] (the conv's history, then the
+        block) and the next carried tail, from any tail and block form: an
+        int16 tail and block converted n/32768 (the tail stays raw int16), a
+        pair tail merged (the next tail the block's own pair, or, for an f32
+        block — K6's store under banks — the split of the last k_pad
+        columns, `pipeline.py:796-805, 960-971`), or f32."""
+        kp, n, L = self._k_pad, self.n_casc, self.block
+        if self._i16_tail:
+            raw = torch.cat([tail, x], dim=-1)
+            return pcm16_to_f32(raw[:, kp - (n - 1):]), raw[:, -kp:].clone()
+        if self._pair_tail:
+            hist = merge_bf16(*tail)[:, kp - (n - 1):]
+            if isinstance(x, tuple):
+                nxt = tuple(h[:, L - kp:].clone() if kp <= L
+                            else torch.cat([t[:, L:], h], dim=-1)
+                            for t, h in zip(tail, x))
+                return torch.cat([hist, merge_bf16(*x)], dim=-1), nxt
+            ext = torch.cat([hist, x], dim=-1)
+            return ext, split_bf16(ext[:, -kp:])
+        ext = torch.cat([tail[:, kp - (n - 1):], x], dim=-1)
+        return ext, (x[:, L - kp:].clone() if kp <= L
+                     else torch.cat([tail[:, L:], x], dim=-1))
 
     def step(self, params: DeviceParams, state: StreamState, block):
         """One block: [B, L] → (state, [B, L] out).  The state passed in is
@@ -480,33 +559,34 @@ class Pipeline:
         from a failed step)."""
         cfg = self.cfg
         x = self._block(block)
-        kp, n, L = self._k_pad, self.n_casc, self.block
+        n, L = self.n_casc, self.block
         tail, gain = state.conv_tail, state.agc_gain
         dkw = self._dither_kw(state, cfg.output_clip)
+        per_stream = self._per_stream(params)
+        banked = params.casc_bank is not None
         if self._agc_on:
-            x, gain = self._agc(params, x, gain)
-        if self._i16_tail:
-            # K12 over a one-slot view of the block: the serving ring's own
-            # loader (staged ≡ ring bit for bit), emitting the int16 tail
+            x, gain = self._agc(params, x, gain, emit_split=(
+                self._pair_tail and not (per_stream or banked)))
+        nxt = (lambda new_tail: StreamState(new_tail, state.seed,
+                                            state.step + 1, gain))
+        if self._i16_tail and not per_stream:
+            # K12 over a one-slot view of the block (banked K12 with a
+            # bank): the serving ring's own loader (staged ≡ ring bit for
+            # bit), emitting the int16 tail
+            h, bkw = self._taps(params)
             out = torch.empty((1, self.batch, L), dtype=self.out_dtype,
                               device=self.device)
-            out, new_tail = fir_td_mxu_ring_pcm16(
-                x[None], 0, tail, params.combined_cascade(self.has_eq), out,
-                **dkw)
-            return (StreamState(new_tail, state.seed, state.step + 1, gain),
-                    out[0])
-        if self._pair_tail:
+            out, new_tail = fir_td_mxu_ring_pcm16(x[None], 0, tail, h, out,
+                                                  **dkw, **bkw)
+            return nxt(new_tail), out[0]
+        if isinstance(x, tuple) and not (per_stream or banked):
             y, th, tl = fir_td_mxu_pair(
                 x[0], x[1], tail[0], tail[1],
                 params.combined_cascade(self.has_eq), emit_i16=self._emit16,
                 **dkw)
-            return StreamState((th, tl), state.seed, state.step + 1, gain), y
-        # the conv needs n−1 history columns; the carried tail is k_pad wide
-        ext = torch.cat([tail[:, kp - (n - 1):], x], dim=-1)
-        if self._use_td:
-            y = fir_td_mxu(ext, params.combined_cascade(self.has_eq),
-                           emit_i16=self._emit16, **dkw)
-        else:
+            return nxt((th, tl)), y
+        ext, new_tail = self._ext(tail, x)
+        if not self._use_td:
             H = params.combined_response(self.has_eq)
             Y = torch.fft.rfft(ext, n=self.nfft) * H
             y = torch.fft.irfft(Y, n=self.nfft)[:, n - 1: n - 1 + L]
@@ -516,9 +596,16 @@ class Pipeline:
                             cfg.dither_bits, cfg.dither_kind)
             if self._emit16:  # the reference's XLA epilogue after K2
                 y = quantize_pcm16(y)
-        new_tail = (x[:, L - kp:].clone() if kp <= L
-                    else torch.cat([tail[:, L:], x], dim=-1))
-        return StreamState(new_tail, state.seed, state.step + 1, gain), y
+        elif per_stream:
+            y = fir_td_mxu_per_stream(ext, params.casc_bands, params.eq_gains,
+                                      emit_i16=self._emit16, **dkw)
+        elif banked:
+            y = fir_td_mxu_banked(ext, params.casc_bank, params.casc_assign,
+                                  emit_i16=self._emit16, **dkw)
+        else:
+            y = fir_td_mxu(ext, params.combined_cascade(self.has_eq),
+                           emit_i16=self._emit16, **dkw)
+        return nxt(new_tail), y
 
     def run(self, params: DeviceParams, state: StreamState, blocks):
         """Step over [N, B, L] blocks → (state, [N, B, L]).  Under pair
@@ -543,7 +630,16 @@ class Pipeline:
         whole blocks of T.  ``fold=False`` and ``'auto'`` stream block by
         block; the offline fold ('prefer'/True) is ROADMAP §1 item 9 ('auto'
         may always decline to fold, `afp_tpu/engine/pipeline.py:1507-1514`).
-        Under pcm16 ingest the signal is int16 PCM."""
+        With per-stream filter banks the fold is refused (``fold=True``) or
+        declined (`pipeline.py:1559-1569`).  Under pcm16 ingest the signal
+        is int16 PCM."""
+        if params.casc_bank is not None:
+            if fold is True:
+                raise ValueError(
+                    "fold=True is unsupported with per-stream filter banks "
+                    "(the folded batch axis breaks the tile-constant "
+                    "design assignment) — use fold='auto'")
+            fold = False
         if fold in (True, "prefer"):
             raise _not_in_slice(f"fold={fold!r} (the offline fold)",
                                 "9 (offline fold)")
@@ -568,14 +664,25 @@ class Pipeline:
         f32 or int16 input ring."""
         return self._use_td
 
-    def _ring_taps(self, params: DeviceParams, ring_hi, ring_lo,
-                   out_ring) -> torch.Tensor:
-        """The checks of every ring form (`pipeline.py:1116-1141,
-        1180-1191, 1220-1228, 1387-1391`): pair rings exactly for pair
+    def _taps(self, params: DeviceParams):
+        """The conv's taps and bank keywords: the live shared taps, or the
+        filter bank with its per-tile assignment."""
+        if params.casc_bank is None:
+            return params.combined_cascade(self.has_eq), {}
+        return params.casc_bank, dict(assign=params.casc_assign)
+
+    def _ring_taps(self, params: DeviceParams, ring_hi, ring_lo, out_ring,
+                   form: str = "ring_step"):
+        """The checks of every ring form (`pipeline.py:1110-1191,
+        1369-1401`): no per-stream EQ gains, pair rings exactly for pair
         ingest, an int16 input ring exactly for pcm16 ingest, an int16
-        output ring exactly under ``emit='pcm16'``.  Returns the live
-        taps."""
+        output ring exactly under ``emit='pcm16'``, filter banks on the f32
+        and int16 conv rings only.  Returns the taps and bank keywords."""
         cfg = self.cfg
+        if self._per_stream(params):
+            raise ValueError(
+                f"{form} does not support per-stream EQ banks (the "
+                "per-stream mix consumes the f32 block) — use step()")
         if not self.supports_ring_step:
             raise ValueError(
                 "ring_step requires a conv ring: conv_strategy='td_mxu' "
@@ -592,19 +699,26 @@ class Pipeline:
             raise ValueError(
                 f"emit={cfg.emit!r} output rings must be {self.out_dtype}, "
                 f"got {out_ring.dtype}")
-        return params.combined_cascade(self.has_eq)
+        if params.casc_bank is not None and (self._pair_ingest
+                                             or self._agc_on):
+            raise ValueError(
+                "per-stream filter banks ride the f32/pcm16 conv rings "
+                "only — pair ingest and the fused AGC chain consume the "
+                "shared band (use step(), or drop the bank)")
+        return self._taps(params)
 
     def ring_step(self, params: DeviceParams, state: StreamState,
                   ring_hi: torch.Tensor, ring_lo, idx: int,
                   out_ring: torch.Tensor):
         """One serving step: convolve slot `idx` of the input ring
         ``ring_hi`` [S, B, L] into slot `idx` of `out_ring`, written in
-        place: K3 over an f32 ring, K12 over an int16 PCM ring, K13 over the
-        pair rings ``(ring_hi, ring_lo)`` of pair ingest.  With AGC, K5 and
-        K6 read the slot in place and K7 convolves K6's pair into the
-        output slot (`afp_tpu/engine/pipeline.py:1093-1299`).  ``ring_lo``
-        is None except under pair ingest."""
-        h = self._ring_taps(params, ring_hi, ring_lo, out_ring)
+        place: K3 over an f32 ring, K12 over an int16 PCM ring (each banked
+        under a filter bank), K13 over the pair rings ``(ring_hi,
+        ring_lo)`` of pair ingest.  With AGC, K5 and K6 read the slot in
+        place and K7 convolves K6's pair into the output slot
+        (`afp_tpu/engine/pipeline.py:1093-1299`).  ``ring_lo`` is None
+        except under pair ingest."""
+        h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring)
         dkw = self._dither_kw(state, self.cfg.output_clip)
         if self._agc_on:
             (xh, xl), gain = self._agc(params, ring_hi, state.agc_gain,
@@ -621,7 +735,7 @@ class Pipeline:
         ring = (fir_td_mxu_ring_pcm16 if self._i16_ingest
                 else fir_td_mxu_ring_f32)
         out_ring, tail = ring(ring_hi, idx, state.conv_tail, h, out_ring,
-                              **dkw)
+                              **dkw, **bkw)
         return StreamState(tail, state.seed, state.step + 1), out_ring
 
     def run_ring(self, params: DeviceParams, state: StreamState,
@@ -640,14 +754,15 @@ class Pipeline:
                       ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
                       n_steps: int, start: int = 0):
         """:meth:`run_ring` as ONE kernel launch (K4; K12 for pcm16, K13 for
-        pair rings): same slots, outputs, tail and dither as the chained
-        steps.  The AGC chain has no such form
+        pair rings; banked K4/K12 under a filter bank): same slots, outputs,
+        tail and dither as the chained steps.  The AGC chain has no such form
         (`afp_tpu/engine/pipeline.py:1358-1467`)."""
         if self._agc_on:
             raise ValueError(
                 "run_ring_mega requires a conv ring without AGC: the AGC "
                 "chain serves through run_ring")
-        h = self._ring_taps(params, ring_hi, ring_lo, out_ring)
+        h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring,
+                                 form="run_ring_mega")
         dkw = self._dither_kw(state, self.cfg.output_clip)
         if self._pair_ingest:
             out_ring, th, tl = fir_td_mxu_ring_mega(
@@ -658,5 +773,5 @@ class Pipeline:
             mega = (fir_td_mxu_ring_mega_pcm16 if self._i16_ingest
                     else fir_td_mxu_ring_mega_f32)
             out_ring, tail = mega(ring_hi, start, state.conv_tail, h,
-                                  out_ring, n_steps, **dkw)
+                                  out_ring, n_steps, **dkw, **bkw)
         return StreamState(tail, state.seed, state.step + int(n_steps)), out_ring

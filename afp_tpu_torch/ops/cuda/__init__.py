@@ -5,8 +5,10 @@ from .agc_rms import band_is_exact_bf16, rms_desired, rms_desired_plain
 from .agc_scan import smooth_gain_apply, smooth_gain_apply_plain
 from .dither import dither_cuda
 from .fir_td import (LANE, PCM16_SCALE, band_matrix, fir_td_mxu,
+                     fir_td_mxu_banked, fir_td_mxu_banked_plain,
                      fir_td_mxu_pair, fir_td_mxu_pair_plain,
                      fir_td_mxu_pair_to_ring, fir_td_mxu_pair_to_ring_plain,
+                     fir_td_mxu_per_stream, fir_td_mxu_per_stream_plain,
                      fir_td_mxu_plain, fir_td_mxu_ring, fir_td_mxu_ring_f32,
                      fir_td_mxu_ring_f32_plain, fir_td_mxu_ring_mega,
                      fir_td_mxu_ring_mega_f32, fir_td_mxu_ring_mega_f32_plain,
@@ -21,12 +23,15 @@ from .fir_td import (LANE, PCM16_SCALE, band_matrix, fir_td_mxu,
 KERNELS = (fir_td_mxu, fir_td_mxu_ring_f32, fir_td_mxu_ring_mega_f32,
            dither_cuda, rms_desired, smooth_gain_apply, fir_td_mxu_pair_to_ring,
            fir_td_mxu_pair, fir_td_mxu_ring_pcm16, fir_td_mxu_ring_mega_pcm16,
-           fir_td_mxu_ring, fir_td_mxu_ring_mega)
+           fir_td_mxu_ring, fir_td_mxu_ring_mega, fir_td_mxu_banked,
+           fir_td_mxu_per_stream)
 
 __all__ = ["LANE", "KERNELS", "PCM16_SCALE", "band_is_exact_bf16",
-           "band_matrix", "dither_cuda", "fir_td_mxu", "fir_td_mxu_pair",
+           "band_matrix", "dither_cuda", "fir_td_mxu", "fir_td_mxu_banked",
+           "fir_td_mxu_banked_plain", "fir_td_mxu_pair",
            "fir_td_mxu_pair_plain", "fir_td_mxu_pair_to_ring",
-           "fir_td_mxu_pair_to_ring_plain", "fir_td_mxu_plain",
+           "fir_td_mxu_pair_to_ring_plain", "fir_td_mxu_per_stream",
+           "fir_td_mxu_per_stream_plain", "fir_td_mxu_plain",
            "fir_td_mxu_ring", "fir_td_mxu_ring_f32",
            "fir_td_mxu_ring_f32_plain", "fir_td_mxu_ring_mega",
            "fir_td_mxu_ring_mega_f32", "fir_td_mxu_ring_mega_f32_plain",

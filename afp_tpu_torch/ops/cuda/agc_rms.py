@@ -11,12 +11,14 @@ shifted sums added, then ``· (1/W)`` in fp32); any other window weighs the
 sums with the band's bf16-split ``1/w`` (a third product when ``1/w`` is
 not exact in bf16).  x is f32 or, under ``ingest='pcm16'``, raw int16 PCM
 that the kernel converts ``n/32768`` as it loads (exact: the result is the
-f32 form's bit for bit, `agc_rms.py:111-113`).  A CPU tensor takes
+f32 form's bit for bit, `agc_rms.py:111-113`).  ``target`` and
+``max_gain`` are scalars or, for per-stream AGC policies, [B] vectors;
+either vector promotes both (`agc_rms.py:377-390`).  A CPU tensor takes
 :func:`rms_desired_plain` (the
 split products as fp32 matmuls against the band, as
 :func:`~afp_tpu_torch.ops.cuda.fir_td.fir_td_mxu_plain` does), a CUDA tensor
 launches `csrc/agc_rms.cu` or raises.  ``rms_desired.launches`` counts
-kernel launches.
+kernel launches, ``rms_desired.vector_launches`` those with [B] vectors.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from . import _build
 from .fir_td import (LANE, _full_fp32_matmul, _on_cuda, _raise_on,
                      _split_f32, _stream, band_matrix, pcm16_to_f32)
 
-__all__ = ["rms_desired", "rms_desired_plain", "band_is_exact_bf16"]
+__all__ = ["rms_desired", "rms_desired_plain", "band_is_exact_bf16", "knobs"]
 
 _LAYOUT_BT, _LAYOUT_TB, _LAYOUT_MEANS = 0, 1, 2
 
@@ -40,15 +42,21 @@ def band_is_exact_bf16(band) -> bool:
     return bool(torch.equal(b.to(torch.bfloat16).to(torch.float32), b))
 
 
-def _scalar(v, name: str) -> float:
-    """A runtime scalar as a Python float; a [B] vector is a per-stream
-    policy bank, which this slice does not carry."""
-    t = torch.as_tensor(v)
-    if t.ndim:
-        raise NotImplementedError(
-            f"per-stream AGC {name} ([B] vectors) is not ported yet: "
-            "ROADMAP.md §1 item 7 (per-stream banks)")
-    return float(t)
+def knobs(B: int, device, **values):
+    """AGC knobs as the kernels take them: ``(False, {name: float})`` when
+    every value is a scalar; when any is a [B] vector (a per-stream policy
+    bank, `engine/batch.py:with_per_stream_agc`), ``(True, {name: [B]
+    float32 tensor on device})`` for all of them, a scalar broadcast (one
+    vector promotes its siblings)."""
+    ts = {k: torch.as_tensor(v).to(torch.float32) for k, v in values.items()}
+    if all(t.ndim == 0 for t in ts.values()):
+        return False, {k: float(t) for k, t in ts.items()}
+    for k, t in ts.items():
+        if t.ndim > 1 or (t.ndim == 1 and t.shape[0] != B):
+            raise ValueError(f"{k} must be a scalar or a [{B}] vector, got "
+                             f"shape {tuple(t.shape)}")
+    return True, {k: torch.broadcast_to(t.to(device), (B,)).contiguous()
+                  for k, t in ts.items()}
 
 
 def _check(x, band, lp, rp, transposed, ring_idx, mean_chunk):
@@ -91,8 +99,8 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
     in full fp32; int16 x converts n/32768 first."""
     x, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
     x = pcm16_to_f32(x)
-    target, max_gain = _scalar(target, "target"), _scalar(max_gain, "max_gain")
     B, T = x.shape
+    vec, kn = knobs(B, x.device, target=target, max_gain=max_gain)
     sq = torch.nn.functional.pad(x * x, (lp, rp))  # [B, T + W − 1]
     sh, sl = _split_f32(sq)
     with _full_fp32_matmul():
@@ -115,9 +123,12 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
             s = s.reshape(B, T)
     rms = torch.sqrt(torch.clamp_min(s, 0.0))
     # a true division (a Python float over a tensor would multiply by the
-    # reciprocal)
-    t = torch.tensor(target, dtype=torch.float32, device=x.device)
-    d = torch.clamp(t / (rms + 1e-10), 0.0, max_gain)
+    # reciprocal); per-stream values broadcast along the rows
+    t, mg = (torch.as_tensor(kn[k], dtype=torch.float32, device=x.device)
+             for k in ("target", "max_gain"))
+    if vec:
+        t, mg = t[:, None], mg[:, None]
+    d = torch.minimum(torch.clamp_min(t / (rms + 1e-10), 0.0), mg)
     if mean_chunk:
         dh, dl = _split_f32(d)
         sel = torch.full((mean_chunk, 1), 1.0 / mean_chunk, device=x.device)
@@ -135,7 +146,8 @@ def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
     (or of slot ``ring_idx`` of an [S, B, T] ring, read in place).
     ``band`` is the boxcar band matrix [W−1+LANE, LANE] of ``ones(W)/W``
     (:func:`~afp_tpu_torch.ops.cuda.fir_td.band_matrix`); ``lp``/``rp`` the
-    'same' pads; ``target``/``max_gain`` scalars; ``exact_band`` from
+    'same' pads; ``target``/``max_gain`` scalars or [B] vectors (either
+    promotes both); ``exact_band`` from
     :func:`band_is_exact_bf16`.  Returns d [B, T], or [T, B] with
     ``transposed``, or with ``mean_chunk`` (needs ``transposed``) the
     time-major chunk means [T/mean_chunk, B] that the blockwise recurrence
@@ -144,7 +156,7 @@ def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
         return rms_desired_plain(x, band, lp, rp, target, max_gain,
                                  exact_band, transposed, ring_idx, mean_chunk)
     xs, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
-    target, max_gain = _scalar(target, "target"), _scalar(max_gain, "max_gain")
+    vec, kn = knobs(xs.shape[0], xs.device, target=target, max_gain=max_gain)
     if band.device != xs.device or band.dtype != torch.float32:
         raise ValueError(f"band must be float32 on {xs.device}, got "
                          f"{band.dtype} on {band.device}")
@@ -162,11 +174,15 @@ def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
         rc = lib.afp_rms_desired(
             xs.data_ptr(), band.data_ptr(), out.data_ptr(), B, T, W, int(lp),
             int(_two_level(W)), int(bool(exact_band)), layout, int(mean_chunk),
-            int(xs.dtype == torch.int16), target, max_gain, 1.0 / W,
-            _stream(xs))
+            int(xs.dtype == torch.int16),
+            *((0.0, 0.0) if vec else (kn["target"], kn["max_gain"])), 1.0 / W,
+            *((kn["target"].data_ptr(), kn["max_gain"].data_ptr()) if vec
+              else (None, None)), _stream(xs))
     _raise_on(rc, "rms_desired (K5)")
     rms_desired.launches += 1
+    rms_desired.vector_launches += int(vec)
     return out
 
 
 rms_desired.launches = 0
+rms_desired.vector_launches = 0

@@ -10,7 +10,10 @@ The start value is ``init`` when given, else the first chunk mean
 (blockwise) or ``d[0]`` (`agc_scan.py:472-482`).  Blockwise ('fast' mode):
 one step per chunk mean with the compounded alphas ``1 − (1 − a)^chunk``
 (f32, by repeated squaring as `lax.integer_pow` does), and the ramp
-``g + (gn − g)·(t+1)/chunk`` inside the chunk.  x is f32 or, under
+``g + (gn − g)·(t+1)/chunk`` inside the chunk.  The alphas and max gain
+are scalars or, for per-stream AGC policies, [B] vectors (any one promotes
+all three, `agc_scan.py:460-471`; 'fast' compounds per stream).  x is f32
+or, under
 ``ingest='pcm16'``, raw int16 PCM that the kernel converts ``n/32768`` as it
 reads (exact, `agc_scan.py:273-277`).  A CPU tensor takes
 :func:`smooth_gain_apply_plain` (a loop over time of whole-batch torch ops),
@@ -19,7 +22,8 @@ updates as XLA's CPU backend rounds the reference's expressions,
 ``fma(a, d, (1 − a)·g)`` and ``fma(gn − g, fr, g)``
 (:func:`~afp_tpu_torch.ops.agc.fma_f32`), so the kernel, the plain version
 and `afp_tpu` agree bit for bit given the same ``d``.
-``smooth_gain_apply.launches`` counts kernel launches.
+``smooth_gain_apply.launches`` counts kernel launches,
+``smooth_gain_apply.vector_launches`` those with [B] vectors.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 
 from ..agc import compound_alpha, fma_f32
 from . import _build
-from .agc_rms import _scalar
+from .agc_rms import knobs
 from .fir_td import _on_cuda, _raise_on, _stream, pcm16_to_f32, split_bf16
 
 __all__ = ["smooth_gain_apply", "smooth_gain_apply_plain"]
@@ -72,6 +76,18 @@ def _check(desired_tm, x, init, ring_idx, blockwise, d_is_means):
     return desired_tm, x, init, T, B
 
 
+def _alphas(kn: dict, vec: bool, blockwise):
+    """(a_att, a_rel, max_gain) from :func:`~.agc_rms.knobs`, the alphas
+    compounded ``1 − (1 − a)^chunk`` for the blockwise recurrence (per
+    stream for vectors, the same f32 squarings as for scalars)."""
+    a_att, a_rel, mg = kn["a_att"], kn["a_rel"], kn["max_gain"]
+    if blockwise:
+        a_att, a_rel = (compound_alpha(a, blockwise) for a in (a_att, a_rel))
+        if not vec:
+            a_att, a_rel = float(a_att), float(a_rel)
+    return a_att, a_rel, mg
+
+
 def smooth_gain_apply_plain(desired_tm: torch.Tensor, x: torch.Tensor,
                             a_att, a_rel, max_gain, init=None,
                             out_clip: float = 0.99, emit_split: bool = False,
@@ -81,11 +97,10 @@ def smooth_gain_apply_plain(desired_tm: torch.Tensor, x: torch.Tensor,
     as a loop over time of whole-batch ops, in the kernel's order."""
     d, x, init, T, B = _check(desired_tm, x, init, ring_idx, blockwise,
                               d_is_means)
-    a_att, a_rel = _scalar(a_att, "attack"), _scalar(a_rel, "release")
-    max_gain = _scalar(max_gain, "max_gain")
+    vec, kn = knobs(B, x.device, a_att=a_att, a_rel=a_rel, max_gain=max_gain)
+    a_att, a_rel, max_gain = _alphas(kn, vec, blockwise)
     gs = torch.empty((T, B), dtype=torch.float32, device=x.device)
     if blockwise:
-        a_att, a_rel = (float(compound_alpha(a, blockwise)) for a in (a_att, a_rel))
         if init is not None:
             g = init
         else:
@@ -105,9 +120,10 @@ def smooth_gain_apply_plain(desired_tm: torch.Tensor, x: torch.Tensor,
             a = torch.where(d[t] > g, a_att, a_rel)
             g = fma_f32(a, d[t], (1 - a) * g)
             gs[t] = g
-    gc = torch.clamp(gs, 0.1, max_gain).T
+    mg = torch.as_tensor(max_gain, dtype=torch.float32, device=x.device)
+    gc = torch.minimum(torch.clamp_min(gs, 0.1), mg).T
     y = torch.clamp(pcm16_to_f32(x) * gc, -out_clip, out_clip)
-    carry = torch.clamp(g, 0.1, max_gain)
+    carry = torch.minimum(torch.clamp_min(g, 0.1), mg)
     return (split_bf16(y) if emit_split else y), carry
 
 
@@ -119,20 +135,20 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
     layout :func:`~afp_tpu_torch.ops.cuda.agc_rms.rms_desired` emits with
     ``transposed``), applied to ``x`` [B, T], f32 or int16 PCM (or to slot
     ``ring_idx`` of an [S, B, T] ring, read in place).  ``init`` [B] is the
-    carried gain, or None to restart.  Returns ``(y, carry)``: y [B, T] f32 or, with
-    ``emit_split``, its bf16 pair ``(y_hi, y_lo)``; carry [B] the clipped
-    last gain.  ``blockwise=chunk`` runs the 'fast' recurrence; with
-    ``d_is_means`` the input is the [T/chunk, B] chunk-mean matrix."""
+    carried gain, or None to restart; ``a_att``/``a_rel``/``max_gain`` are
+    scalars or [B] vectors (any one promotes all three).  Returns ``(y,
+    carry)``: y [B, T] f32 or, with ``emit_split``, its bf16 pair ``(y_hi,
+    y_lo)``; carry [B] the clipped last gain.  ``blockwise=chunk`` runs the
+    'fast' recurrence; with ``d_is_means`` the input is the [T/chunk, B]
+    chunk-mean matrix."""
     if not _on_cuda(x):
         return smooth_gain_apply_plain(desired_tm, x, a_att, a_rel, max_gain,
                                        init, out_clip, emit_split, ring_idx,
                                        blockwise, d_is_means)
     d, xs, init, T, B = _check(desired_tm, x, init, ring_idx, blockwise,
                                d_is_means)
-    a_att, a_rel = _scalar(a_att, "attack"), _scalar(a_rel, "release")
-    max_gain = _scalar(max_gain, "max_gain")
-    if blockwise:
-        a_att, a_rel = (float(compound_alpha(a, blockwise)) for a in (a_att, a_rel))
+    vec, kn = knobs(B, xs.device, a_att=a_att, a_rel=a_rel, max_gain=max_gain)
+    a_att, a_rel, max_gain = _alphas(kn, vec, blockwise)
     d, xs = d.contiguous(), xs.contiguous()
     dev = xs.device
     carry = torch.empty(B, dtype=torch.float32, device=dev)
@@ -149,11 +165,16 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
             d.data_ptr(), xs.data_ptr(),
             None if init is None else init.data_ptr(), *ptrs,
             carry.data_ptr(), B, T, int(blockwise or 0), int(bool(d_is_means)),
-            int(xs.dtype == torch.int16), a_att, a_rel, max_gain,
-            float(out_clip), _stream(xs))
+            int(xs.dtype == torch.int16),
+            *((0.0, 0.0, 0.0) if vec else (a_att, a_rel, max_gain)),
+            float(out_clip),
+            *((a_att.data_ptr(), a_rel.data_ptr(), max_gain.data_ptr()) if vec
+              else (None, None, None)), _stream(xs))
     _raise_on(rc, "smooth_gain_apply (K6)")
     smooth_gain_apply.launches += 1
+    smooth_gain_apply.vector_launches += int(vec)
     return ((yh, yl) if emit_split else y), carry
 
 
 smooth_gain_apply.launches = 0
+smooth_gain_apply.vector_launches = 0

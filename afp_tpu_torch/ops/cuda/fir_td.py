@@ -1,5 +1,5 @@
-"""The fused FIR of the filter chain: kernels K1, K3, K4, K7, K8, K12, K13
-and their plain PyTorch versions (counterpart of
+"""The fused FIR of the filter chain: kernels K1, K3, K4, K7, K8, K10, K11,
+K12, K13 and their plain PyTorch versions (counterpart of
 `afp_tpu/ops/pallas/fir_td.py`).
 
 Every output is the causal/valid convolution
@@ -25,7 +25,22 @@ K12  :func:`fir_td_mxu_ring_pcm16`           fir_td.py:fir_td_mxu_ring_pcm16
 K12  :func:`fir_td_mxu_ring_mega_pcm16`      fir_td.py:fir_td_mxu_ring_mega_pcm16
 K13  :func:`fir_td_mxu_ring`                 fir_td.py:fir_td_mxu_ring
 K13  :func:`fir_td_mxu_ring_mega`            fir_td.py:fir_td_mxu_ring_mega
+K10  :func:`fir_td_mxu_banked`               fir_td.py:fir_td_mxu_banked
+K11  :func:`fir_td_mxu_per_stream`           fir_td.py:fir_td_mxu_per_stream
 ===  ======================================  ================================
+
+The bank option (per-stream filter banks, `engine/batch.py`): K10 is K1 over
+a tap bank ``[D, n]`` with a per-tile design assignment ``assign``
+``[B / bt]`` (int32; row ``b`` takes design ``assign[b // bt]``), and K3,
+K4 and K12 take the same ``assign=`` (the reference's banked ring forms).
+The tile ``bt`` is ``B / len(assign)``: a multiple of 8, or the whole batch
+when ``B <= 8`` (the reference's tile ladder), so a block's four rows never
+straddle two designs.  The kernel selects a block's taps by address, so a
+banked row equals the shared-taps form run with its design, bit for bit.
+An entry of ``assign`` outside ``[0, D)`` reads no taps: its rows come out
+NaN (−32768 in an int16 store), on the card and in the plain version alike,
+so a bad assignment shows in the output without a synchronize per launch.  K11
+mixes K band convs per stream, ``y[b] = Σ_k gains[b, k]·(x[b] ⊛ h_k)``.
 
 K8, K7 and K13 take the block (or the rings) and the carried tail as bf16
 (hi, lo) pairs, the form the AGC apply kernel (K6) stores and
@@ -41,8 +56,9 @@ Each wrapper dispatches on the device of its input: a CPU tensor takes the
 plain version beside it (``*_plain``: the three split products as fp32
 matmuls against :func:`band_matrix` — bf16 values multiply exactly in fp32),
 a CUDA tensor launches the kernel or raises.  ``<wrapper>.launches`` counts
-kernel launches.  Noise is keyed by ``dither_key = (seed, block counter)``
-(see `afp_tpu_torch/ops/dither.py`); a ring dispatch of n steps uses block
+kernel launches (``.banked_launches`` those with the bank option).  Noise
+is keyed by ``dither_key = (seed, block counter)`` (see
+`afp_tpu_torch/ops/dither.py`); a ring dispatch of n steps uses block
 counters ``counter … counter+n−1``.
 """
 from __future__ import annotations
@@ -64,7 +80,9 @@ __all__ = ["LANE", "PCM16_SCALE", "split_bf16", "merge_bf16", "band_matrix",
            "fir_td_mxu_ring_pcm16", "fir_td_mxu_ring_pcm16_plain",
            "fir_td_mxu_ring_mega_pcm16", "fir_td_mxu_ring_mega_pcm16_plain",
            "fir_td_mxu_ring", "fir_td_mxu_ring_plain",
-           "fir_td_mxu_ring_mega", "fir_td_mxu_ring_mega_plain"]
+           "fir_td_mxu_ring_mega", "fir_td_mxu_ring_mega_plain",
+           "fir_td_mxu_banked", "fir_td_mxu_banked_plain",
+           "fir_td_mxu_per_stream", "fir_td_mxu_per_stream_plain"]
 
 #: output-tile width of the band-matrix form and the granule of the block
 #: length and of the ring tail (`fir_td.py:LANE`)
@@ -150,6 +168,38 @@ def _check_taps(h: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
             f"taps must be 1-D float32 on {ref.device}, got {tuple(h.shape)} "
             f"{h.dtype} on {h.device}")
     return h.contiguous()
+
+
+def _check_bank(bank: torch.Tensor, assign, B: int, ref: torch.Tensor):
+    """Checks of the bank option: the bank [D, n] f32 and the per-tile
+    assignment [B / bt] int32 on `ref`'s device, and the tile bt it
+    implies.  Returns (bank, assign, bt)."""
+    if bank.ndim != 2 or bank.dtype != torch.float32 or bank.device != ref.device:
+        raise ValueError(
+            f"a tap bank must be [D, n] float32 on {ref.device}, got "
+            f"{tuple(bank.shape)} {bank.dtype} on {bank.device}")
+    if (assign.ndim != 1 or assign.dtype != torch.int32
+            or assign.device != ref.device or not 0 < assign.shape[0] <= B
+            or B % assign.shape[0]):
+        raise ValueError(
+            f"assign must be the per-tile design index [B / bt] int32 on "
+            f"{ref.device} (B = {B}), got {tuple(assign.shape)} "
+            f"{assign.dtype} on {assign.device}")
+    tile = B // assign.shape[0]
+    if tile % 8 and not (tile == B <= 8):
+        raise ValueError(f"bt={tile} must be a multiple of 8, or the whole "
+                         "batch when it is at most 8 rows")
+    return bank.contiguous(), assign.contiguous(), tile
+
+
+def _taps(h, assign, B, ref):
+    """The taps of a conv form: shared taps [n], or with `assign` the bank
+    [D, n].  Returns (taps, assign, bt, n_taps)."""
+    if assign is None:
+        h = _check_taps(h, ref)
+        return h, None, 0, h.shape[0]
+    h, assign, bt = _check_bank(h, assign, B, ref)
+    return h, assign, bt, h.shape[1]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -260,7 +310,7 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
     lib = _build.load()
     with torch.cuda.device(x_ext.device):
         rc = lib.afp_fir_td(
-            x_ext.data_ptr(), h.data_ptr(), out.data_ptr(), B, T, n,
+            x_ext.data_ptr(), h.data_ptr(), out.data_ptr(), B, T, n, None, 0, 0,
             *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
             int(bool(emit_i16)), _stream(x_ext))
     _raise_on(rc, "fir_td_mxu (K1)")
@@ -271,15 +321,150 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
 fir_td_mxu.launches = 0
 
 
+# ---------------------------------------------------------------- K10
+
+
+def fir_td_mxu_banked_plain(x_ext: torch.Tensor, bank: torch.Tensor, assign,
+                            out_clip=None, dither_key=(0, 0),
+                            dither_bits=None, dither_tpdf=True,
+                            emit_i16=False) -> torch.Tensor:
+    """Plain K10: the plain K1 with each design of the bank over every row,
+    each row kept from its own design's run (so a row equals the plain K1
+    on its design bit for bit); rows of a design outside the bank come out
+    NaN (−32768 with `emit_i16`), as the kernel writes them."""
+    bank, assign, bt = _check_bank(bank, assign, x_ext.shape[0], x_ext)
+    D = bank.shape[0]
+    rows = assign.long().repeat_interleave(bt)[:, None]
+    y = None
+    for d in torch.unique(assign.clamp(0, D - 1)).tolist():
+        yd = fir_td_mxu_plain(x_ext, bank[d], out_clip, dither_key,
+                              dither_bits, dither_tpdf, emit_i16)
+        y = yd if y is None else torch.where(rows == d, yd, y)
+    bad = torch.tensor(-32768 if emit_i16 else float("nan"), dtype=y.dtype,
+                       device=y.device)
+    return torch.where((rows < 0) | (rows >= D), bad, y)
+
+
+def fir_td_mxu_banked(x_ext: torch.Tensor, bank: torch.Tensor, assign,
+                      out_clip=None, dither_key=(0, 0),
+                      dither_bits=None, dither_tpdf=True,
+                      emit_i16=False) -> torch.Tensor:
+    """K10: :func:`fir_td_mxu` with per-stream filter banks: row ``b`` of
+    ``x_ext`` [B, n−1+T] is convolved with design ``assign[b // bt]`` of
+    the tap bank ``bank`` [D, n] (``assign`` the per-tile design index
+    [B / bt] int32; ``bt = B / len(assign)``), with K1's fused clip, dither
+    and int16 store (`fir_td.py:556-596`).  Rows of an entry outside
+    ``[0, D)`` come out NaN (−32768 with `emit_i16`)."""
+    if x_ext.ndim != 2 or x_ext.dtype != torch.float32:
+        raise ValueError(f"x_ext must be [B, n-1+T] float32, got "
+                         f"{tuple(x_ext.shape)} {x_ext.dtype}")
+    B, text = x_ext.shape
+    bank, assign, bt = _check_bank(bank, assign, B, x_ext)
+    D, n = bank.shape
+    T = text - (n - 1)
+    if T <= 0 or T % LANE:
+        raise ValueError(f"output length {T} must be a multiple of {LANE}")
+    if not _on_cuda(x_ext):
+        return fir_td_mxu_banked_plain(x_ext, bank, assign, out_clip,
+                                       dither_key, dither_bits, dither_tpdf,
+                                       emit_i16)
+    x_ext = x_ext.contiguous()
+    out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
+                      device=x_ext.device)
+    lib = _build.load()
+    with torch.cuda.device(x_ext.device):
+        rc = lib.afp_fir_td(
+            x_ext.data_ptr(), bank.data_ptr(), out.data_ptr(), B, T, n,
+            assign.data_ptr(), bt, D,
+            *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
+            int(bool(emit_i16)), _stream(x_ext))
+    _raise_on(rc, "fir_td_mxu_banked (K10)")
+    fir_td_mxu_banked.launches += 1
+    return out
+
+
+fir_td_mxu_banked.launches = 0
+
+
+# ---------------------------------------------------------------- K11
+
+
+def _check_per_stream(x_ext, kernels, gains):
+    """Checks of K11: returns (B, T, n, K)."""
+    if x_ext.ndim != 2 or x_ext.dtype != torch.float32:
+        raise ValueError(f"x_ext must be [B, n-1+T] float32, got "
+                         f"{tuple(x_ext.shape)} {x_ext.dtype}")
+    B, text = x_ext.shape
+    for name, t in (("kernels", kernels), ("gains", gains)):
+        if t.ndim != 2 or t.dtype != torch.float32 or t.device != x_ext.device:
+            raise ValueError(f"{name} must be 2-D float32 on {x_ext.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    K, n = kernels.shape
+    if tuple(gains.shape) != (B, K):
+        raise ValueError(f"gains must be [{B}, {K}], got {tuple(gains.shape)}")
+    T = text - (n - 1)
+    if T <= 0 or T % LANE:
+        raise ValueError(f"output length {T} must be a multiple of {LANE}")
+    return B, T, n, K
+
+
+def fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip=None,
+                                dither_key=(0, 0), dither_bits=None,
+                                dither_tpdf=True, emit_i16=False):
+    """Plain K11: each band's split conv (the plain K1's), mixed as
+    ``y = y + gains[:, k]·z_k`` in band order, then K1's output stage."""
+    B, T, _, K = _check_per_stream(x_ext, kernels, gains)
+    xh, xl = _split_f32(x_ext)
+    y = torch.zeros((B, T), dtype=torch.float32, device=x_ext.device)
+    for k in range(K):
+        y = y + gains[:, k:k + 1] * _conv_split(xh, xl, kernels[k])
+    return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
+
+
+def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
+                          gains: torch.Tensor, out_clip=None,
+                          dither_key=(0, 0), dither_bits=None,
+                          dither_tpdf=True, emit_i16=False) -> torch.Tensor:
+    """K11: the per-stream EQ mix ``y[b] = Σ_k gains[b, k]·(x[b] ⊛
+    kernels[k])`` of ``x_ext`` [B, n−1+T] with K band kernels [K, n] and
+    per-stream gains [B, K] → [B, T] (`fir_td.py:1784-1810`), each band in
+    the bf16×3 class with fp32 accumulation, mixed in fp32.  The output
+    stage is K1's (clip, dither, int16 store), fused: the same bits as
+    K11, then clip, then :func:`~afp_tpu_torch.ops.cuda.dither.dither_cuda`,
+    then :func:`quantize_pcm16`.  Any batch runs (rows are masked)."""
+    B, T, n, K = _check_per_stream(x_ext, kernels, gains)
+    if not _on_cuda(x_ext):
+        return fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip,
+                                           dither_key, dither_bits,
+                                           dither_tpdf, emit_i16)
+    x_ext, kernels, gains = (t.contiguous() for t in (x_ext, kernels, gains))
+    out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
+                      device=x_ext.device)
+    lib = _build.load()
+    with torch.cuda.device(x_ext.device):
+        rc = lib.afp_fir_td_ps(
+            x_ext.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
+            out.data_ptr(), B, T, n, K,
+            *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
+            int(bool(emit_i16)), _stream(x_ext))
+    _raise_on(rc, "fir_td_mxu_per_stream (K11)")
+    fir_td_mxu_per_stream.launches += 1
+    return out
+
+
+fir_td_mxu_per_stream.launches = 0
+
+
 # ---------------------------------------------------------------- ring forms
 
 
-def _ring_args(ring, tail, h, out_ring, dtype):
+def _ring_args(ring, tail, h, out_ring, dtype, assign=None):
     """Shared checks of the raw-input ring forms, K3/K4 (f32) and K12
-    (int16) (`fir_td.py:_ring_geometry`): the ring and tail dtype, the LANE
-    rule on the slot length, and a narrow tail zero-padded on the left to
-    k_pad (the padded history meets only zero taps).  Returns (h, tail,
-    k_pad, emit_i16)."""
+    (int16) (`fir_td.py:_ring_geometry`, `_ring_assign`): the ring and tail
+    dtype, the LANE rule on the slot length, the taps (shared, or with
+    `assign` the bank), and a narrow tail zero-padded on the left to k_pad
+    (the padded history meets only zero taps).  Returns (h, tail, k_pad,
+    emit_i16, assign, bt)."""
     name = "float32" if dtype == torch.float32 else "int16"
     if ring.ndim != 3 or ring.dtype != dtype:
         raise ValueError(f"ring must be [S, B, T] {name}, got "
@@ -288,21 +473,21 @@ def _ring_args(ring, tail, h, out_ring, dtype):
     if T % LANE:
         raise ValueError(f"T={T} must be a multiple of {LANE}")
     emit = _out_ring_emit(out_ring, ring.shape, ring.device)
-    h = _check_taps(h, ring)
+    h, assign, bt, n = _taps(h, assign, B, ring)
     if tail.dtype != dtype or tail.device != ring.device:
         raise ValueError(f"tail must be {name} on {ring.device}, got "
                          f"{tail.dtype} on {tail.device}")
-    k_pad = ring_k_pad(h.shape[0])
+    k_pad = ring_k_pad(n)
     if tail.ndim != 2 or tail.shape[0] != B or tail.shape[1] > k_pad:
         raise ValueError(f"tail must be [{B}, <= {k_pad}], got "
                          f"{tuple(tail.shape)}")
     if tail.shape[1] < k_pad:
         tail = torch.nn.functional.pad(tail, (k_pad - tail.shape[1], 0))
-    return h, tail.contiguous(), k_pad, emit
+    return h, tail.contiguous(), k_pad, emit, assign, bt
 
 
 def _launch_ring(kind, rings, tails, h, out_ring, k_pad, start, n_steps,
-                 epi, emit, what):
+                 epi, emit, what, assign=None, bt=0):
     """Launch `csrc/fir_td.cu:afp_fir_td_ring` over `rings` (the ring, or
     the (hi, lo) pair) behind `tails`; returns the next tail(s)."""
     S, B, T = rings[0].shape
@@ -315,72 +500,88 @@ def _launch_ring(kind, rings, tails, h, out_ring, k_pad, start, n_steps,
         rc = lib.afp_fir_td_ring(
             rings[0].data_ptr(), lo(rings), tails[0].data_ptr(), lo(tails),
             h.data_ptr(), out_ring.data_ptr(), new[0].data_ptr(), lo(new),
-            kind, S, B, T, k_pad, h.shape[0], start, n_steps, *epi,
+            kind, S, B, T, k_pad, h.shape[-1], start, n_steps,
+            None if assign is None else assign.data_ptr(), bt,
+            0 if assign is None else h.shape[0], *epi,
             int(emit), _stream(rings[0]))
     _raise_on(rc, what)
     return new
 
 
 def _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
-                dither_bits, dither_tpdf):
+                dither_bits, dither_tpdf, assign=None):
     """One plain ring step over an f32 or int16 ring: concat(tail,
-    ring[idx]) (converted n/32768 when int16) through the plain K1 into
-    ``out_ring[idx]`` (quantized when the ring is int16); the next tail is
-    the raw last k_pad samples."""
-    n = h.shape[0]
+    ring[idx]) (converted n/32768 when int16) through the plain K1 (K10
+    with `assign`) into ``out_ring[idx]`` (quantized when the ring is
+    int16); the next tail is the raw last k_pad samples."""
+    n = h.shape[-1]
     k_pad = tail.shape[1]
-    ext = torch.cat([tail, ring[idx]], dim=-1)
-    out_ring[idx] = fir_td_mxu_plain(
-        pcm16_to_f32(ext[:, k_pad - (n - 1):]), h, out_clip, dither_key,
-        dither_bits, dither_tpdf, out_ring.dtype == torch.int16)
-    return out_ring, ext[:, -k_pad:].clone()
+    cat = torch.cat([tail, ring[idx]], dim=-1)
+    ext = pcm16_to_f32(cat[:, k_pad - (n - 1):])
+    epi = (out_clip, dither_key, dither_bits, dither_tpdf,
+           out_ring.dtype == torch.int16)
+    out_ring[idx] = (fir_td_mxu_plain(ext, h, *epi) if assign is None else
+                     fir_td_mxu_banked_plain(ext, h, assign, *epi))
+    return out_ring, cat[:, -k_pad:].clone()
 
 
-def _ring_mega_plain(step, ring, start, tail, h, out_ring, n_steps, out_clip,
-                     dither_key, dither_bits, dither_tpdf):
-    """`step` (a plain ring step) looped over slots ``(start+i) mod S``,
-    block counter ``counter+i`` for step i."""
+def _ring_mega_plain(ring, start, tail, h, out_ring, n_steps, out_clip,
+                     dither_key, dither_bits, dither_tpdf, assign=None):
+    """The plain ring step looped over slots ``(start+i) mod S``, block
+    counter ``counter+i`` for step i."""
     S = ring.shape[0]
     seed, counter = dither_key
     for i in range(n_steps):
-        out_ring, tail = step(ring, (start + i) % S, tail, h, out_ring,
-                              out_clip, (seed, counter + i), dither_bits,
-                              dither_tpdf)
+        out_ring, tail = _ring_plain(ring, (start + i) % S, tail, h, out_ring,
+                                     out_clip, (seed, counter + i),
+                                     dither_bits, dither_tpdf, assign)
     return out_ring, tail
+
+
+def _count(wrapper, assign) -> None:
+    wrapper.launches += 1
+    if assign is not None:
+        wrapper.banked_launches += 1
 
 
 def fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring, out_clip=None,
                               dither_key=(0, 0), dither_bits=None,
-                              dither_tpdf=True):
-    """Plain K3: concat(tail, ring[idx]) through the plain K1; writes
-    ``out_ring[idx]`` in place.  Returns ``(out_ring, next_tail)``."""
+                              dither_tpdf=True, assign=None):
+    """Plain K3: concat(tail, ring[idx]) through the plain K1 (K10 with
+    `assign`); writes ``out_ring[idx]`` in place.  Returns ``(out_ring,
+    next_tail)``."""
     return _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
-                       dither_bits, dither_tpdf)
+                       dither_bits, dither_tpdf, assign)
 
 
 def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
                         h: torch.Tensor, out_ring: torch.Tensor, out_clip=None,
-                        dither_key=(0, 0), dither_bits=None, dither_tpdf=True):
+                        dither_key=(0, 0), dither_bits=None, dither_tpdf=True,
+                        assign=None):
     """K3: one serving step over an f32 input ring [S, B, T].  Convolves slot
     `idx` behind the carried tail [B, k_pad] (narrower tails are zero-padded)
     into slot `idx` of `out_ring` (f32, or int16 for the int16 store), in
     place.  Returns ``(out_ring, next_tail)``; the next tail is the last
-    k_pad samples of concat(tail, slot) (`fir_td.py:1058-1063`)."""
-    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.float32)
+    k_pad samples of concat(tail, slot) (`fir_td.py:1058-1063`).  With
+    ``assign`` (the per-tile design index [B / bt]) ``h`` is a tap bank
+    [D, n]: the banked form (`fir_td.py:1173-1213`)."""
+    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
+                                                  torch.float32, assign)
     idx = int(idx) % ring.shape[0]
     if not _on_cuda(ring):
         return fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring,
                                          out_clip, dither_key, dither_bits,
-                                         dither_tpdf)
+                                         dither_tpdf, assign)
     (new_tail,) = _launch_ring(
         _IN_F32, (ring,), (tail,), h, out_ring, k_pad, idx, 1,
         _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_f32 (K3)")
-    fir_td_mxu_ring_f32.launches += 1
+        "fir_td_mxu_ring_f32 (K3)", assign, bt)
+    _count(fir_td_mxu_ring_f32, assign)
     return out_ring, new_tail
 
 
 fir_td_mxu_ring_f32.launches = 0
+fir_td_mxu_ring_f32.banked_launches = 0
 
 
 def _check_steps(n_steps) -> int:
@@ -392,39 +593,43 @@ def _check_steps(n_steps) -> int:
 
 def fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring, n_steps,
                                    out_clip=None, dither_key=(0, 0),
-                                   dither_bits=None, dither_tpdf=True):
+                                   dither_bits=None, dither_tpdf=True,
+                                   assign=None):
     """Plain K4: the plain K3 looped over slots ``(start+i) mod S``, block
     counter ``counter+i`` for step i."""
-    return _ring_mega_plain(fir_td_mxu_ring_f32_plain, ring, start, tail, h,
-                            out_ring, n_steps, out_clip, dither_key,
-                            dither_bits, dither_tpdf)
+    return _ring_mega_plain(ring, start, tail, h, out_ring, n_steps, out_clip,
+                            dither_key, dither_bits, dither_tpdf, assign)
 
 
 def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
                              tail: torch.Tensor, h: torch.Tensor,
                              out_ring: torch.Tensor, n_steps: int,
                              out_clip=None, dither_key=(0, 0),
-                             dither_bits=None, dither_tpdf=True):
+                             dither_bits=None, dither_tpdf=True,
+                             assign=None):
     """K4: ``n_steps`` K3 steps over slots ``(start+i) mod S`` in one launch,
     equal to chained :func:`fir_td_mxu_ring_f32` calls (same per-step math
-    and noise).  ``k_pad > T`` and ``n_steps > S`` are both allowed.
-    Returns ``(out_ring, next_tail)``."""
-    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.float32)
+    and noise).  ``k_pad > T`` and ``n_steps > S`` are both allowed; so is
+    the bank option.  Returns ``(out_ring, next_tail)``."""
+    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
+                                                  torch.float32, assign)
     n_steps = _check_steps(n_steps)
     start = int(start) % ring.shape[0]
     if not _on_cuda(ring):
         return fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring,
                                               n_steps, out_clip, dither_key,
-                                              dither_bits, dither_tpdf)
+                                              dither_bits, dither_tpdf,
+                                              assign)
     (new_tail,) = _launch_ring(
         _IN_F32, (ring,), (tail,), h, out_ring, k_pad, start, n_steps,
         _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_mega_f32 (K4)")
-    fir_td_mxu_ring_mega_f32.launches += 1
+        "fir_td_mxu_ring_mega_f32 (K4)", assign, bt)
+    _count(fir_td_mxu_ring_mega_f32, assign)
     return out_ring, new_tail
 
 
 fir_td_mxu_ring_mega_f32.launches = 0
+fir_td_mxu_ring_mega_f32.banked_launches = 0
 
 
 # ---------------------------------------------------------------- K12
@@ -432,73 +637,79 @@ fir_td_mxu_ring_mega_f32.launches = 0
 
 def fir_td_mxu_ring_pcm16_plain(ring, idx, tail, h, out_ring, out_clip=None,
                                 dither_key=(0, 0), dither_bits=None,
-                                dither_tpdf=True):
+                                dither_tpdf=True, assign=None):
     """Plain K12: the plain K3 on the int16 ring and tail converted
     n/32768 (exact); the next tail is the raw int16 history."""
     return _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
-                       dither_bits, dither_tpdf)
+                       dither_bits, dither_tpdf, assign)
 
 
 def fir_td_mxu_ring_pcm16(ring: torch.Tensor, idx: int, tail: torch.Tensor,
                           h: torch.Tensor, out_ring: torch.Tensor,
                           out_clip=None, dither_key=(0, 0), dither_bits=None,
-                          dither_tpdf=True):
+                          dither_tpdf=True, assign=None):
     """K12: :func:`fir_td_mxu_ring_f32` over a raw int16 PCM ring [S, B, T]
     and int16 tail [B, <= k_pad]; the kernel converts ``n/32768`` and
     splits (both exact), so the output equals K3's on the f32 ring of
     ``n/32768`` bit for bit, at half the input bytes.  Returns ``(out_ring,
-    next_tail)``, the next tail in int16 (`fir_td.py:1270-1304`)."""
-    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.int16)
+    next_tail)``, the next tail in int16 (`fir_td.py:1270-1304`); the bank
+    option as K3's."""
+    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
+                                                  torch.int16, assign)
     idx = int(idx) % ring.shape[0]
     if not _on_cuda(ring):
         return fir_td_mxu_ring_pcm16_plain(ring, idx, tail, h, out_ring,
                                            out_clip, dither_key, dither_bits,
-                                           dither_tpdf)
+                                           dither_tpdf, assign)
     (new_tail,) = _launch_ring(
         _IN_I16, (ring,), (tail,), h, out_ring, k_pad, idx, 1,
         _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_pcm16 (K12)")
-    fir_td_mxu_ring_pcm16.launches += 1
+        "fir_td_mxu_ring_pcm16 (K12)", assign, bt)
+    _count(fir_td_mxu_ring_pcm16, assign)
     return out_ring, new_tail
 
 
 fir_td_mxu_ring_pcm16.launches = 0
+fir_td_mxu_ring_pcm16.banked_launches = 0
 
 
 def fir_td_mxu_ring_mega_pcm16_plain(ring, start, tail, h, out_ring, n_steps,
                                      out_clip=None, dither_key=(0, 0),
-                                     dither_bits=None, dither_tpdf=True):
+                                     dither_bits=None, dither_tpdf=True,
+                                     assign=None):
     """Plain K12 megakernel: the plain K12 step looped over slots
     ``(start+i) mod S``, block counter ``counter+i`` for step i."""
-    return _ring_mega_plain(fir_td_mxu_ring_pcm16_plain, ring, start, tail, h,
-                            out_ring, n_steps, out_clip, dither_key,
-                            dither_bits, dither_tpdf)
+    return _ring_mega_plain(ring, start, tail, h, out_ring, n_steps, out_clip,
+                            dither_key, dither_bits, dither_tpdf, assign)
 
 
 def fir_td_mxu_ring_mega_pcm16(ring: torch.Tensor, start: int,
                                tail: torch.Tensor, h: torch.Tensor,
                                out_ring: torch.Tensor, n_steps: int,
                                out_clip=None, dither_key=(0, 0),
-                               dither_bits=None, dither_tpdf=True):
+                               dither_bits=None, dither_tpdf=True,
+                               assign=None):
     """K12, megakernel form: ``n_steps`` :func:`fir_td_mxu_ring_pcm16` steps
-    in one launch (K4's form over the int16 ring; `fir_td.py:1638-1662`).
-    Returns ``(out_ring, next_tail)``."""
-    h, tail, k_pad, emit = _ring_args(ring, tail, h, out_ring, torch.int16)
+    in one launch (K4's form over the int16 ring; `fir_td.py:1638-1662`),
+    with the bank option.  Returns ``(out_ring, next_tail)``."""
+    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
+                                                  torch.int16, assign)
     n_steps = _check_steps(n_steps)
     start = int(start) % ring.shape[0]
     if not _on_cuda(ring):
         return fir_td_mxu_ring_mega_pcm16_plain(
             ring, start, tail, h, out_ring, n_steps, out_clip, dither_key,
-            dither_bits, dither_tpdf)
+            dither_bits, dither_tpdf, assign)
     (new_tail,) = _launch_ring(
         _IN_I16, (ring,), (tail,), h, out_ring, k_pad, start, n_steps,
         _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_mega_pcm16 (K12)")
-    fir_td_mxu_ring_mega_pcm16.launches += 1
+        "fir_td_mxu_ring_mega_pcm16 (K12)", assign, bt)
+    _count(fir_td_mxu_ring_mega_pcm16, assign)
     return out_ring, new_tail
 
 
 fir_td_mxu_ring_mega_pcm16.launches = 0
+fir_td_mxu_ring_mega_pcm16.banked_launches = 0
 
 
 # ---------------------------------------------------------------- K8 / K7

@@ -23,8 +23,17 @@ dispatch that could rewrite those slots, and a refill is enqueued after the
 dispatch that read the slot it overwrites.  ``(max_inflight + 1) * chunk ≤
 slots`` keeps refills away from slots whose output is still undrained.
 
+With ``packing`` (the :class:`~afp_tpu_torch.engine.batch.StreamPacking`
+of a per-stream filter bank) the caller's blocks land in device order and
+the outputs drain in caller order (`afp_tpu/runtime/serving.py:143-147,
+342-344, 419-420`): both permutations are gathers on the device, one into
+the input slot after the host→device copy and one out of the output slots
+before the device→host copy, never a host gather of the block.  Their
+device staging (one landed block per dtype, one drained chunk) is allocated
+once and reused: the copies and gathers ride one stream in order.
+
 Not in this slice: the spectrum tap (``spectrum_every``, ROADMAP.md §1
-item 4) and stream packing for per-stream banks (``packing``, item 7).
+item 4).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..engine.batch import StreamPacking
 from ..engine.config import PipelineParams, StreamConfig
 from ..engine.pipeline import (DeviceParams, Pipeline, StreamState,
                                _not_in_slice, bf16_tensor)
@@ -54,9 +64,10 @@ class RingServer:
     Parameters are `afp_tpu`'s: `pipeline` (needs ``supports_ring_step``),
     `params` (defaults to the pipeline's own design), `slots` (ring depth),
     `chunk` (blocks per dispatch; divides `slots`), `max_inflight` (chunks
-    dispatched ahead of the oldest undrained one), `seed`, and `mega`
+    dispatched ahead of the oldest undrained one), `seed`, `mega`
     (dispatch each chunk as one K4 launch instead of one K3 launch per
-    block — same outputs, bit for bit).
+    block — same outputs, bit for bit), and `packing` (a `StreamPacking`:
+    the caller sees its own stream order; an identity packing is None).
     """
 
     def __init__(self, pipeline: Pipeline,
@@ -65,9 +76,6 @@ class RingServer:
                  max_inflight: int = 2, seed: int = 0,
                  mega: bool = False, packing=None,
                  spectrum_every: int = 0, spectrum_row: int = 0):
-        if packing is not None:
-            raise _not_in_slice("RingServer(packing=...)",
-                                "7 (per-stream banks)")
         if spectrum_every:
             raise _not_in_slice("RingServer(spectrum_every>0)",
                                 "4 (serving: the spectrum tap)")
@@ -78,6 +86,7 @@ class RingServer:
         if mega and pipeline.cfg.agc_enabled:
             raise ValueError("mega=True has no fused-AGC form: the AGC chain "
                              "serves through run_ring (mega=False)")
+        B, T = pipeline.batch, pipeline.block
         if slots % chunk:
             raise ValueError(f"chunk {chunk} must divide slots {slots}")
         if max_inflight < 1:
@@ -87,12 +96,22 @@ class RingServer:
                 f"(max_inflight+1)*chunk = {(max_inflight + 1) * chunk} "
                 f"exceeds slots {slots}: refills would overwrite undrained "
                 "output slots")
-        B, T = pipeline.batch, pipeline.block
         if not 0 <= int(spectrum_row) < B:
             raise ValueError(
                 f"spectrum_row {spectrum_row} out of range for batch {B}")
         self.mega = bool(mega)
         self.pipe = pipeline
+        #: stream→tile design packing (None, or identity → no-op): pack at
+        #: ingest, unpack on drain, on the device
+        self.packing = None
+        if packing is not None:
+            if not isinstance(packing, StreamPacking) or not np.array_equal(
+                    np.sort(packing.perm), np.arange(B)):
+                raise ValueError(
+                    f"packing must be a StreamPacking over the batch of {B} "
+                    f"streams, got {packing!r}")
+            if not packing.identity:
+                self.packing = packing
         #: reconfig (control thread) vs dispatch (serving thread): a swap
         #: takes effect at the next chunk boundary, never mid-chunk
         self._swap_lock = threading.Lock()
@@ -113,6 +132,11 @@ class RingServer:
         self._ring = ring(torch.bfloat16 if pair else pipeline.in_dtype)
         self._ring_lo = ring(torch.bfloat16) if pair else None
         self._out = ring(pipeline.out_dtype)
+        #: packing's device staging: landed blocks by dtype, a drained chunk
+        self._stage_in: dict = {}
+        self._stage_out = (torch.empty((chunk, B, T), dtype=pipeline.out_dtype,
+                                       device=dev)
+                           if self.packing is not None and self._cuda else None)
         self.blocks_served = 0
         #: blocks landed into input slots so far
         self.blocks_landed = 0
@@ -191,12 +215,13 @@ class RingServer:
         pipeline's transport form (`afp_tpu/runtime/serving.py:339-363`):
         int16 PCM under pcm16 ingest (floats are refused, never silently
         quantized); under pair ingest a ``(hi, lo)`` pair as given, or an
-        f32 block split on the device; else f32."""
+        f32 block split on the device; else f32.  With a packing the block
+        is gathered into device order on the device."""
         pipe = self.pipe
         if pipe._pair_ingest and isinstance(block, (tuple, list)):
             for dst, half in zip((self._ring[slot], self._ring_lo[slot]),
                                  block):
-                self._copy_in(dst, bf16_tensor(half, "cpu"))
+                self._put(dst, bf16_tensor(half, "cpu"))
             return
         if pipe._i16_ingest:
             src = torch.as_tensor(np.asarray(block))
@@ -206,19 +231,39 @@ class RingServer:
         else:
             src = torch.as_tensor(np.asarray(block, dtype=np.float32))
         if not pipe._pair_ingest:
-            self._copy_in(self._ring[slot], src)
+            self._put(self._ring[slot], src)
             return
         x = torch.empty(self._ring.shape[1:], dtype=torch.float32,
                         device=pipe.device)
-        self._copy_in(x, src)
+        self._put(x, src)
         hi, lo = split_bf16(x)
         self._ring[slot].copy_(hi)
         self._ring_lo[slot].copy_(lo)
+
+    def _put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """Land the host block `src` in the device tensor `dst`, gathered
+        into device order when the server packs (the copy lands in the
+        staging block of its dtype, then one ``index_select`` fills
+        `dst`)."""
+        if self.packing is None:
+            self._copy_in(dst, src)
+            return
+        staging = self._stage_in.get(src.dtype)
+        if staging is None:
+            staging = self._stage_in[src.dtype] = torch.empty(
+                dst.shape, dtype=src.dtype, device=dst.device)
+        self._copy_in(staging, src)
+        torch.index_select(staging, 0,
+                           self.packing.index("perm", staging.device), out=dst)
 
     def _fetch(self, slot: int, n: int):
         """Queue the copy of output slots [slot, slot+n) to the host; returns
         (host tensor, event marking its completion or None)."""
         view = self._out[slot:slot + n]
+        if self.packing is not None:  # restore caller stream order
+            view = torch.index_select(
+                view, 1, self.packing.index("inv", view.device),
+                out=None if self._stage_out is None else self._stage_out[:n])
         if not self._cuda:
             return view.clone(), None  # later dispatches rewrite these slots
         host = torch.empty(view.shape, dtype=view.dtype, pin_memory=True)

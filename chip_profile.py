@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Where the device time goes, per cell, on one CUDA card (torch.profiler).
+
+    python3 chip_profile.py
+
+For each cell of `chip_smoke.py` at its full size: a staged `Pipeline.run`
+over 8 blocks and, for the serving cells, one `RingServer` serve
+of 16 blocks (16 slots, chunk 4), each after a warm-up run of the same
+work and under `torch.profiler` (CPU and CUDA activities).  Per block it
+prints the host wall time (ending in a synchronize), the device time by
+kernel class (the port's kernels by name, cuFFT, the packing's gathers,
+PyTorch's other kernels, the host↔device copies), the device busy time (the union of the device
+events) and the idle share ``1 − busy / wall``.  The card's name and power
+limit come first.  Without a CUDA device it exits 1.
+"""
+from __future__ import annotations
+
+import sys
+import time
+
+import chip_smoke as cs
+
+BLOCKS = 8  # staged blocks per cell; the serving cells serve 16
+
+#: device event name → class (first match wins)
+CLASSES = (("fir_ps_kernel", "K11"), ("fir_b3_kernel", "conv"),
+           ("ring_tail_kernel", "ring tail"), ("rms_desired_kernel", "K5"),
+           ("agc_apply_kernel", "K6"), ("dither_kernel", "K2"),
+           ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H"),
+           ("Memcpy DtoD", "D2D"), ("Memset", "memset"), ("fft", "cuFFT"),
+           ("index", "gather"), ("gather", "gather"))
+
+
+def klass(name: str) -> str:
+    low = name.lower()
+    for key, cls in CLASSES:
+        if key.lower() in low:
+            return cls
+    return "torch other"
+
+
+def profiled(torch, fn, per: int) -> str:
+    """Run `fn` once to warm up, then under the profiler: one line of
+    per-block times (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by[klass(e.name)] = by.get(klass(e.name), 0.0) + (end - start)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):  # the union of the device intervals
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    ms = 1e3 / per
+    parts = ", ".join(f"{k} {v / 1e3 / per:.3f}" for k, v in
+                      sorted(by.items(), key=lambda kv: -kv[1]))
+    return (f"wall {wall * ms:.3f} ms/block, busy {busy / 1e3 / per:.3f} ms "
+            f"(idle {100 * max(0.0, 1 - busy / 1e6 / wall):.0f}%): {parts}")
+
+
+def cells(torch, dev, sz):
+    """(name, pipeline, params, batch, block, serves?, packing) for each
+    cell."""
+    from afp_tpu_torch.engine import (Pipeline, PipelineParams, StreamConfig,
+                                      batch)
+
+    def shared(pipe):
+        return pipe.device_params(PipelineParams.design(pipe.cfg))
+
+    out = []
+    for name, cfg, bank in (
+            ("C5", cs.c5_config(sz), False),
+            ("C5-bank", cs.c5_config(sz), True),
+            ("C5-i16io", cs.c5_config(sz, ingest="pcm16", emit="pcm16"), False),
+            ("C5-i16io-bank", cs.c5_config(sz, ingest="pcm16", emit="pcm16"), True)):
+        pipe = Pipeline(cfg, dev)
+        out.append((name, pipe, cs.c5_bank(pipe) if bank else shared(pipe),
+                    sz.batch, sz.block, True, None))
+    pp = Pipeline(cs.c5_config(sz), dev)
+    pparams, pk = cs.c5_bank(pp, interleaved=True)
+    out.append(("C5-bank-packed", pp, pparams, sz.batch, sz.block, True, pk))
+    p8 = Pipeline(cs.c8_config(sz), dev)
+    out.append(("C8", p8, shared(p8), sz.c8_batch, sz.c8_block, True, None))
+    out.append(("C8-psg", p8, batch.with_per_stream_gains(
+        p8, shared(p8), cs.psg_gains(sz.c8_batch)), sz.c8_batch, sz.c8_block,
+        False, None))
+    out.append(("C8-psagc", p8, cs.psagc_params(p8, shared(p8)), sz.c8_batch,
+                sz.c8_block, True, None))
+    qs = Pipeline(StreamConfig(**{**cs.QUICKSTART, "batch": sz.quick_batch,
+                                  "blocksize": sz.block}), dev)
+    out.append(("QS", qs, shared(qs), sz.quick_batch, sz.block, False, None))
+    out.append(("QS-psg", qs, batch.with_per_stream_gains(
+        qs, shared(qs), cs.psg_gains(sz.quick_batch)), sz.quick_batch, sz.block,
+        False, None))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(cs.gpu_line(), flush=True)
+    from afp_tpu_torch.runtime import RingServer
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name, pipe, params, B, T, serve, packing in cells(torch, dev, cs.Sizes()):
+        if pipe.in_dtype == torch.int16:
+            blocks = cs.pcm16(torch, dev, (BLOCKS, B, T), 8, scale=0.1)
+        else:
+            blocks = torch.randn(BLOCKS, B, T, generator=g, device=dev) * 0.1
+        line = profiled(torch, lambda: pipe.run(params, pipe.init_state(), blocks),
+                        BLOCKS)
+        print(f"{name} staged Pipeline.run [{B}, {T}]: {line}", flush=True)
+        if serve and pipe.supports_ring_step:
+            src = list(blocks.cpu().numpy()) * 2
+            mega = not pipe.cfg.agc_enabled
+            srv = RingServer(pipe, params, slots=16, chunk=4, max_inflight=2,
+                             mega=mega, packing=packing)
+            line = profiled(torch, lambda: srv.serve(iter(src), lambda _: None),
+                            len(src))
+            print(f"{name} RingServer mega={mega}, 16 slots, chunk 4: {line}",
+                  flush=True)
+        del blocks
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

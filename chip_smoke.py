@@ -17,7 +17,13 @@ Phases, one output line each; any failure raises (exit code != 0):
    32767) ≡ K3/K4 fed n/32768, K13 and K13-mega ≡ K3/K4 fed the split, each
    ≤ −110 dB against its plain version; the int16 store of K1, K3, K4, K7,
    K8, K12, K13 ≡ quantize_pcm16 of its own f32 output; K5/K6 on int16 x ≡
-   f32 x of n/32768;
+   f32 x of n/32768; then the per-stream banks: K10 at C5-bank (4 designs)
+   and the banked K3, K4, K12, K12-mega, each ≤ −110 dB against its plain
+   version and row by row ≡ its shared-taps form on that row's design; K11
+   at C8-psg (9 bands, per-stream gains) ≤ −110 dB, its fused epilogue ≡
+   K11 → clip → K2 → quantize_pcm16; K5/K6 with [B] vectors ≡ the scalar
+   runs per policy group; and one F.conv1d (fp32, TF32 off) per conv shape
+   as the library yardstick;
 4. `Pipeline.run` at the C5 headline (batch 4096, 8 blocks), and the
    single-stream chain against the float64 oracle of `bench.py:394-418`
    (< −90 dB); then the C8 chain (`bench.py:827-843`): 'exact' and 'fast'
@@ -27,24 +33,33 @@ Phases, one output line each; any failure raises (exit code != 0):
    and out, 8 blocks) and C8-i16io 'exact' and 'fast' (8 blocks each), each
    ≡ quantize_pcm16 of the f32 chain fed n/32768, and the C5-pcm16 (one
    stream × 4 blocks) and C8-pcm16 (4 streams × 4 blocks) oracles (< −90 dB;
-   with int16 out, ≤ 1 LSB from the quantized oracle);
+   with int16 out, ≤ 1 LSB from the quantized oracle); then the banks:
+   C5-bank (rows ≡ the shared pipeline on their design), C8-psg and
+   C8-psagc 'exact' and 'fast' (each policy group ≡ its scalar pipeline),
+   8 blocks each, and their oracles (one stream per design, 4 streams with
+   their own gains, one stream per policy; < −90 dB);
 5. `RingServer` at the C5 headline (16 slots, chunk 4, 16 blocks),
    megakernel and per-step forms: bit-identical with dither on, ≤ −110 dB
    against staged steps with dither off; then the C8 chain's per-step ring
    (16 slots, chunk 4, 16 blocks) ≡ its staged steps, dither on; then
    C5-i16io and C5-pair, mega and per-step ≡ each other and ≡ the staged
    steps with dither on, and C8-i16io's per-step ring ≡ its staged steps;
+   then C5-bank mega ≡ per-step ≡ staged, C5-bank-packed (interleaved
+   designs, `packing=`) ≡ C5-bank in caller order, C5-i16io-bank mega ≡
+   staged, C8-psagc's per-step ring ≡ staged, all with dither on;
 6. `StreamEngine` with the README quick-start configuration ('fft', EQ on,
    batch 512): process_block ×4, set_eq_gains, ×2, process_signal; and with
    the C8 configuration: process_block ×4, apply_config with a new AGC
    target, ×2; then at C8-i16io the same with int16 blocks in and out and a
-   float block refused; no degradation-ladder fallback;
-7. every kernel (K1-K8, K12, K13) launched during phases 4-6, and each
-   transport phase launched its kernels (K12, K13, the int16 store, the
-   int16 loads of K5/K6).
+   float block refused; then QS-psg: per-stream gains [512, 9] after 4
+   blocks, ≡ a Pipeline stepped alongside; no degradation-ladder fallback;
+7. every kernel (K1-K8, K10-K13) and every option (the bank option of K3,
+   K4, K12; the vector option of K5, K6) launched during phases 4-6, and
+   each transport and bank phase launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
-each kernel's launches, error and times, and
+each kernel's launches, error, times, bound (its operations and bytes at
+the card's peaks) and the library call's time, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -84,6 +99,21 @@ C8 = dict(samplerate=44100, blocksize=2048, upsample_factor=2, numtaps=129,
 CONV_DB = -110.0  # kernel vs plain, and ring vs staged: bf16×3 order class
 ORACLE_DB = -90.0  # the reference's contract vs the float64 oracle
 CHAIN_DB = -100.0  # the C8 chain on the card vs the port's CPU run
+LIBRARY_DB = -90.0  # F.conv1d in fp32 vs the bf16×3 conv: the same function
+
+#: the card's peaks (H100 SXM, NVIDIA's data sheet, dense rates): the
+#: least time of a kernel is the larger of its operations at the rate of
+#: their type and its bytes (each input read once, each output written
+#: once) at the memory rate
+BF16_FLOPS = 989e12  # dense bf16 on the tensor cores: the bf16×3 products
+FP32_FLOPS = 67e12  # fp32 outside the tensor cores: the elementwise kernels
+HBM_BYTES = 3.35e12
+
+#: per-stream banks (the C5-bank and C8-psagc cells): four main-filter cutoffs in
+#: batch/4-row groups, four AGC policies in batch/4-row groups
+BANK_CUTOFFS = (8000.0, 10000.0, 11000.0, 12000.0)
+AGC_POLICIES = dict(target=(0.05, 0.1, 0.2, 0.3), max_gain=(4.0, 10.0, 10.0, 20.0),
+                    attack=(0.005, 0.01, 0.02, 0.05), release=(0.05, 0.1, 0.2, 0.5))
 
 
 @dataclass
@@ -133,6 +163,64 @@ def time_ms(torch, fn, reps: int, warm: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(flops: float, nbytes: float, rate: float = BF16_FLOPS) -> dict:
+    """The least time of a kernel (ms) and which of its operations and its
+    bytes sets it."""
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def conv_bound(outputs: int, n_taps: int, nbytes: float) -> dict:
+    """A bf16×3 conv: three products (six operations) per tap and output."""
+    return bound(6.0 * outputs * n_taps, nbytes)
+
+
+def elementwise_bound(samples: int, nbytes: float) -> dict:
+    """The elementwise kernels (K2, K5, K6): about 8 fp32 operations per
+    sample (square, window sum, sqrt, divide, clip; or compare, fma, clip,
+    apply), far below their bytes."""
+    return bound(8.0 * samples, nbytes, FP32_FLOPS)
+
+
+def ring_windows(torch, ring, tail, slots, n):
+    """The extended blocks [steps·B, n−1+T] that a dispatch over `slots`
+    convolves: each step's n−1 history columns, then its slot."""
+    kp, T = tail.shape[1], ring.shape[-1]
+    stream = torch.cat([tail] + [ring[s] for s in slots], dim=-1)
+    return torch.cat([stream[:, kp - (n - 1) + i * T: kp + (i + 1) * T]
+                      for i in range(len(slots))])
+
+
+#: the time of one F.conv1d (fp32, TF32 off) computing each conv shape,
+#: measured once per shape and run: the yardstick of the conv kernels
+LIBRARY_MS: dict = {}
+
+
+def library_conv(torch, key: str, x_ext, h, want) -> float:
+    """Time one `torch.nn.functional.conv1d` computing the conv y[b, t] =
+    Σ_k h[k]·x_ext[b, t+n−1−k] (taps [n], or per-row taps [B, n] as a
+    grouped conv), after checking it against the kernel's output `want`;
+    cached under `key`."""
+    if key in LIBRARY_MS:
+        return LIBRARY_MS[key]
+    import torch.nn.functional as Fn
+
+    if h.ndim == 1:
+        x, w, groups = x_ext[:, None, :], h.flip(0)[None, None, :], 1
+    else:
+        x, w, groups = x_ext[None], h.flip(1)[:, None, :], x_ext.shape[0]
+    y = Fn.conv1d(x, w, groups=groups).reshape(want.shape)
+    e = err_db(y.float().cpu(), want.float().cpu())
+    check(e <= LIBRARY_DB, f"F.conv1d {key}: {e:.1f} dB from the kernel")
+    del y
+    LIBRARY_MS[key] = time_ms(torch, lambda: Fn.conv1d(x, w, groups=groups), 3)
+    say(f"phase 3 library F.conv1d {key} {tuple(x_ext.shape)} x {h.shape[-1]} taps"
+        f"{' (per-row taps)' if h.ndim == 2 else ''}: {e:.1f} dB from the kernel, "
+        f"{LIBRARY_MS[key]:.3f} ms")
+    return LIBRARY_MS[key]
 
 
 def check(cond: bool, what: str) -> None:
@@ -216,7 +304,9 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
     res["fir_td_mxu"] = dict(
         max_abs_err=float((yk - yp).abs().max()),
         ms=time_ms(torch, lambda: F.fir_td_mxu(x_ext, h, **dkw), 10),
-        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_plain(x_ext, h, **dkw), 3))
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_plain(x_ext, h, **dkw), 3),
+        **conv_bound(B * T, n, 4 * (B * (n - 1 + T) + n + B * T)),
+        library_ms=library_conv(torch, "C5", x_ext, h, yk))
     say(f"phase 3 K1 fir_td_mxu [{B}, {n - 1}+{T}] x {n} taps: conv "
         f"{e_conv:.1f} dB, with clip+dither {e_full:.1f} dB vs plain, epilogue "
         f"bit-exact; {res['fir_td_mxu']['ms']:.3f} ms vs plain "
@@ -240,7 +330,9 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
         max_abs_err=float((ok_[idx] - op_[idx]).abs().max()),
         ms=time_ms(torch, lambda: F.fir_td_mxu_ring_f32(ring, idx, tail, h, out_r, **dkw), 10),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_f32_plain(
-            ring, idx, tail, h, out_r, **dkw), 3))
+            ring, idx, tail, h, out_r, **dkw), 3),
+        **conv_bound(B * T, n, 4 * (2 * B * T + 2 * B * kp + n)),
+        library_ms=LIBRARY_MS["C5"])
     say(f"phase 3 K3 fir_td_mxu_ring_f32 ring [{S}, {B}, {T}] tail {kp}: conv "
         f"{e_conv:.1f} dB vs plain, tail and epilogue bit-exact; "
         f"{res['fir_td_mxu_ring_f32']['ms']:.3f} ms vs plain "
@@ -271,7 +363,10 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_f32(
             ring, start, tail, h, out_r, steps, **dkw), 5),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_f32_plain(
-            ring, start, tail, h, out_r, steps, **dkw), 2))
+            ring, start, tail, h, out_r, steps, **dkw), 2),
+        **conv_bound(steps * B * T, n, 4 * (2 * steps * B * T + 2 * B * kp + n)),
+        library_ms=library_conv(torch, "C5 steps", ring_windows(torch, ring, tail, slots, n),
+                                h, torch.cat([mk[s] for s in slots])))
     say(f"phase 3 K4 fir_td_mxu_ring_mega_f32 {steps} steps from slot {start}: "
         f"conv {e_conv:.1f} dB vs plain, tail and epilogue bit-exact, equals "
         f"{steps} chained K3 steps bit for bit; "
@@ -287,7 +382,8 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
     res["dither_cuda"] = dict(
         max_abs_err=0.0,
         ms=time_ms(torch, lambda: dither_cuda(x, (3, 9), 24, "tpdf"), 20),
-        plain_ms=time_ms(torch, lambda: dither_plain(x, (3, 9), 24, "tpdf"), 5))
+        plain_ms=time_ms(torch, lambda: dither_plain(x, (3, 9), 24, "tpdf"), 5),
+        **elementwise_bound(x.numel(), 8 * x.numel()), library_ms=None)
     say(f"phase 3 K2 dither_cuda [{sz.quick_batch}, {T}]: TPDF and RPDF "
         f"bit-exact vs plain; {res['dither_cuda']['ms']:.3f} ms vs plain "
         f"{res['dither_cuda']['plain_ms']:.3f} ms")
@@ -335,7 +431,8 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: R.rms_desired(x, band, lp, rp, 0.1, 10.0, True,
                                                 transposed=True), 10),
         plain_ms=time_ms(torch, lambda: R.rms_desired_plain(
-            x, band, lp, rp, 0.1, 10.0, True, transposed=True), 3))
+            x, band, lp, rp, 0.1, 10.0, True, transposed=True), 3),
+        **elementwise_bound(B * T, 8 * B * T), library_ms=None)
     say(f"phase 3 K5 rms_desired [{B}, {T}] -> [T, B]: W={W} two-level "
         f"{e5:.1f} dB, W={wd} direct {e5d:.1f} dB, chunk means {e5m:.1f} dB vs "
         f"plain; {res['rms_desired']['ms']:.3f} ms vs plain "
@@ -365,7 +462,8 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: S.smooth_gain_apply(
             dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 10),
         plain_ms=time_ms(torch, lambda: S.smooth_gain_apply_plain(
-            dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 1))
+            dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 1),
+        **elementwise_bound(B * T, 12 * B * T + 8 * B), library_ms=None)
     say(f"phase 3 K6 smooth_gain_apply [{T}, {B}]: {', '.join(c[0] for c in cases)} "
         f"bit-exact vs plain (y, pair, carry); "
         f"{res['smooth_gain_apply']['ms']:.3f} ms vs plain "
@@ -391,7 +489,11 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
         max_abs_err=float((y8 - yp8).abs().max()),
         ms=time_ms(torch, lambda: F.fir_td_mxu_pair(xh, xl, th, tl, h, **dkw), 10),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_pair_plain(
-            xh, xl, th, tl, h, **dkw), 3))
+            xh, xl, th, tl, h, **dkw), 3),
+        **conv_bound(B * T, n, 4 * (2 * B * T + 2 * B * kp + n)),
+        library_ms=library_conv(
+            torch, "C8", torch.cat([F.merge_bf16(th, tl), F.merge_bf16(xh, xl)],
+                                   dim=-1)[:, kp - (n - 1):], h, y8))
     say(f"phase 3 K8 fir_td_mxu_pair [{B}, {T}] pair + tail {kp} x {n} taps: "
         f"conv {e8:.1f} dB, with clip+dither {e8e:.1f} dB vs plain, epilogue "
         f"and tail bit-exact; {res['fir_td_mxu_pair']['ms']:.3f} ms vs plain "
@@ -409,7 +511,9 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: F.fir_td_mxu_pair_to_ring(
             xh, xl, th, tl, h, idx, out0, **dkw), 10),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_pair_to_ring_plain(
-            xh, xl, th, tl, h, idx, out0, **dkw), 3))
+            xh, xl, th, tl, h, idx, out0, **dkw), 3),
+        **conv_bound(B * T, n, 4 * (2 * B * T + 2 * B * kp + n)),
+        library_ms=LIBRARY_MS["C8"])
     say(f"phase 3 K7 fir_td_mxu_pair_to_ring slot {idx} of [{Sl}, {B}, {T}]: "
         f"equals K8 bit for bit, tail bit-exact, other slots untouched; "
         f"{res['fir_td_mxu_pair_to_ring']['ms']:.3f} ms vs plain "
@@ -469,14 +573,8 @@ def phase_pipeline(torch, dev, sz: Sizes) -> None:
     g = torch.Generator(device=dev).manual_seed(1)
     blocks = torch.randn(sz.run_blocks, sz.batch, sz.block, generator=g,
                          device=dev) * 0.3
-    state, y0 = pipe.step(params, pipe.init_state(seed=0), blocks[0])  # warm-up
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, outs = pipe.run(params, pipe.init_state(seed=0), blocks)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    _, y0 = pipe.step(params, pipe.init_state(seed=0), blocks[0])
+    outs, wall = run_wall(torch, dev, pipe, params, blocks)
     check(outs.shape == blocks.shape and bool(torch.isfinite(outs).all())
           and torch.equal(outs[0], y0), "Pipeline.run: shape, finiteness or "
           "first block differs from step")
@@ -584,13 +682,15 @@ def phase_engine(torch, dev, sz: Sizes) -> None:
 # ---------------------------------------------------------------- C8 chain
 
 
-def c8_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
+def c8_oracle(x: np.ndarray, cfg, design, gains=None, policy=None) -> np.ndarray:
     """The C8 chain in float64 over [B, N·L] input: per block, the AGC of
     the reference (boxcar RMS with 'same' zero padding, desired gain, the
     attack/release recurrence carried across blocks from unity as
     `tests/test_agc_fused.py:37-53` writes it, the 0.1..max_gain clip, the
     ±0.99 clip); then the linear chain on the whole gained stream:
-    upsample, main ⊛ Σ gᵢ·bandᵢ, decimate, clip."""
+    upsample, main ⊛ Σ gᵢ·bandᵢ, decimate, clip.  Per-stream EQ `gains`
+    [B, n_bands] and AGC `policy` (a dict of [B] target, max_gain, attack,
+    release) replace the config's."""
     import scipy.signal as sps
 
     from afp_tpu_torch.ops.agc import agc_alphas
@@ -598,8 +698,14 @@ def c8_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
 
     B, N = x.shape
     L, w = cfg.blocksize, cfg.agc_window_size
-    a_att, a_rel = agc_alphas(w, cfg.agc_attack, cfg.agc_release)
-    t, mg = cfg.agc_target_level, cfg.agc_max_gain
+    if policy is None:
+        policy = dict(target=[cfg.agc_target_level] * B,
+                      max_gain=[cfg.agc_max_gain] * B,
+                      attack=[cfg.agc_attack] * B, release=[cfg.agc_release] * B)
+    a_att, a_rel = np.array([agc_alphas(w, a, r) for a, r in
+                             zip(policy["attack"], policy["release"])]).T
+    t = np.asarray(policy["target"], np.float64)[:, None]
+    mg = np.asarray(policy["max_gain"], np.float64)[:, None]
     g = np.ones(B)
     gained = np.empty((B, N))
     for b0 in range(0, N, L):
@@ -615,11 +721,14 @@ def c8_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
         g = gs[:, -1]
         gained[:, b0:b0 + L] = np.clip(xb * gs, -0.99, 0.99)
     upf = cfg.upsample_factor
-    h = sum(gi * np.convolve(design.main_taps.astype(np.float64), b.astype(np.float64))
-            for gi, b in zip(design.eq_gains, design.eq_taps))
+    gains = np.broadcast_to(design.eq_gains if gains is None else gains,
+                            (B, len(design.eq_taps)))
+    bands = [np.convolve(design.main_taps.astype(np.float64), b.astype(np.float64))
+             for b in design.eq_taps]
     h_up = streaming_kernel(upf, 1, quality=cfg.resample_quality)
     out = []
-    for r in gained:
+    for r, gr in zip(gained, gains):
+        h = sum(gi * band for gi, band in zip(gr.astype(np.float64), bands))
         y = sps.upfirdn(h_up, r, upf, 1)[: N * upf]
         out.append(np.convolve(y, h)[: len(y)][::upf])
     return np.clip(np.stack(out), -cfg.output_clip, cfg.output_clip)
@@ -783,7 +892,9 @@ def phase_kernels_transport(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: F.fir_td_mxu_ring_pcm16(
             ring16, idx, tail16, h, out16, **dkw), 10),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_pcm16_plain(
-            ring16, idx, tail16, h, out16, **dkw), 3))
+            ring16, idx, tail16, h, out16, **dkw), 3),
+        **conv_bound(B * T, n, 2 * (2 * B * T + 2 * B * kp) + 4 * n),
+        library_ms=LIBRARY_MS["C5"])
     say(f"phase 3 K12 fir_td_mxu_ring_pcm16 int16 ring [{S}, {B}, {T}] tail "
         f"{kp}: conv {e12:.1f} dB vs plain, int16 tail bit-exact, == K3 on "
         f"n/32768 bit for bit, int16 store == quantize_pcm16; "
@@ -808,7 +919,9 @@ def phase_kernels_transport(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_pcm16(
             ring16, start, tail16, h, out16, steps, **dkw), 5),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_pcm16_plain(
-            ring16, start, tail16, h, out16, steps, **dkw), 2))
+            ring16, start, tail16, h, out16, steps, **dkw), 2),
+        **conv_bound(steps * B * T, n, 2 * (2 * steps * B * T + 2 * B * kp) + 4 * n),
+        library_ms=LIBRARY_MS["C5 steps"])
     say(f"phase 3 K12 fir_td_mxu_ring_mega_pcm16 {steps} steps from slot "
         f"{start}: conv {e12m:.1f} dB vs plain, int16 tail bit-exact, int16 "
         f"store == quantize_pcm16 of K4 on n/32768 bit for bit; "
@@ -865,7 +978,9 @@ def phase_kernels_transport(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: F.fir_td_mxu_ring(rh, rl, idx, th, tl, h, out_r,
                                                     **dkw), 10),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_plain(
-            rh, rl, idx, th, tl, h, out_r, **dkw), 3))
+            rh, rl, idx, th, tl, h, out_r, **dkw), 3),
+        **conv_bound(B * T, n, 4 * (2 * B * T + 2 * B * kp + n)),
+        library_ms=LIBRARY_MS["C5"])
     say(f"phase 3 K13 fir_td_mxu_ring pair rings [{S}, {B}, {T}] tail {kp}: "
         f"conv {e13:.1f} dB vs plain, pair tail bit-exact, == K3 on the f32 "
         f"ring and == K7 on the slot bit for bit, int16 store == "
@@ -892,7 +1007,9 @@ def phase_kernels_transport(torch, dev, sz: Sizes) -> dict:
         ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega(
             rh, rl, start, th, tl, h, out_r, steps, **dkw), 5),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_ring_mega_plain(
-            rh, rl, start, th, tl, h, out_r, steps, **dkw), 2))
+            rh, rl, start, th, tl, h, out_r, steps, **dkw), 2),
+        **conv_bound(steps * B * T, n, 4 * (2 * steps * B * T + 2 * B * kp + n)),
+        library_ms=LIBRARY_MS["C5 steps"])
     say(f"phase 3 K13 fir_td_mxu_ring_mega {steps} steps from slot {start}: "
         f"conv {e13m:.1f} dB vs plain, pair tail bit-exact, == K4 on the f32 "
         f"ring bit for bit, int16 store == quantize_pcm16; "
@@ -919,9 +1036,10 @@ def c5_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
 
 
 def run_wall(torch, dev, pipe, params, blocks) -> tuple:
-    """`Pipeline.run` over `blocks` after a one-block warm-up: (outputs,
-    wall seconds, host clock ending in a synchronize)."""
-    pipe.run(params, pipe.init_state(seed=0), blocks[:1])
+    """`Pipeline.run` over `blocks` after a warm-up run over the same blocks
+    (the allocator then holds every buffer the run needs): (outputs, wall
+    seconds, host clock ending in a synchronize)."""
+    pipe.run(params, pipe.init_state(seed=0), blocks)
     sync(torch, dev)
     t0 = time.perf_counter()
     _, outs = pipe.run(params, pipe.init_state(seed=0), blocks)
@@ -992,12 +1110,13 @@ def phase_transport_pipeline(torch, dev, sz: Sizes) -> None:
             f"oracle, {ndiff} of {gold.size} samples differ (<= 1 LSB)")
 
 
-def serve_warm(pipe, params, src, sz: Sizes, mega: bool = False):
+def serve_warm(pipe, params, src, sz: Sizes, mega: bool = False, packing=None):
     """Serve `src` once to warm the allocators (rings, pinned staging) and
     the kernels' first launches, then again: (outputs, serve() stats)."""
     from afp_tpu_torch.runtime import RingServer
 
-    kw = dict(slots=sz.slots, chunk=sz.chunk, max_inflight=2, seed=0, mega=mega)
+    kw = dict(slots=sz.slots, chunk=sz.chunk, max_inflight=2, seed=0, mega=mega,
+              packing=packing)
     RingServer(pipe, params, **kw).serve(iter(src), lambda _: None)
     got = []
     stats = RingServer(pipe, params, **kw).serve(iter(src), got.append)
@@ -1103,6 +1222,423 @@ def phase_transport_engine(torch, dev, sz: Sizes) -> None:
         f"a float block refused (ValueError), metrics {m.snapshot()}")
 
 
+# ---------------------------------------------------------------- banks
+
+
+def c5_bank(pipe, interleaved: bool = False):
+    """C5-bank: the four cutoffs of :data:`BANK_CUTOFFS` in batch/4-row
+    groups (stream b → cutoff b·4 // B), or interleaved (stream b → cutoff
+    b mod 4, packed: returns (params, packing))."""
+    from afp_tpu_torch.engine import batch
+
+    B = pipe.batch
+    pick = (lambda b: b % 4) if interleaved else (lambda b: b * 4 // B)
+    variants = [dict(cutoff=BANK_CUTOFFS[pick(b)]) for b in range(B)]
+    return batch.with_per_stream_filters(pipe, variants, pack=interleaved)
+
+
+def psg_gains(B: int, seed: int = 60) -> np.ndarray:
+    """C8-psg: per-stream EQ gains [B, 9], uniform in [0, 2] (the EQ's
+    linear gain, default 1.0)."""
+    return np.random.default_rng(seed).uniform(0.0, 2.0, (B, 9)).astype(np.float32)
+
+
+def psagc_policy(B: int) -> dict:
+    """C8-psagc: the four policies of :data:`AGC_POLICIES` in batch/4-row
+    groups, as [B] arrays."""
+    return {k: np.repeat(np.asarray(v, np.float32), B // 4)
+            for k, v in AGC_POLICIES.items()}
+
+
+def psagc_params(pipe, params):
+    from afp_tpu_torch.engine import batch
+
+    pol = psagc_policy(pipe.batch)
+    return batch.with_per_stream_agc(pipe, params, target_level=pol["target"],
+                                     max_gain=pol["max_gain"],
+                                     attack=pol["attack"], release=pol["release"])
+
+
+def phase_kernels_banks(torch, dev, sz: Sizes) -> dict:
+    """K10 and the banked K3/K4/K12 at C5-bank, K11 at C8-psg, and K5/K6
+    with [B] vectors at C8-psagc, against their plain versions and their
+    shared-taps or scalar forms on the same device tensors."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.cuda import agc_rms as R
+    from afp_tpu_torch.ops.cuda import agc_scan as S
+    from afp_tpu_torch.ops.cuda import dither_cuda
+    from afp_tpu_torch.ops.cuda import fir_td as F
+
+    pipe = Pipeline(c5_config(sz), dev)
+    params = c5_bank(pipe)
+    bank, assign = params.casc_bank, params.casc_assign
+    n, kp, B, T, Sl = pipe.n_casc, pipe._k_pad, sz.batch, sz.block, sz.slots
+    D, bt = bank.shape[0], B // assign.shape[0]
+    rows = assign.long().repeat_interleave(bt)
+    g = torch.Generator(device=dev).manual_seed(70)
+
+    def randn(*shape, scale=0.3):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    dkw = dict(out_clip=0.2, dither_key=(5, 7), dither_bits=16, dither_tpdf=True)
+    res = {}
+
+    def per_design(banked, shared):
+        """Each design's rows of the banked output ≡ the shared form's."""
+        return all(torch.equal(banked(d)[..., rows == d, :], shared(d)[..., rows == d, :])
+                   for d in range(D))
+
+    # K10: the staged banked conv
+    x_ext = randn(B, n - 1 + T)
+    yk = F.fir_td_mxu_banked(x_ext, bank, assign)
+    yp = F.fir_td_mxu_banked_plain(x_ext, bank, assign)
+    e10 = err_db(yk.cpu(), yp.cpu())
+    ye = F.fir_td_mxu_banked(x_ext, bank, assign, **dkw)
+    epi_ok = torch.equal(ye, F._finish(yk, 0.2, (5, 7), 16, True))
+    same = per_design(lambda d: ye, lambda d: F.fir_td_mxu(x_ext, bank[d], **dkw))
+    check(e10 <= CONV_DB and epi_ok and same,
+          f"K10: conv {e10:.1f} dB, epilogue {epi_ok}, rows == K1 per design {same}")
+    t1 = time_ms(torch, lambda: F.fir_td_mxu(x_ext, bank[0], **dkw), 10)
+    res["fir_td_mxu_banked"] = dict(
+        max_abs_err=float((yk - yp).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_banked(x_ext, bank, assign, **dkw), 10),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_banked_plain(
+            x_ext, bank, assign, **dkw), 2),
+        **conv_bound(B * T, n, 4 * (B * (n - 1 + T) + D * n + B * T) + 4 * len(assign)),
+        library_ms=library_conv(torch, "C5-bank", x_ext, bank[rows], yk))
+    say(f"phase 3 K10 fir_td_mxu_banked [{B}, {n - 1}+{T}], {D} designs, "
+        f"tile {bt}: conv {e10:.1f} dB vs plain, epilogue bit-exact, rows == K1 "
+        f"on their design bit for bit; {res['fir_td_mxu_banked']['ms']:.3f} ms "
+        f"(K1 {t1:.3f} ms in this call) vs plain "
+        f"{res['fir_td_mxu_banked']['plain_ms']:.3f} ms")
+    del x_ext, yk, yp, ye
+
+    # the bank option of K3, K4, K12 and K12-mega
+    ringf, tailf = randn(Sl, B, T), randn(B, kp)
+    ring16, tail16 = pcm16(torch, dev, (Sl, B, T), 71), pcm16(torch, dev, (B, kp), 72)
+    idx, start, steps = 5 % Sl, Sl - 2, sz.chunk
+    outb, outs = (torch.zeros((Sl, B, T), device=dev) for _ in range(2))
+    forms = (("K3", F.fir_td_mxu_ring_f32, F.fir_td_mxu_ring_f32_plain, ringf, tailf, False),
+             ("K4", F.fir_td_mxu_ring_mega_f32, F.fir_td_mxu_ring_mega_f32_plain,
+              ringf, tailf, True),
+             ("K12", F.fir_td_mxu_ring_pcm16, F.fir_td_mxu_ring_pcm16_plain, ring16,
+              tail16, False),
+             ("K12-mega", F.fir_td_mxu_ring_mega_pcm16,
+              F.fir_td_mxu_ring_mega_pcm16_plain, ring16, tail16, True))
+    for name, fn, plain, ring, tail, mega in forms:
+        args = (start, steps) if mega else (idx,)
+        slots = [(start + i) % Sl for i in range(steps)] if mega else [idx]
+
+        def run(f, h, out, **kw):
+            return f(ring, args[0], tail, h, out, *args[1:], **kw)
+
+        _, nt = run(fn, bank, outb, assign=assign)
+        kout = outb[slots]
+        _, pt = run(plain, bank, outs, assign=assign)
+        e = max(err_db(kout[i].cpu(), outs[s].cpu()) for i, s in enumerate(slots))
+        run(fn, bank, outb, assign=assign, **dkw)
+        same = True
+        for d in range(D):
+            run(fn, bank[d], outs, **dkw)
+            same = same and torch.equal(outb[slots][:, rows == d], outs[slots][:, rows == d])
+        check(e <= CONV_DB and same and torch.equal(nt, pt),
+              f"banked {name}: conv {e:.1f} dB, == shared per design {same}, tail "
+              f"{torch.equal(nt, pt)}")
+        tb = time_ms(torch, lambda: run(fn, bank, outb, assign=assign, **dkw), 5)
+        ts = time_ms(torch, lambda: run(fn, bank[0], outs, **dkw), 5)
+        say(f"phase 3 banked {name} {fn.__name__} ({len(slots)} step(s)): conv "
+            f"{e:.1f} dB vs plain, tail bit-exact, rows == the shared form on "
+            f"their design bit for bit (dither on); {tb:.3f} ms banked vs "
+            f"{ts:.3f} ms shared in this call")
+    del ringf, ring16, outb, outs, kout
+
+    # K11 at C8-psg: nine bands, per-stream gains
+    p8 = Pipeline(c8_config(sz), dev)
+    p8par = p8.device_params(PipelineParams.design(p8.cfg))
+    bands = p8par.casc_bands
+    K, n8, B8, T8 = bands.shape[0], p8.n_casc, sz.c8_batch, sz.c8_block
+    gains = torch.as_tensor(psg_gains(B8), device=dev)
+    x8 = randn(B8, n8 - 1 + T8, scale=0.1)
+    yk = F.fir_td_mxu_per_stream(x8, bands, gains)
+    yp = F.fir_td_mxu_per_stream_plain(x8, bands, gains)
+    e11 = err_db(yk.cpu(), yp.cpu())
+    unfused = dither_cuda(torch.clamp(yk, -0.2, 0.2), (5, 7), 16, "tpdf")
+    fused = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, **dkw), unfused)
+    fused16 = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, emit_i16=True, **dkw),
+                          F.quantize_pcm16(unfused))
+    check(e11 <= CONV_DB and fused and fused16,
+          f"K11: conv {e11:.1f} dB, fused == K11 -> clip -> K2 {fused}, int16 "
+          f"{fused16}")
+    t1 = time_ms(torch, lambda: F.fir_td_mxu(x8, bands[0], **dkw), 10)
+    res["fir_td_mxu_per_stream"] = dict(
+        max_abs_err=float((yk - yp).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_per_stream(x8, bands, gains, **dkw), 5),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_per_stream_plain(
+            x8, bands, gains, **dkw), 1),
+        **bound(6.0 * B8 * T8 * n8 * K + 2.0 * B8 * T8 * K,
+                4 * (B8 * (n8 - 1 + T8) + K * n8 + B8 * K + B8 * T8)),
+        # one grouped F.conv1d over each row's mixed taps Σ_k g[b, k]·h_k, the
+        # same function (the mix, formed outside the timing, rounds apart)
+        library_ms=library_conv(torch, "C8-psg", x8,
+                                (gains[:, :, None] * bands[None]).sum(1), yk))
+    say(f"phase 3 K11 fir_td_mxu_per_stream [{B8}, {n8 - 1}+{T8}] x {K} bands of "
+        f"{n8} taps: conv {e11:.1f} dB vs plain, fused clip + dither (+ int16) == "
+        f"K11 -> clip -> K2 (-> quantize_pcm16) bit for bit; "
+        f"{res['fir_td_mxu_per_stream']['ms']:.3f} ms ({K} x K1's "
+        f"{t1:.3f} ms = {K * t1:.3f} ms in this call) vs plain "
+        f"{res['fir_td_mxu_per_stream']['plain_ms']:.3f} ms")
+    del x8, yk, yp, unfused
+
+    # K5 and K6 with [B] vectors at C8-psagc ≡ the scalar runs per group
+    from afp_tpu_torch.ops.agc import agc_alphas
+
+    pol = psagc_policy(B8)
+    alphas = np.array([agc_alphas(sz.c8_window, a, r)
+                       for a, r in zip(pol["attack"], pol["release"])], np.float32)
+    vt, vm, va, vr = (torch.as_tensor(v, device=dev) for v in
+                      (pol["target"], pol["max_gain"], alphas[:, 0], alphas[:, 1]))
+    x = randn(B8, T8, scale=0.1)
+    x[: B8 // 8] *= 8.0
+    band = p8._rms_band
+    lp, rp = p8._rms_pad
+    init = torch.rand(B8, generator=g, device=dev) * 4.0 + 0.2
+    grp = [slice(q * B8 // 4, (q + 1) * B8 // 4) for q in range(4)]
+    same = True
+    for mc in (0, 32):
+        dv = R.rms_desired(x, band, lp, rp, vt, vm, True, transposed=True, mean_chunk=mc)
+        for q, r in enumerate(grp):
+            ds = R.rms_desired(x, band, lp, rp, float(vt[r][0]), float(vm[r][0]), True,
+                               transposed=True, mean_chunk=mc)
+            same = same and torch.equal(dv[:, r], ds[:, r])
+    d = R.rms_desired(x, band, lp, rp, 0.1, 10.0, True, transposed=True)
+    for bw in (None, 32):
+        (yh, yl), cv = S.smooth_gain_apply(d, x, va, vr, vm, init=init, blockwise=bw,
+                                           emit_split=True)
+        for r in grp:
+            (sh, sl), cs = S.smooth_gain_apply(d, x, float(va[r][0]), float(vr[r][0]),
+                                               float(vm[r][0]), init=init, blockwise=bw,
+                                               emit_split=True)
+            same = (same and torch.equal(yh[r], sh[r]) and torch.equal(yl[r], sl[r])
+                    and torch.equal(cv[r], cs[r]))
+    check(same, "K5/K6 with [B] vectors differ from the scalar runs per group")
+    t5v = time_ms(torch, lambda: R.rms_desired(x, band, lp, rp, vt, vm, True,
+                                               transposed=True), 10)
+    t5s = time_ms(torch, lambda: R.rms_desired(x, band, lp, rp, 0.1, 10.0, True,
+                                               transposed=True), 10)
+    t6v = time_ms(torch, lambda: S.smooth_gain_apply(d, x, va, vr, vm, init=init,
+                                                     emit_split=True), 10)
+    t6s = time_ms(torch, lambda: S.smooth_gain_apply(d, x, 0.1, 0.01, 10.0, init=init,
+                                                     emit_split=True), 10)
+    say(f"phase 3 K5/K6 [B] vectors at [{B8}, {T8}], 4 policies: K5 (exact, chunk "
+        f"means) and K6 (exact, blockwise, pair, carry) == the scalar runs per "
+        f"group bit for bit; K5 {t5v:.3f} ms vectors vs {t5s:.3f} ms scalars, K6 "
+        f"{t6v:.3f} ms vs {t6s:.3f} ms")
+    return res
+
+
+def phase_bank_pipeline(torch, dev, sz: Sizes) -> None:
+    """C5-bank, C8-psg and C8-psagc ('exact', 'fast') through
+    `Pipeline.run`, each against its shared or scalar form, and their
+    float64 oracles."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, batch
+
+    g = torch.Generator(device=dev).manual_seed(80)
+    pipe = Pipeline(c5_config(sz), dev)
+    params = c5_bank(pipe)
+    blocks = torch.randn(sz.run_blocks, sz.batch, sz.block, generator=g,
+                         device=dev) * 0.3
+    shared = pipe.device_params(PipelineParams.design(pipe.cfg))
+    _, wall_shared = run_wall(torch, dev, pipe, shared, blocks)
+    outs, wall = run_wall(torch, dev, pipe, params, blocks)
+    check(outs.shape == blocks.shape and bool(torch.isfinite(outs).all()),
+          "C5-bank Pipeline.run: shape or finiteness")
+    bt = sz.batch // params.casc_assign.shape[0]
+    rows = params.casc_assign.long().repeat_interleave(bt)
+    same = all(torch.equal(outs[:2, rows == d], pipe.run(
+        shared._replace(casc_main=params.casc_bank[d]), pipe.init_state(seed=0),
+        blocks[:2])[1][:, rows == d]) for d in range(params.casc_bank.shape[0]))
+    check(same, "C5-bank rows differ from the shared pipeline on their design")
+    audio_s = sz.run_blocks * sz.batch * sz.block / pipe.cfg.samplerate
+    say(f"phase 4 C5-bank Pipeline.run batch {sz.batch} x {sz.run_blocks} blocks, "
+        f"{params.casc_bank.shape[0]} designs: {wall * 1e3:.1f} ms wall "
+        f"({wall * 1e3 / sz.run_blocks:.2f} ms/block, {audio_s / wall:.0f}x "
+        f"realtime, host clock; the shared C5 pipeline "
+        f"{wall_shared * 1e3 / sz.run_blocks:.2f} ms/block in this call); rows == "
+        f"the shared pipeline on their design bit for bit (2 blocks, dither on)")
+    del blocks, outs
+
+    blocks = torch.randn(sz.run_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                         device=dev) * 0.1
+    blocks[:, : sz.c8_batch // 8] *= 8.0
+    p8 = Pipeline(c8_config(sz), dev)
+    base8 = p8.device_params(PipelineParams.design(p8.cfg))
+    runs = [("C8-psg", p8, batch.with_per_stream_gains(p8, base8, psg_gains(sz.c8_batch)))]
+    for mode in ("exact", "fast"):
+        pm = Pipeline(c8_config(sz, agc_mode=mode), dev)
+        runs.append((f"C8-psagc {mode}", pm, psagc_params(
+            pm, pm.device_params(PipelineParams.design(pm.cfg)))))
+    for name, pm, pp in runs:
+        outs, wall = run_wall(torch, dev, pm, pp, blocks)
+        check(outs.shape == blocks.shape and bool(torch.isfinite(outs).all())
+              and float(outs.abs().max()) <= 0.99 + 2.0 ** -14,
+              f"{name}: shape, finiteness or clip")
+        note = ""
+        if "psagc" in name:  # each policy group ≡ its scalar pipeline
+            pol, same = psagc_policy(sz.c8_batch), True
+            for q in range(4):
+                r = slice(q * sz.c8_batch // 4, (q + 1) * sz.c8_batch // 4)
+                pq = Pipeline(replace(pm.cfg, agc_target_level=float(pol["target"][r][0]),
+                                      agc_max_gain=float(pol["max_gain"][r][0]),
+                                      agc_attack=float(pol["attack"][r][0]),
+                                      agc_release=float(pol["release"][r][0])), dev)
+                _, sq = pq.run(pq.device_params(PipelineParams.design(pq.cfg)),
+                               pq.init_state(seed=0), blocks[:2])
+                same = same and torch.equal(outs[:2, r], sq[:, r])
+            check(same, f"{name}: a policy group differs from its scalar pipeline")
+            note = "; each policy group == its scalar pipeline bit for bit (2 blocks)"
+        audio_s = sz.run_blocks * sz.c8_batch * sz.c8_block / pm.cfg.samplerate
+        say(f"phase 4 {name} Pipeline.run batch {sz.c8_batch} x {sz.run_blocks} "
+            f"blocks of {sz.c8_block}: {wall * 1e3:.1f} ms wall "
+            f"({wall * 1e3 / sz.run_blocks:.2f} ms/block, {audio_s / wall:.0f}x "
+            f"realtime, host clock){note}")
+    del blocks, outs
+
+    # the oracles, dither off: one stream per design (C5-bank, batch 32 in
+    # tiles of 8), 4 streams with their own gains (C8-psg), one stream per
+    # policy (C8-psagc)
+    rng = np.random.default_rng(81)
+    pipe = Pipeline(c5_config(sz, batch=32, dither_kind="off"), dev)
+    params = c5_bank(pipe)
+    x5 = (rng.standard_normal((32, 4 * sz.block)) * 0.3).astype(np.float32)
+    _, out = pipe.process_signal(params, pipe.init_state(), x5, fold=False)
+    e5 = max(err_db(out.cpu().numpy()[8 * d], c5_oracle(
+        x5[8 * d: 8 * d + 1], pipe.cfg,
+        PipelineParams.design(replace(pipe.cfg, cutoff=c).validate()))[0])
+             for d, c in enumerate(BANK_CUTOFFS))
+    x8 = (rng.standard_normal((4, 4 * sz.c8_block)) * 0.1).astype(np.float32)
+    x8[0, : sz.c8_block] *= 8.0
+    x8[1] *= 1e-2
+    e8 = {}
+    for name in ("C8-psg", "C8-psagc"):
+        pipe = Pipeline(c8_config(sz, batch=4, dither_kind="off"), dev)
+        design = PipelineParams.design(pipe.cfg)
+        base = pipe.device_params(design)
+        if name == "C8-psg":
+            gains = psg_gains(4, seed=82)
+            params, okw = batch.with_per_stream_gains(pipe, base, gains), dict(gains=gains)
+        else:
+            params, okw = psagc_params(pipe, base), dict(policy=psagc_policy(4))
+        _, out = pipe.process_signal(params, pipe.init_state(), x8, fold=False)
+        e8[name] = err_db(out.cpu().numpy(), c8_oracle(x8, pipe.cfg, design, **okw))
+    check(max(e5, *e8.values()) < ORACLE_DB,
+          f"bank oracles: C5-bank {e5:.1f} dB, {e8} (< {ORACLE_DB})")
+    say(f"phase 4 oracles, dither off, 4 blocks: C5-bank one stream per design "
+        f"{e5:.1f} dB, C8-psg 4 streams with their own gains {e8['C8-psg']:.1f} dB, "
+        f"C8-psagc one stream per policy {e8['C8-psagc']:.1f} dB vs float64 "
+        f"(< {ORACLE_DB})")
+
+
+def phase_bank_serving(torch, dev, sz: Sizes) -> None:
+    """RingServer at C5-bank (mega and per-step), C5-i16io-bank (mega),
+    C5-bank-packed, and C8-psagc (per-step), each ≡ its staged steps (or the
+    contiguous bank in caller order), dither on."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+
+    g = torch.Generator(device=dev).manual_seed(90)
+    src = list((torch.randn(sz.serve_blocks, sz.batch, sz.block, generator=g,
+                            device=dev) * 0.3).cpu().numpy())
+    pipe = Pipeline(c5_config(sz), dev)
+    params = c5_bank(pipe)
+
+    def served(name, pipe, params, src, mega, **kw):
+        out, stats = serve_warm(pipe, params, src, sz, mega=mega, **kw)
+        lat = stats["latency"]
+        say(f"phase 5 {name} RingServer mega={mega}, {sz.slots} slots, chunk "
+            f"{sz.chunk}: {stats['blocks']} blocks in {stats['wall_s'] * 1e3:.1f} ms "
+            f"once warm ({stats['wall_s'] * 1e3 / stats['blocks']:.2f} ms/block, "
+            f"{stats['xrt']:.0f}x realtime, p50 {lat['p50_ms']:.1f} ms, p95 "
+            f"{lat['p95_ms']:.1f} ms land-to-drain, host clock)")
+        return out
+
+    outs = {m: served("C5-bank", pipe, params, src, m) for m in (True, False)}
+    staged = staged_outputs(torch, pipe, params, src)
+    check(np.array_equal(outs[True], outs[False]) and np.array_equal(outs[True], staged),
+          "C5-bank RingServer: mega, per-step and staged differ (dither on)")
+    say("phase 5 C5-bank RingServer: mega == per-step == staged steps bit for bit, "
+        "dither on")
+
+    pp = Pipeline(c5_config(sz), dev)
+    pparams, pk = c5_bank(pp, interleaved=True)
+    same_bank = (torch.equal(pparams.casc_bank, params.casc_bank)
+                 and torch.equal(pparams.casc_assign, params.casc_assign))
+    packed = served("C5-bank-packed", pp, pparams, src, True, packing=pk)
+    contiguous = served("C5-bank on the packed order", pipe, params,
+                        [pk.pack(b) for b in src], True)
+    check(same_bank and np.array_equal(packed, pk.unpack(contiguous, axis=1)),
+          f"C5-bank-packed differs from C5-bank in caller order (same bank {same_bank})")
+    say("phase 5 C5-bank-packed (stream i -> cutoff i mod 4, pack=True) == C5-bank "
+        "on the same streams in caller order, bit for bit, dither on")
+    del outs, staged, packed, contiguous
+
+    p16 = Pipeline(c5_config(sz, ingest="pcm16", emit="pcm16"), dev)
+    src16 = list(pcm16(torch, dev, (sz.serve_blocks, sz.batch, sz.block), 91)
+                 .cpu().numpy())
+    got = served("C5-i16io-bank", p16, params, src16, True)
+    check(got.dtype == np.int16
+          and np.array_equal(got, staged_outputs(torch, p16, params, src16)),
+          "C5-i16io-bank RingServer differs from its staged steps (dither on)")
+    say("phase 5 C5-i16io-bank RingServer mega == staged steps (banked K12 over "
+        "the one-slot view) bit for bit, dither on, int16 in and out")
+    del got, src, src16
+
+    p8 = Pipeline(c8_config(sz), dev)
+    par8 = psagc_params(p8, p8.device_params(PipelineParams.design(p8.cfg)))
+    src8 = list((torch.randn(sz.serve_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                             device=dev) * 0.1).cpu().numpy())
+    got = served("C8-psagc", p8, par8, src8, False)
+    check(np.array_equal(got, staged_outputs(torch, p8, par8, src8)),
+          "C8-psagc RingServer differs from its staged steps (dither on)")
+    say("phase 5 C8-psagc RingServer per-step ring == staged steps bit for bit, "
+        "dither on")
+
+
+def phase_bank_engine(torch, dev, sz: Sizes) -> None:
+    """StreamEngine at QS-psg: 4 blocks, per-stream gains [B, 9], 2 more
+    (set_eq_gains then takes [B, 9]); ≡ a Pipeline stepped alongside; no
+    ladder fallback."""
+    from afp_tpu_torch.engine import (Pipeline, PipelineParams, StreamConfig,
+                                      StreamEngine, batch)
+
+    cfg = StreamConfig(**{**QUICKSTART, "batch": sz.quick_batch, "blocksize": sz.block})
+    eng = StreamEngine(cfg, device=dev, seed=5)
+    pipe = Pipeline(cfg, dev)
+    params, st = pipe.device_params(PipelineParams.design(pipe.cfg)), pipe.init_state(seed=5)
+    rng = np.random.default_rng(92)
+    same = True
+    for i in range(6):
+        if i == 4:
+            gains = psg_gains(sz.quick_batch, seed=93)
+            eng.params = batch.with_per_stream_gains(eng.pipeline, eng.params, gains)
+            params = batch.with_per_stream_gains(pipe, params, gains)
+        if i == 5:
+            gains = psg_gains(sz.quick_batch, seed=94)
+            eng.set_eq_gains(gains)
+            params = batch.with_per_stream_gains(pipe, params, gains)
+        blk = (rng.standard_normal((sz.quick_batch, sz.block)) * 0.1).astype(np.float32)
+        out = eng.process_block(blk)
+        st, want = pipe.step(params, st, blk)
+        same = same and np.array_equal(out, want.cpu().numpy())
+        check(np.isfinite(out).all() and np.abs(out).max() <= 0.99 + 2.0 ** -22,
+              "QS-psg StreamEngine: finiteness or clip")
+    m = eng.metrics
+    check(same and m.underruns == m.fallback_replays == m.fallback_silence == 0,
+          f"QS-psg StreamEngine: == the pipeline {same}, metrics {m.snapshot()}")
+    say(f"phase 6 QS-psg StreamEngine (fft, EQ, batch {sz.quick_batch}): 4 blocks + "
+        f"per-stream gains [{sz.quick_batch}, 9] + 1 + set_eq_gains "
+        f"[{sz.quick_batch}, 9] + 1, == a Pipeline stepped alongside bit for bit, "
+        f"metrics {m.snapshot()}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1130,12 +1666,18 @@ REPLACES = {
                         "afp_tpu/ops/pallas/fir_td.py:946"),
     "fir_td_mxu_ring_mega": ("afp_tpu_torch/csrc/fir_td.cu",
                              "afp_tpu/ops/pallas/fir_td.py:1445"),
+    "fir_td_mxu_banked": ("afp_tpu_torch/csrc/fir_td.cu",
+                          "afp_tpu/ops/pallas/fir_td.py:556"),
+    "fir_td_mxu_per_stream": ("afp_tpu_torch/csrc/fir_td.cu",
+                              "afp_tpu/ops/pallas/fir_td.py:1784"),
 }
 
-#: the kernels each transport phase must launch: K12 and K13 themselves,
-#: the int16 store (K12 at C5-i16io, K8 and K7 at C8-i16io) and K5/K6's
-#: int16 loads (C8-i16io)
-TRANSPORT_LAUNCHES = {
+#: what each phase must launch: kernels by wrapper name, and the options of a
+#: wrapper as "name:option" (its ``<option>_launches`` count).  The transport
+#: phases: K12 and K13, the int16 store (K12 at C5-i16io, K8 and K7 at
+#: C8-i16io) and K5/K6's int16 loads (C8-i16io); the bank phases: K10, K11,
+#: the bank option of K3, K4 and K12, the vector option of K5 and K6
+PHASE_LAUNCHES = {
     "phase_transport_pipeline": ("fir_td_mxu_ring_pcm16", "fir_td_mxu_pair",
                                  "rms_desired", "smooth_gain_apply"),
     "phase_transport_serving": ("fir_td_mxu_ring_pcm16",
@@ -1144,7 +1686,34 @@ TRANSPORT_LAUNCHES = {
                                 "rms_desired", "smooth_gain_apply"),
     "phase_transport_engine": ("fir_td_mxu_pair", "rms_desired",
                                "smooth_gain_apply"),
+    "phase_bank_pipeline": ("fir_td_mxu_banked", "fir_td_mxu_per_stream",
+                            "rms_desired:vector", "smooth_gain_apply:vector"),
+    "phase_bank_serving": ("fir_td_mxu_ring_f32:banked",
+                           "fir_td_mxu_ring_mega_f32:banked",
+                           "fir_td_mxu_ring_pcm16:banked",
+                           "fir_td_mxu_ring_mega_pcm16:banked", "fir_td_mxu_banked",
+                           "rms_desired:vector", "smooth_gain_apply:vector",
+                           "fir_td_mxu_pair_to_ring"),
+    "phase_bank_engine": ("dither_cuda",),
 }
+
+
+def counts(kernels) -> dict:
+    """Every launch count: ``name`` and each ``name:option``."""
+    out = {}
+    for k in kernels:
+        out[k.__name__] = k.launches
+        for opt in ("banked", "vector"):
+            if hasattr(k, f"{opt}_launches"):
+                out[f"{k.__name__}:{opt}"] = getattr(k, f"{opt}_launches")
+    return out
+
+
+def reset(kernels) -> None:
+    for k in kernels:
+        for attr in ("launches", "banked_launches", "vector_launches"):
+            if hasattr(k, attr):
+                setattr(k, attr, 0)
 
 
 def main() -> int:
@@ -1171,37 +1740,39 @@ def main() -> int:
 
     sz = Sizes()
     res = {}
-    for phase in (phase_kernels, phase_kernels_agc, phase_kernels_transport):
+    for phase in (phase_kernels, phase_kernels_agc, phase_kernels_transport,
+                  phase_kernels_banks):
         t0 = time.perf_counter()
         res.update(phase(torch, dev, sz))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
 
-    for k in KERNELS:  # count only the main path's launches from here on
-        k.launches = 0
+    reset(KERNELS)  # count only the main path's launches from here on
     for phase in (phase_pipeline, phase_c8_pipeline, phase_transport_pipeline,
-                  phase_serving, phase_c8_serving, phase_transport_serving,
-                  phase_engine, phase_c8_engine, phase_transport_engine):
+                  phase_bank_pipeline, phase_serving, phase_c8_serving,
+                  phase_transport_serving, phase_bank_serving, phase_engine,
+                  phase_c8_engine, phase_transport_engine, phase_bank_engine):
         t0 = time.perf_counter()
-        before = {k.__name__: k.launches for k in KERNELS}
+        before = counts(KERNELS)
         phase(torch, dev, sz)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        delta = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
-        want = TRANSPORT_LAUNCHES.get(phase.__name__, ())
+        delta = {k: v - before[k] for k, v in counts(KERNELS).items()}
+        want = PHASE_LAUNCHES.get(phase.__name__, ())
         check(all(delta[k] > 0 for k in want),
               f"{phase.__name__} did not launch all of {want}: {delta}")
         say(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s"
             + (f"; launched {({k: delta[k] for k in want})}" if want else "")
             + ")")
+    every = counts(KERNELS)
     launches = {k.__name__: k.launches for k in KERNELS}
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path never launched: {launches}")
+    check(all(v > 0 for v in every.values()),
+          f"a kernel or option of the path never launched: {every}")
     reference = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "jaxlib", "afp_tpu"))
     check(not reference, f"jax or the JAX package was imported: {reference[:5]}")
-    say(f"phase 7 launches on the main path: {launches}")
+    say(f"phase 7 launches on the main path: {every}")
 
     kernels = [dict(name=name, route="cuda", source=REPLACES[name][0],
                     replaces=REPLACES[name][1], launches=launches[name],

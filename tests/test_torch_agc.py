@@ -192,8 +192,8 @@ def test_rms_desired_checks():
         rms_desired(torch.zeros(4, 200), band, 64, 63, 0.1, 10.0, True)
     with pytest.raises(ValueError, match="pads"):
         rms_desired(x, band, 64, 64, 0.1, 10.0, True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        rms_desired(x, band, 64, 63, torch.full((4,), 0.1), 10.0, True)
+    with pytest.raises(ValueError, match=r"target must be a scalar or a \[4\]"):
+        rms_desired(x, band, 64, 63, torch.full((3,), 0.1), 10.0, True)
 
 
 # ---------------------------------------------------------------- K6
@@ -287,8 +287,8 @@ def test_smooth_gain_apply_checks():
         smooth_gain_apply(d, x, 0.1, 0.01, 10.0, blockwise=48)
     with pytest.raises(ValueError, match="x must be"):
         smooth_gain_apply(d, torch.zeros(4, 128), 0.1, 0.01, 10.0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        smooth_gain_apply(d, x, torch.full((4,), 0.1), 0.01, 10.0)
+    with pytest.raises(ValueError, match=r"a_att must be a scalar or a \[4\]"):
+        smooth_gain_apply(d, x, torch.full((5,), 0.1), 0.01, 10.0)
 
 
 # ---------------------------------------------------------------- K8 / K7

@@ -288,7 +288,15 @@ def test_agc_outside_the_slice_raises(over, item):
 
 
 def test_per_stream_agc_vectors_raise():
+    """[B] AGC vectors run (K5/K6 read them per stream): a vector of the
+    scalar values ≡ the scalar params, bit for bit; a vector of the wrong
+    length raises."""
     tp, tpar = port(C8)
-    per_stream = tpar._replace(agc_target=torch.full((8,), 0.1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tp.step(per_stream, tp.init_state(), blocks(1)[0])
+    x = blocks(1)[0]
+    per_stream = tpar._replace(agc_target=torch.full((8,), float(tpar.agc_target)),
+                               agc_a_rel=torch.full((8,), float(tpar.agc_a_rel)))
+    st, y = tp.step(per_stream, tp.init_state(), x)
+    st0, want = tp.step(tpar, tp.init_state(), x)
+    assert torch.equal(y, want) and torch.equal(st.agc_gain, st0.agc_gain)
+    with pytest.raises(ValueError, match=r"must be a scalar or a \[8\]"):
+        tp.step(tpar._replace(agc_target=torch.full((3,), 0.1)), tp.init_state(), x)

@@ -4,7 +4,10 @@ masked batch rows, one tap, k_pad > T, n_steps > S, an unaligned dither
 buffer; for the AGC kernels, a window wider than the block, batches that
 fill no tile, a block that is not whole recurrence chunks; for the
 transport forms, K12/K13 at those shapes, int16 extremes, the int16 store
-at rounding ties, and K5/K6 on int16 x.  Marked
+at rounding ties, and K5/K6 on int16 x; for the per-stream banks, K10 and
+the banked K3/K4/K12 at assignment tiles of 8 rows and of a whole 6-row
+batch with up to 8 designs, K11 with 1 and 9 bands over 12 rows, and the
+[B] vectors of K5/K6.  Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
 
@@ -294,3 +297,154 @@ def test_k5_k6_int16_x(dev, B, T, W, blockwise):
     (ph, pl), pc = S.smooth_gain_apply_plain(d, ring, 0.3, 0.02, 10.0, **kw)
     assert torch.equal(yh, fh) and torch.equal(yl, fl) and torch.equal(c, fc)
     assert torch.equal(yh, ph) and torch.equal(yl, pl) and torch.equal(c, pc)
+
+
+def _bank(dev, D, n, B, bt, seed=5):
+    bank = randn(dev, D, n, seed=seed)
+    assign = ((torch.arange(B // bt, device=dev) * 5 + 1) % D).to(torch.int32)
+    return bank, assign
+
+
+@pytest.mark.parametrize("B,T,n,D,bt", [(16, 640, 129, 8, 8), (6, 384, 300, 2, 6),
+                                        (24, 128, 31, 3, 8)])
+def test_k10_vs_plain_and_k1(dev, B, T, n, D, bt):
+    """Ragged time tiles, masked rows (B = 6), up to 8 designs: K10 ≤ −110
+    dB against its plain version, its epilogue bit-exact, and each row ≡
+    K1 on its design bit for bit."""
+    x = randn(dev, B, n - 1 + T)
+    bank, assign = _bank(dev, D, n, B, bt)
+    y = F.fir_td_mxu_banked(x, bank, assign)
+    e = err_db(y, F.fir_td_mxu_banked_plain(x, bank, assign))
+    print(f"K10 B={B} T={T} n={n} D={D} bt={bt}: {e:.1f} dB")
+    assert y.shape == (B, T) and e <= CONV_DB
+    ye = F.fir_td_mxu_banked(x, bank, assign, **EPI)
+    assert torch.equal(ye, F._finish(y, 0.3, (9, 4), 16, True))
+    for d in torch.unique(assign).tolist():
+        rows = (assign.long().repeat_interleave(bt) == d)
+        assert torch.equal(ye[rows], F.fir_td_mxu(x, bank[d], **EPI)[rows])
+    assert torch.equal(F.fir_td_mxu_banked(x, bank, assign, emit_i16=True, **EPI),
+                       F.quantize_pcm16(ye))
+
+
+@pytest.mark.parametrize("B,T,n,S,start,steps,bt", [
+    (6, 128, 300, 3, 2, 7, 6),     # k_pad > T, n_steps > S, masked rows
+    (16, 384, 129, 2, 1, 3, 8)])
+def test_banked_rings_vs_plain_and_shared(dev, B, T, n, S, start, steps, bt):
+    """The banked K3, K4, K12 and K12-mega against their plain versions,
+    and row by row ≡ their shared-taps forms on that row's design (dither
+    and clip on), tails bit-exact."""
+    D = 3
+    bank, assign = _bank(dev, D, n, B, bt)
+    kp = F.ring_k_pad(n)
+    ringf, tailf = randn(dev, S, B, T), randn(dev, B, kp, seed=2)
+    ring16, tail16 = pcm(dev, S, B, T), pcm(dev, B, kp, seed=3)
+    rows = assign.long().repeat_interleave(bt)
+    for fn, plain, ring, tail, mega in (
+            (F.fir_td_mxu_ring_f32, F.fir_td_mxu_ring_f32_plain, ringf, tailf, False),
+            (F.fir_td_mxu_ring_mega_f32, F.fir_td_mxu_ring_mega_f32_plain, ringf,
+             tailf, True),
+            (F.fir_td_mxu_ring_pcm16, F.fir_td_mxu_ring_pcm16_plain, ring16, tail16,
+             False),
+            (F.fir_td_mxu_ring_mega_pcm16, F.fir_td_mxu_ring_mega_pcm16_plain,
+             ring16, tail16, True)):
+        args = (start, steps) if mega else (start,)
+
+        def run(f, h, **kw):
+            a0 = (ring, args[0], tail, h, torch.zeros(S, B, T, device=dev))
+            return f(*a0, *args[1:], **kw)
+
+        out, nt = run(fn, bank, assign=assign)
+        pout, pnt = run(plain, bank, assign=assign)
+        e = err_db(out, pout)
+        print(f"banked {fn.__name__} B={B} T={T} n={n}: {e:.1f} dB")
+        assert e <= CONV_DB and torch.equal(nt, pnt)
+        oe, _ = run(fn, bank, assign=assign, **EPI)
+        for d in torch.unique(assign).tolist():
+            se, st = run(fn, bank[d], **EPI)
+            assert torch.equal(oe[:, rows == d], se[:, rows == d])
+            assert torch.equal(st, nt)
+
+
+@pytest.mark.parametrize("bad", [3, -1])
+def test_banked_design_out_of_range(dev, bad):
+    """An assignment entry outside the bank (D = 3) reads no taps: the
+    kernel writes those rows NaN (−32768 in the int16 store), as the plain
+    version does, and every other row ≡ K1 on its design; the ring forms
+    too, tails untouched."""
+    B, T, n, S = 16, 384, 129, 2
+    bank, _ = _bank(dev, 3, n, B, 8)
+    assign = torch.tensor([2, bad], dtype=torch.int32, device=dev)
+    x = randn(dev, B, n - 1 + T)
+    y = F.fir_td_mxu_banked(x, bank, assign)
+    assert torch.isnan(y[8:]).all() and not torch.isnan(y[:8]).any()
+    assert torch.equal(y[:8], F.fir_td_mxu(x, bank[2])[:8])
+    p = F.fir_td_mxu_banked_plain(x, bank, assign)
+    assert torch.equal(torch.isnan(p), torch.isnan(y)) and err_db(y[:8], p[:8]) <= CONV_DB
+    y16 = F.fir_td_mxu_banked(x, bank, assign, emit_i16=True)
+    assert (y16[8:] == -32768).all()
+    assert torch.equal(y16[:8], F.fir_td_mxu(x, bank[2], emit_i16=True)[:8])
+    kp = F.ring_k_pad(n)
+    ring, tail = randn(dev, S, B, T), randn(dev, B, kp, seed=2)
+    out, nt = F.fir_td_mxu_ring_mega_f32(ring, 1, tail, bank,
+                                         torch.zeros(S, B, T, device=dev), 3,
+                                         assign=assign)
+    ref, rt = F.fir_td_mxu_ring_mega_f32(ring, 1, tail, bank[2],
+                                         torch.zeros(S, B, T, device=dev), 3)
+    assert torch.isnan(out[:, 8:]).all() and torch.equal(out[:, :8], ref[:, :8])
+    assert torch.equal(nt, rt)
+
+
+@pytest.mark.parametrize("B,T,n,K", [(12, 384, 65, 9), (12, 128, 300, 1),
+                                     (5, 640, 209, 9)])
+def test_k11_vs_plain(dev, B, T, n, K):
+    """K11 with one band and with nine, history longer than the block,
+    masked rows: ≤ −110 dB against its plain version (every row written),
+    the fused epilogue ≡ K11 → clip → K2 → quantize_pcm16 bit for bit."""
+    x = randn(dev, B, n - 1 + T)
+    kernels = randn(dev, K, n, seed=1) * 0.3
+    gains = torch.rand(B, K, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev) * 2.0
+    y = F.fir_td_mxu_per_stream(x, kernels, gains)
+    e = err_db(y, F.fir_td_mxu_per_stream_plain(x, kernels, gains))
+    print(f"K11 B={B} T={T} n={n} K={K}: {e:.1f} dB")
+    assert y.shape == (B, T) and e <= CONV_DB
+    assert bool((y.abs().amax(dim=1) > 0).all())
+    unfused = dither_cuda(torch.clamp(y, -0.3, 0.3), (9, 4), 16, "tpdf")
+    assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, **EPI), unfused)
+    assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, emit_i16=True, **EPI),
+                       F.quantize_pcm16(unfused))
+
+
+@pytest.mark.parametrize("B,T,blockwise", [(40, 256, 32), (9, 384, None)])
+def test_k5_k6_vectors(dev, B, T, blockwise):
+    """K5/K6 with [B] vectors ≡ the scalar runs on each row, bit for bit;
+    against their plain versions K5 ≤ −110 dB and K6 bit-exact ('fast'
+    compounds per stream; the carry)."""
+    x = randn(dev, B, T)
+    x[0] *= 10.0
+    W = 128
+    band = F.band_matrix(np.full(W, 1.0 / W, np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    target = torch.rand(B, generator=g, device=dev) * 0.3 + 0.02
+    mg = torch.rand(B, generator=g, device=dev) * 15.0 + 2.0
+    a_att = torch.rand(B, generator=g, device=dev) * 0.3 + 0.01
+    a_rel = torch.rand(B, generator=g, device=dev) * 0.05 + 0.001
+    init = torch.linspace(0.2, 8.0, B, device=dev)
+    mc = 32 if blockwise else 0
+    d = R.rms_desired(x, band, 64, 63, target, mg, True, transposed=True,
+                      mean_chunk=mc)
+    e = err_db(d, R.rms_desired_plain(x, band, 64, 63, target, mg, True,
+                                      transposed=True, mean_chunk=mc))
+    print(f"K5 vectors B={B} T={T} mean_chunk={mc}: {e:.1f} dB")
+    assert e <= CONV_DB
+    kw = dict(init=init, blockwise=blockwise, d_is_means=bool(mc))
+    y, c = S.smooth_gain_apply(d, x, a_att, a_rel, mg, **kw)
+    yp, cp = S.smooth_gain_apply_plain(d, x, a_att, a_rel, mg, **kw)
+    assert torch.equal(y, yp) and torch.equal(c, cp)
+    for b in (0, B // 2, B - 1):
+        ds = R.rms_desired(x, band, 64, 63, float(target[b]), float(mg[b]), True,
+                           transposed=True, mean_chunk=mc)
+        assert torch.equal(ds[:, b], d[:, b])
+        ys, cs = S.smooth_gain_apply(d, x, float(a_att[b]), float(a_rel[b]),
+                                     float(mg[b]), **kw)
+        assert torch.equal(ys[b], y[b]) and torch.equal(cs[b], c[b])

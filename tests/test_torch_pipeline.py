@@ -251,6 +251,9 @@ def test_outside_the_slice_raises(over, item):
 
 
 def test_fold_and_per_stream_raise():
+    """The offline fold raises (item 9); per-stream gains run; a filter
+    bank refuses ``fold=True``, and an assignment outside the bank is
+    refused as it arrives; the framer raises (item 5)."""
     _, t = both("readme", conv_strategy="td_mxu")
     tp, tpar = port(t)
     sig = signal(4, 256)
@@ -259,11 +262,25 @@ def test_fold_and_per_stream_raise():
             tp.process_signal(tpar, tp.init_state(), sig, fold=fold)
     with pytest.raises(ValueError, match="fold must be"):
         tp.process_signal(tpar, tp.init_state(), sig, fold="sometimes")
+    # per-stream gains run (K11): all-ones rows against the shared all-ones
+    # gains (K11 mixes the band convs, the shared form the taps: two
+    # roundings of one function, each within the oracle contract)
     per_stream = tpar._replace(eq_gains=torch.ones(4, 9))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tp.step(per_stream, tp.init_state(), sig)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tp.params_from_numpy({"casc_bank": np.zeros((2, tp.n_casc))})
+    _, y = tp.step(per_stream, tp.init_state(), sig)
+    _, want = tp.step(tpar._replace(eq_gains=torch.ones(9)), tp.init_state(), sig)
+    e = err_db(y.numpy(), want.numpy())
+    print(f"per-stream ones vs shared ones: {e:.1f} dB (bound {ORACLE_DB})")
+    assert e < ORACLE_DB
+    # a filter bank refuses the fold with the reference's ValueError
+    fields = {k: None if v is None else v.numpy() for k, v in tpar._asdict().items()}
+    bank = tp.params_from_numpy({**fields,
+                                 "casc_bank": np.zeros((2, tp.n_casc), np.float32),
+                                 "casc_assign": np.zeros(1, np.int32)})
+    with pytest.raises(ValueError, match="casc_assign must index"):
+        tp.params_from_numpy({**fields, "casc_bank": np.zeros((2, tp.n_casc)),
+                              "casc_assign": np.full(1, 2, np.int32)})
+    with pytest.raises(ValueError, match="per-stream filter banks"):
+        tp.process_signal(bank, tp.init_state(), sig, fold=True)
     with pytest.raises(NotImplementedError, match="item 5"):
         StreamEngine(t, device="cpu").process_frames(sig[:, :100])
 
