@@ -1,5 +1,5 @@
 // K6: the AGC attack/release recurrence, the gain clip, the apply and the
-// carry, in one kernel.
+// carry, in one kernel; K9: the recurrence alone.
 //
 // Replaces `afp_tpu/ops/pallas/agc_scan.py:smooth_gain_apply_pallas`
 // (`_agc_apply_call`, `_agc_apply_kernel`).  Per stream b, from the
@@ -38,6 +38,21 @@
 // DRAM latency inside the serial chain) and writes the clipped gains back;
 // then all 8 warps apply the gains to the [32, 128] tile of x, reading and
 // writing along time so the batch-major x and y move coalesced.
+//
+// K9 replaces `afp_tpu/ops/pallas/agc_scan.py:smooth_gain_scan_pallas`
+// (`_agc_scan_call`, `_agc_kernel`, `_agc_kernel_bm`): the exact recurrence
+// alone, the drop-in for `ops.agc.smooth_gain_scan`.  From d (time-major
+// [T, B], or batch-major [B, T]) and the carry `init`, or without one the
+// restart g = d[0] at the first sample, it stores every g, unclipped, as
+// [B, T] or time-major [T, B].  Its rounding is K6's step, so it equals the
+// plain `smooth_gain_scan` bit for bit.  The same schedule as K6: per chunk
+// of 128 steps all threads stage d in shared memory (coalesced along the
+// batch for time-major d, along time for batch-major d: a transposed tile),
+// warp 0 runs the 32 recurrences there, and all threads store the chunk in
+// the requested layout, again coalesced (the batch-major store is the
+// shared tile written transposed, as `_agc_kernel_bm` does).  Bound on H100
+// at [4096, 2048]: 64 MiB of traffic (~20 us) against 4096 serial chains of
+// 2048 steps: the chain's latency sets its time.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -173,7 +188,86 @@ __global__ void __launch_bounds__(kThreads) agc_apply_kernel(ScanArgs a) {
   if (warp == 0 && live) a.carry[b] = clip_gain(g, max_gain);
 }
 
+struct ScanOnlyArgs {
+  const float* d;     // [T, B] (time-major) or [B, T]
+  const float* init;  // [B] carried gain, or null (restart at d[0])
+  float* out;         // [B, T] or (out_time_major) [T, B]
+  int B, T, d_time_major, out_time_major;
+  float a_att, a_rel;
+};
+
+__global__ void __launch_bounds__(kThreads) agc_scan_kernel(ScanOnlyArgs a) {
+  __shared__ float ds[kTC][kStreams + 1];  // this chunk: d, then g (padded)
+  const int b0 = blockIdx.x * kStreams;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nb = min(kStreams, a.B - b0);
+
+  float g = 0.f;  // the recurrence state, held by warp 0
+  if (warp == 0 && lane < nb && a.init != nullptr) g = a.init[b0 + lane];
+
+  for (int tc = 0; tc < a.T; tc += kTC) {
+    const int n = min(kTC, a.T - tc);  // time steps in this chunk
+    for (int i = threadIdx.x; i < n * kStreams; i += kThreads) {
+      int t, l;
+      if (a.d_time_major) {
+        t = i / kStreams;
+        l = i - t * kStreams;
+      } else {
+        l = i / n;
+        t = i - l * n;
+      }
+      ds[t][l] = l >= nb ? 0.f
+                 : a.d_time_major
+                     ? a.d[static_cast<long long>(tc + t) * a.B + b0 + l]
+                     : a.d[static_cast<long long>(b0 + l) * a.T + tc + t];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int t = 0; t < n; ++t) {
+        const float d = ds[t][lane];
+        g = a.init == nullptr && tc + t == 0 ? d : step(g, d, a.a_att, a.a_rel);
+        ds[t][lane] = g;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * nb; i += kThreads) {
+      if (a.out_time_major) {
+        const int t = i / nb;
+        const int l = i - t * nb;
+        a.out[static_cast<long long>(tc + t) * a.B + b0 + l] = ds[t][l];
+      } else {
+        const int l = i / n;
+        const int t = i - l * n;
+        a.out[static_cast<long long>(b0 + l) * a.T + tc + t] = ds[t][l];
+      }
+    }
+    __syncthreads();  // ds is rewritten by the next chunk
+  }
+}
+
 }  // namespace
+
+// K9.  d [T, B] (d_time_major) or [B, T] -> g [B, T] or (out_time_major)
+// [T, B], from init [B] or, when null, the restart at d[0].
+extern "C" int afp_agc_scan(const void* d, const void* init, void* out, int B,
+                            int T, int d_time_major, int out_time_major,
+                            float a_att, float a_rel, void* stream) {
+  if (B <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  ScanOnlyArgs a;
+  a.d = static_cast<const float*>(d);
+  a.init = static_cast<const float*>(init);
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.T = T;
+  a.d_time_major = d_time_major;
+  a.out_time_major = out_time_major;
+  a.a_att = a_att;
+  a.a_rel = a_rel;
+  agc_scan_kernel<<<(B + kStreams - 1) / kStreams, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K6.  d [T, B] (or [T/chunk, B] means), x [B, T] f32 or (x_i16) int16 PCM
 // -> y [B, T] f32 or the pair (yh, yl), and carry [B].  a_att/a_rel arrive

@@ -1,7 +1,7 @@
-// K1, K3, K4, K7, K8, K10, K11, K12, K13: the fused single-rate FIR of the
-// filter chain, in bf16x3.
+// K1, K3, K4, K7, K8, K10, K11, K12, K13, K15: the fused single-rate FIR of
+// the filter chain, in bf16x3 (or, for K15's HIGHEST, in plain fp32).
 //
-// Replaces eleven TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
+// Replaces twelve TPU kernels of `afp_tpu/ops/pallas/fir_td.py`, which share
 // one conv body here and differ only in where a block's input window comes
 // from (the loader, `load_split`), where its taps come from, and in the
 // store:
@@ -51,6 +51,16 @@
 //       taps are not mixed first, which would round differently).  The store
 //       is the body's (clip, dither, int16), so the fused epilogue equals
 //       K11 -> clip -> K2 -> quantize_pcm16 bit for bit.
+//   K15 the precision variants of _fir_td_call (fir_td.py:370): HIGHEST
+//       (_fir_kernel, fir_td.py:148; in K11 _fir_kernel_ps, :1701), the
+//       causal/valid conv in full fp32, one product per tap, as the HIGHEST
+//       template option of K1's body and of K11's kernel: the window stages
+//       plain f32 samples (half the shared memory of the split pairs), the
+//       taps stay unsplit, and the accumulation does one fmaf per tap instead
+//       of three; the store is the same.  B3F (_fir_kernel_b3f, :236) and
+//       B3C (_fir_kernel_b3c, :316) are B3's function with the split done in
+//       VMEM, or over time-chunk pairs: this body already reads one f32 x and
+//       splits it in the loader (read_split), so both are the bf16x3 body.
 //
 // Numerics: y[b,t] = sum_k (xh*hh + xh*hl + xl*hh), where xh/xl and hh/hl are
 // the bf16 hi/lo halves of the input and the taps made with split_bf16's
@@ -63,7 +73,8 @@
 // round half to even, clamped in float before the exact convert).
 //
 // What bounds it on H100 at the headline shape (batch 4096, block 4096,
-// 379 taps): traffic is 128 MiB per block in f32 (~40 us at 3.35 TB/s; the
+// 379 taps; HIGHEST does a third of the FMAs, 6.4 G per block, against the
+// same bytes): traffic is 128 MiB per block in f32 (~40 us at 3.35 TB/s; the
 // int16 forms move half the input or output bytes), while the FMA form does
 // 3 * 379 FMAs per output, 19 G FMAs per block (~0.57 ms at the ~33.5 T FMA/s
 // of the fp32 CUDA cores).  So it is compute-bound on the CUDA cores, and
@@ -83,6 +94,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "philox.cuh"
 #include "split.cuh"
@@ -173,39 +185,81 @@ __device__ __forceinline__ float2 load_split(const Src& s, int b, int step,
   }
 }
 
-// Stage rows b0 .. b0+kRows-1 of the split window, positions [0, W) holding
-// extended-signal samples e0 + p, phase-interleaved: position p of row r at
-// win[r][p % 4][p / 4] (rows beyond B are zero).
-template <int MODE, int IN>
-__device__ __forceinline__ void stage_window(const Src& src, int b0, int step,
-                                             int e0, int W, int W4,
-                                             float2* win) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    float2* wr = win + r * 4 * W4;
-    for (int p = threadIdx.x; p < W; p += kThreads)
-      wr[(p & 3) * W4 + (p >> 2)] =
-          b < src.B ? load_split<MODE, IN>(src, b, step, e0 + p)
-                    : make_float2(0.f, 0.f);
+// The element of the staged window and of the taps: the bf16 (hi, lo) split
+// pair (float2) for bf16x3, the plain f32 value (float) for HIGHEST.
+__device__ __forceinline__ void to_elem(float v, float2* e) {
+  *e = afp::split_bf16(v);
+}
+__device__ __forceinline__ void to_elem(float v, float* e) { *e = v; }
+
+// Sample e of step `step`'s extended signal as a window element; 0 outside.
+// HIGHEST reads the staged x_ext (K1, K11) only.
+template <int MODE, int IN, typename E>
+__device__ __forceinline__ E load_elem(const Src& s, int b, int step, int e) {
+  if constexpr (std::is_same_v<E, float>) {
+    static_assert(MODE == kModeExt && IN == kInF32,
+                  "HIGHEST reads a staged f32 x_ext");
+    if (e < 0 || e >= s.hist + s.T) return 0.f;
+    return static_cast<const float*>(
+        s.x)[static_cast<long long>(b) * (s.hist + s.T) + e];
+  } else {
+    return load_split<MODE, IN>(s, b, step, e);
   }
 }
 
-// The conv of thread j's 4 rows x 4 outputs against the split taps [np]
-// (zero beyond n_taps), from the staged window.  Thread j owns outputs
+// Length of each phase sub-array of a W-wide window.  The conv loads (all
+// lanes one phase, consecutive positions) hit consecutive banks for either
+// element.  The staging stores of lanes p .. p+31 land at (p & 3) * W4 +
+// (p >> 2): for 4-byte elements a W4 of 8 mod 32 spreads the four phases of
+// a warp over the 32 banks; float2 stores go out per half-warp and keep the
+// unpadded length (its 64-register body is unchanged).
+template <typename E>
+__host__ __device__ constexpr int phase_len(int W) {
+  return std::is_same_v<E, float> ? ((W + 3) / 4 + 23) / 32 * 32 + 8
+                                  : (W + 3) / 4;
+}
+
+// Stage rows b0 .. b0+kRows-1 of the window, positions [0, W) holding
+// extended-signal samples e0 + p, phase-interleaved: position p of row r at
+// win[r][p % 4][p / 4] (rows beyond B are zero).
+template <int MODE, int IN, typename E>
+__device__ __forceinline__ void stage_window(const Src& src, int b0, int step,
+                                             int e0, int W, int W4, E* win) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int b = b0 + r;
+    E* wr = win + r * 4 * W4;
+    for (int p = threadIdx.x; p < W; p += kThreads)
+      wr[(p & 3) * W4 + (p >> 2)] =
+          b < src.B ? load_elem<MODE, IN, E>(src, b, step, e0 + p) : E{};
+  }
+}
+
+// One tap's product(s) into an accumulator: bf16x3 adds hi*hi, hi*lo and
+// lo*hi (each exact in fp32) in that order; HIGHEST one fp32 fmaf.
+__device__ __forceinline__ float mac(float a, float2 v, float2 t) {
+  a = fmaf(v.x, t.x, a);
+  a = fmaf(v.x, t.y, a);
+  return fmaf(v.y, t.x, a);
+}
+__device__ __forceinline__ float mac(float a, float v, float t) {
+  return fmaf(v, t, a);
+}
+
+// The conv of thread j's 4 rows x 4 outputs against the taps [np] (zero
+// beyond n_taps), from the staged window.  Thread j owns outputs
 // t0 + 4j + c (c = 0..3).  Tap k of output column c reads window position
 // 4j + c + np-1-k.  w[r][(c - k) & 3] holds that sample; each new k brings
 // in one sample (column 0's) and drops column 3's, so the register window
 // slides with one shared load per row.
-__device__ __forceinline__ void conv_acc(const float2* __restrict__ win,
-                                         int W4,
-                                         const float2* __restrict__ taps,
-                                         int np, int j,
-                                         float (&acc)[kRows][4]) {
-  float2 w[kRows][4];
+template <typename E>
+__device__ __forceinline__ void conv_acc(const E* __restrict__ win, int W4,
+                                         const E* __restrict__ taps, int np,
+                                         int j, float (&acc)[kRows][4]) {
+  E w[kRows][4];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const float2* wr = win + r * 4 * W4;
+    const E* wr = win + r * 4 * W4;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int p = 4 * j + np - 1 + c;
@@ -223,18 +277,12 @@ __device__ __forceinline__ void conv_acc(const float2* __restrict__ win,
         for (int r = 0; r < kRows; ++r)
           w[r][(4 - u) & 3] = win[r * 4 * W4 + (p & 3) * W4 + (p >> 2)];
       }
-      const float2 tk = taps[k];
+      const E tk = taps[k];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float2 v = w[r][(c - u) & 3];
-          float a = acc[r][c];
-          a = fmaf(v.x, tk.x, a);
-          a = fmaf(v.x, tk.y, a);
-          a = fmaf(v.y, tk.x, a);
-          acc[r][c] = a;
-        }
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = mac(acc[r][c], w[r][(c - u) & 3], tk);
       }
     }
   }
@@ -291,16 +339,19 @@ __device__ __forceinline__ void store_rows(const Src& src, int b0, int t,
   }
 }
 
-template <int MODE, int IN>
+// The conv body: E = float2 is bf16x3 (K1, K3/K4, K7/K8, K10, K12, K13), E =
+// float is K15's HIGHEST (K1 only).
+template <int MODE, int IN, typename E>
 __global__ void __launch_bounds__(kThreads)
     fir_b3_kernel(Src src, const float* __restrict__ h, int n_taps, int np,
                   void* __restrict__ out, afp::Epilogue epi, int n_steps,
                   int emit_i16) {
-  extern __shared__ float2 smem[];
-  const int W = kCols + np - 1;  // window length
-  const int W4 = (W + 3) / 4;    // length of each phase sub-array
-  float2* taps = smem;           // [np], zero beyond n_taps
-  float2* win = smem + np;       // [kRows][4][W4]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
+  const int W = kCols + np - 1;     // window length
+  const int W4 = phase_len<E>(W);   // length of each phase sub-array
+  E* taps = smem;                   // [np], zero beyond n_taps
+  E* win = smem + np;               // [kRows][4][W4]
 
   const int b0 = blockIdx.x * kRows;
   const int t0 = blockIdx.y * kCols;
@@ -317,10 +368,14 @@ __global__ void __launch_bounds__(kThreads)
     if (bad) d = 0;
   }
   const float* hb = h + static_cast<long long>(d) * n_taps;
-  for (int k = j; k < np; k += kThreads)
-    taps[k] = k < n_taps ? afp::split_bf16(hb[k]) : make_float2(0.f, 0.f);
+  for (int k = j; k < np; k += kThreads) {
+    E tk{};
+    if (k < n_taps) to_elem(hb[k], &tk);
+    taps[k] = tk;
+  }
   // window position p holds extended-signal sample e0 + p
-  stage_window<MODE, IN>(src, b0, step, t0 + src.hist - (np - 1), W, W4, win);
+  stage_window<MODE, IN, E>(src, b0, step, t0 + src.hist - (np - 1), W, W4,
+                            win);
   __syncthreads();
 
   float acc[kRows][4];
@@ -341,19 +396,21 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K11: y[b] = sum_k g[b, k] * (x[b] conv bands[k]), k in order, over the
-// staged x_ext window; the per-band conv is the body's (conv_acc).  Shared
-// memory: the split taps of every band [n_bands][np], the window, and the
-// block's gains [kRows][n_bands].
+// staged x_ext window; the per-band conv is the body's (conv_acc), bf16x3
+// (E = float2) or K15's HIGHEST (E = float).  Shared memory: the taps of
+// every band [n_bands][np], the window, and the block's gains
+// [kRows][n_bands].
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
     fir_ps_kernel(Src src, const float* __restrict__ bands,
                   const float* __restrict__ gains, int n_bands, int n_taps,
                   int np, void* __restrict__ out, afp::Epilogue epi,
                   int emit_i16) {
-  extern __shared__ float2 smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = kCols + np - 1;
-  const int W4 = (W + 3) / 4;
-  float2* taps = smem;                // [n_bands][np]
-  float2* win = taps + n_bands * np;  // [kRows][4][W4]
+  const int W4 = phase_len<E>(W);
+  E* taps = reinterpret_cast<E*>(smem_raw);  // [n_bands][np]
+  E* win = taps + n_bands * np;              // [kRows][4][W4]
   float* g = reinterpret_cast<float*>(win + kRows * 4 * W4);  // [kRows][K]
 
   const int b0 = blockIdx.x * kRows;
@@ -363,15 +420,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = j; i < n_bands * np; i += kThreads) {
     const int k = i / np;
     const int q = i - k * np;
-    taps[i] = q < n_taps ? afp::split_bf16(bands[k * n_taps + q])
-                         : make_float2(0.f, 0.f);
+    E tk{};
+    if (q < n_taps) to_elem(bands[k * n_taps + q], &tk);
+    taps[i] = tk;
   }
   for (int i = j; i < kRows * n_bands; i += kThreads) {
     const int b = b0 + i / n_bands;
     g[i] = b < src.B ? gains[static_cast<long long>(b0) * n_bands + i] : 0.f;
   }
-  stage_window<kModeExt, kInF32>(src, b0, 0, t0 + src.hist - (np - 1), W, W4,
-                                 win);
+  stage_window<kModeExt, kInF32, E>(src, b0, 0, t0 + src.hist - (np - 1), W,
+                                    W4, win);
   __syncthreads();
 
   float y[kRows][4];
@@ -434,7 +492,7 @@ afp::Epilogue make_epilogue(int has_clip, float clip, int dither,
   return e;
 }
 
-template <int MODE, int IN>
+template <int MODE, int IN, typename E = float2>
 int launch_conv(const Src& s, const float* h, int n_taps, void* out,
                 const afp::Epilogue& epi, int n_steps, int emit_i16,
                 cudaStream_t stream) {
@@ -444,15 +502,36 @@ int launch_conv(const Src& s, const float* h, int n_taps, void* out,
   const int np = (n_taps + 3) / 4 * 4;
   const int W = kCols + np - 1;
   const size_t smem =
-      sizeof(float2) * (static_cast<size_t>(np) + 4u * kRows * ((W + 3) / 4));
+      sizeof(E) * (static_cast<size_t>(np) + 4u * kRows * phase_len<E>(W));
   cudaError_t err = cudaFuncSetAttribute(
-      fir_b3_kernel<MODE, IN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fir_b3_kernel<MODE, IN, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s.B + kRows - 1) / kRows, (s.T + kCols - 1) / kCols,
                   n_steps);
-  fir_b3_kernel<MODE, IN><<<grid, kThreads, smem, stream>>>(
+  fir_b3_kernel<MODE, IN, E><<<grid, kThreads, smem, stream>>>(
       s, h, n_taps, np, out, epi, n_steps, emit_i16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_ps(const Src& s, const float* bands, const float* gains,
+              int n_taps, int n_bands, void* out, const afp::Epilogue& epi,
+              int emit_i16, cudaStream_t stream) {
+  const int np = (n_taps + 3) / 4 * 4;
+  const int W = kCols + np - 1;
+  const size_t smem =
+      sizeof(E) * (static_cast<size_t>(n_bands) * np +
+                   4u * kRows * phase_len<E>(W)) +
+      sizeof(float) * kRows * n_bands;
+  if (smem > 227u * 1024u) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      fir_ps_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s.B + kRows - 1) / kRows, (s.T + kCols - 1) / kCols);
+  fir_ps_kernel<E><<<grid, kThreads, smem, stream>>>(
+      s, bands, gains, n_bands, n_taps, np, out, epi, emit_i16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -490,12 +569,13 @@ bool set_bank(Src* s, const void* assign, int bt, int D) {
 
 }  // namespace
 
-// K1 and K10.  x_ext [B, n_taps-1+T] -> out [B, T], f32 or (emit_i16) int16;
-// with `assign` (K10) h is the bank [D, n_taps] and row b takes design
-// assign[b / bt].
+// K1, K10 and K15.  x_ext [B, n_taps-1+T] -> out [B, T], f32 or (emit_i16)
+// int16; with `assign` (K10) h is the bank [D, n_taps] and row b takes
+// design assign[b / bt]; `highest` (K15, shared taps only) runs the body in
+// fp32, one product per tap.
 extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
                           int T, int n_taps, const void* assign, int bt, int D,
-                          int has_clip, float clip, int dither,
+                          int highest, int has_clip, float clip, int dither,
                           unsigned int seed, unsigned int counter, float lsb,
                           int emit_i16, void* stream) {
   Src s{};
@@ -505,12 +585,16 @@ extern "C" int afp_fir_td(const void* x_ext, const void* h, void* out, int B,
   s.hist = n_taps - 1;
   s.S = 1;
   s.start = 0;
-  if (!set_bank(&s, assign, bt, D))
+  if (!set_bank(&s, assign, bt, D) || (highest && assign != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_conv<kModeExt, kInF32>(
-      s, static_cast<const float*>(h), n_taps, out,
-      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, emit_i16,
-      static_cast<cudaStream_t>(stream));
+  const afp::Epilogue epi =
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (highest)
+    return launch_conv<kModeExt, kInF32, float>(
+        s, static_cast<const float*>(h), n_taps, out, epi, 1, emit_i16, st);
+  return launch_conv<kModeExt, kInF32>(s, static_cast<const float*>(h),
+                                       n_taps, out, epi, 1, emit_i16, st);
 }
 
 // K3/K4 (in_kind 0: f32), K12 (1: int16 PCM), K13 (2: bf16 pair; the lo
@@ -600,15 +684,16 @@ extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
   return launch_tail<kInPair>(s, 1, th_out, tl_out, st);
 }
 
-// K11.  x_ext [B, n_taps-1+T], the band kernels [n_bands, n_taps] and the
-// per-stream gains [B, n_bands] -> out [B, T] = sum_k gains[:, k] * (x conv
-// bands[k]), with the body's store (clip, dither, f32 or int16).
+// K11 (and K15's HIGHEST K11 with `highest`).  x_ext [B, n_taps-1+T], the
+// band kernels [n_bands, n_taps] and the per-stream gains [B, n_bands] ->
+// out [B, T] = sum_k gains[:, k] * (x conv bands[k]), with the body's store
+// (clip, dither, f32 or int16).
 extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
                              const void* gains, void* out, int B, int T,
-                             int n_taps, int n_bands, int has_clip, float clip,
-                             int dither, unsigned int seed,
-                             unsigned int counter, float lsb, int emit_i16,
-                             void* stream) {
+                             int n_taps, int n_bands, int highest,
+                             int has_clip, float clip, int dither,
+                             unsigned int seed, unsigned int counter,
+                             float lsb, int emit_i16, void* stream) {
   if (B <= 0 || T <= 0 || T % 4 || n_taps <= 0 || n_bands <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Src s{};
@@ -617,21 +702,13 @@ extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
   s.T = T;
   s.hist = n_taps - 1;
   s.S = 1;
-  const int np = (n_taps + 3) / 4 * 4;
-  const int W = kCols + np - 1;
-  const size_t smem =
-      sizeof(float2) * (static_cast<size_t>(n_bands) * np +
-                        4u * kRows * ((W + 3) / 4)) +
-      sizeof(float) * kRows * n_bands;
-  if (smem > 227u * 1024u) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      fir_ps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, (T + kCols - 1) / kCols);
-  fir_ps_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(bands), static_cast<const float*>(gains),
-      n_bands, n_taps, np, out,
-      make_epilogue(has_clip, clip, dither, seed, counter, lsb), emit_i16);
-  return static_cast<int>(cudaGetLastError());
+  const afp::Epilogue epi =
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb);
+  const float* bf = static_cast<const float*>(bands);
+  const float* gf = static_cast<const float*>(gains);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (highest)
+    return launch_ps<float>(s, bf, gf, n_taps, n_bands, out, epi, emit_i16,
+                            st);
+  return launch_ps<float2>(s, bf, gf, n_taps, n_bands, out, epi, emit_i16, st);
 }

@@ -69,11 +69,16 @@ class StreamEngine:
     banks (`engine/batch.py`) ride :attr:`params` like any parameter bank:
     assign ``engine.params = with_per_stream_gains(engine.pipeline,
     engine.params, gains)`` (or a filter or AGC bank), and
-    :meth:`set_eq_gains` then takes [batch, n_bands] gains."""
+    :meth:`set_eq_gains` then takes [batch, n_bands] gains.
+    ``td_precision`` and ``agc_one_kernel`` go to every
+    :class:`~afp_tpu_torch.engine.pipeline.Pipeline` the engine builds."""
 
-    def __init__(self, cfg: StreamConfig, *, device="cuda", seed: int = 0):
+    def __init__(self, cfg: StreamConfig, *, device="cuda", seed: int = 0,
+                 td_precision="B3", agc_one_kernel: bool = False):
         self.cfg = cfg.validate()
         self.device = torch.device(device)
+        self._pipe_kw = dict(td_precision=td_precision,
+                             agc_one_kernel=agc_one_kernel)
         self.metrics = EngineMetrics(streams=self.cfg.batch)
         self._seed = seed
         # the reference's filter_lock (`stream_process_EQ_GUI.py:50-55`):
@@ -85,7 +90,7 @@ class StreamEngine:
     # ---------------- construction / reconfig ----------------
 
     def _build(self, cfg: StreamConfig) -> None:
-        self.pipeline = Pipeline(cfg, self.device)
+        self.pipeline = Pipeline(cfg, self.device, **self._pipe_kw)
         self.cfg = self.pipeline.cfg
         try:
             design = PipelineParams.design(self.cfg)
@@ -226,7 +231,7 @@ class StreamEngine:
 
     def process_signal(self, signal: np.ndarray, fold="auto") -> np.ndarray:
         """Whole-signal convenience: [batch, T] → [batch, T''] (whole
-        blocks), streamed block by block; ``fold`` as
+        blocks), streamed block by block or folded; ``fold`` as
         :meth:`Pipeline.process_signal`."""
         signal = self._coerce_in(signal)
         if signal.ndim == 1:

@@ -67,6 +67,31 @@ Under a bank or per-stream gains K6 stores f32, not the pair: the pair
 tail is merged for the extended block and its next value re-split from the
 block's last k_pad columns (`pipeline.py:715-720, 796-805, 960-971`).
 
+The conv's precision (K15; `AFP_TD_PRECISION` in `afp_tpu`, the
+``td_precision`` argument here, `pipeline.py:273-348`): 'B3' (the default),
+'B3F' and 'B3C' run the one bf16×3 body.  'HIGHEST' runs K1 and K11 in
+fp32 and keeps `afp_tpu`'s gates: pair and pcm16 ingest raise, there is no
+ring form (``supports_ring_step`` is False), the AGC route stores K6's f32
+output and the conv is HIGHEST K1 on the f32 extended block, banks stay on
+K10's bf16×3 body, and 'fft' ignores it.
+
+The one-kernel AGC (K14; `AFP_AGC_ONE_KERNEL=1` in `afp_tpu`, the
+``agc_one_kernel`` argument here, `pipeline.py:242-264, 661-679,
+1235-1246`): under 'exact' mode, ``agc_link_group == 1``, scalar AGC knobs
+and K14's gate on the window and block, K14 replaces K5 → K6 on the staged
+step (its pair store into K8; f32 under banks, per-stream gains or
+HIGHEST) and on the AGC ring (over the slot, into K7).
+
+The offline fold (`pipeline.py:1499-1808`): :meth:`process_signal` with
+``fold=True``/``'prefer'`` (or ``'auto'`` under `afp_tpu`'s conditions,
+"on the TPU" read as "on the card") folds a signal's blocks into the batch
+axis and runs the conv chain as one batched call: K1 at the pipeline's
+precision (K8 for pair and pcm16 ingest, K11 for per-stream gains), or one
+batched cuFFT overlap-save then K2.  With no AGC each block depends only on
+the signal window behind it, and the conv body's per-output sum order does
+not depend on the batch, so on the card the fold equals the block-by-block
+scan bit for bit with dither off.
+
 The reference refuses int16-output ring serving and `run_ring_mega` with
 dither on in its interpret mode (`pipeline.py:1133-1137, 1381-1386`): its
 TPU dither has no interpret lowering.  Here the plain versions fuse the
@@ -85,6 +110,7 @@ import torch
 
 from ..ops.agc import AGCParams, link_desired
 from ..ops.convolve import next_pow2
+from ..ops.cuda.agc_fused import agc_rms_apply, fused_rms_supported
 from ..ops.cuda.agc_rms import band_is_exact_bf16, rms_desired
 from ..ops.cuda.agc_scan import smooth_gain_apply
 from ..ops.cuda.dither import dither_cuda
@@ -94,7 +120,7 @@ from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_banked,
                                fir_td_mxu_ring_f32, fir_td_mxu_ring_mega,
                                fir_td_mxu_ring_mega_f32,
                                fir_td_mxu_ring_mega_pcm16,
-                               fir_td_mxu_ring_pcm16, merge_bf16,
+                               fir_td_mxu_ring_pcm16, is_highest, merge_bf16,
                                pcm16_to_f32, quantize_pcm16, ring_k_pad,
                                split_bf16)
 from ..ops.resample import streaming_kernel
@@ -204,10 +230,11 @@ class StreamState(NamedTuple):
     """Carried streaming state: the conv tail and the AGC gain on the
     device, and the dither key on the host — ``seed`` and ``step``, the
     count of blocks processed (block i dithers under Philox key
-    ``(seed, step_i)``).  Under AGC with 'td_mxu' and under pair ingest the
-    conv tail is the bf16 (hi, lo) pair of the conv input's history, the
-    form K8/K7/K13 read; under pcm16 ingest without AGC it is the raw int16
-    history (K12)."""
+    ``(seed, step_i)``; the offline fold dithers all its blocks under the
+    one key of its first).  Under AGC with the bf16×3 'td_mxu' conv and
+    under pair ingest the conv tail is the bf16 (hi, lo) pair of the conv
+    input's history, the form K8/K7/K13 read; under pcm16 ingest without
+    AGC it is the raw int16 history (K12)."""
 
     conv_tail: "torch.Tensor | tuple[torch.Tensor, torch.Tensor]"  # [B, k_pad]
     seed: int
@@ -218,6 +245,11 @@ class StreamState(NamedTuple):
 class Pipeline:
     """Streaming pipeline for a fixed StreamConfig on one device.
 
+    ``td_precision`` is the 'td_mxu' conv's precision ('B3', 'B3F', 'B3C'
+    or 'HIGHEST', K15) and ``agc_one_kernel`` opts into the one-kernel AGC
+    (K14): the explicit form of `afp_tpu`'s ``AFP_TD_PRECISION`` and
+    ``AFP_AGC_ONE_KERNEL``, with its gates.
+
     Usage::
 
         pipe = Pipeline(cfg)                              # on the card
@@ -227,7 +259,8 @@ class Pipeline:
         state, outs = pipe.run(params, state, blocks)     # [N, B, L]
     """
 
-    def __init__(self, cfg: StreamConfig, device="cuda"):
+    def __init__(self, cfg: StreamConfig, device="cuda", td_precision="B3",
+                 agc_one_kernel: bool = False):
         cfg = cfg.validate()
         _check_slice(cfg)
         self.cfg = cfg
@@ -261,22 +294,36 @@ class Pipeline:
         self.n_casc = -(-n_total // self.upf)  # ceil: decimated length
         self.nfft = next_pow2(self.block + self.n_casc - 1)
         self._use_td = cfg.conv_strategy == "td_mxu"
+        #: the 'td_mxu' conv's precision (K15): HIGHEST runs K1/K11 in fp32
+        self.td_precision = str(td_precision).upper()
+        self._highest = is_highest(td_precision) and self._use_td
         self._k_pad = ring_k_pad(self.n_casc)
         self.agc = AGCParams.from_config(cfg)
         self._agc_on = cfg.agc_enabled
-        #: transport forms (`afp_tpu/engine/pipeline.py:303-345`, without its
-        #: precision gate: the port's conv is always the bf16×3 class).  K5
-        #: and K6 take int16 x on every route, so pcm16 + AGC needs no flag
-        #: of its own (`_i16_agc_raw` in the reference)
+        #: transport forms (`afp_tpu/engine/pipeline.py:303-345`): both need
+        #: a bf16×3 conv (the pair IS its operand split).  K5 and K6 take
+        #: int16 x on every route, so pcm16 + AGC needs no flag of its own
+        #: (`_i16_agc_raw` in the reference)
+        for form in ("pair", "pcm16"):
+            if cfg.ingest == form and self._highest:
+                raise ValueError(
+                    f"ingest={form!r} requires a bf16-class conv precision "
+                    f"(td_precision is {self.td_precision!r})")
         self._pair_ingest = cfg.ingest == "pair"
         self._i16_ingest = cfg.ingest == "pcm16"
         #: pcm16 without AGC: the conv reads x itself and carries its raw
         #: int16 history
         self._i16_tail = self._i16_ingest and not self._agc_on
         self._emit16 = cfg.emit == "pcm16"
-        #: the conv reads a bf16 pair (K6's store, or the ingest's), and the
-        #: tail is carried so
-        self._pair_tail = (self._agc_on and self._use_td) or self._pair_ingest
+        #: the conv reads a bf16 pair (K6's or K14's store, or the ingest's),
+        #: and the tail is carried so; under HIGHEST the AGC stores f32
+        #: (`_agc_chain_pair`, `pipeline.py:296-302`)
+        self._pair_tail = ((self._agc_on and self._use_td and not self._highest)
+                           or self._pair_ingest)
+        #: the one-kernel AGC (K14) under the reference's conditions
+        #: (`pipeline.py:256-264`); per-stream AGC vectors are checked per
+        #: step, as the reference does
+        self._agc_one_kernel = False
         if self._agc_on:
             w = cfg.agc_window_size
             band = band_matrix(np.full(w, 1.0 / w, dtype=np.float32))
@@ -289,6 +336,11 @@ class Pipeline:
             # per-sample d first (min of means ≠ mean of mins)
             self._agc_means = bool(self._agc_blockwise
                                    and cfg.agc_link_group == 1)
+            self._agc_one_kernel = bool(
+                agc_one_kernel and cfg.agc_link_group == 1
+                and cfg.agc_mode == "exact"
+                and fused_rms_supported(self.batch, self.block, w,
+                                        self._rms_pad[0]))
 
     # ---------------- reconfiguration and parameters ----------------
 
@@ -507,10 +559,21 @@ class Pipeline:
     def _agc(self, params: DeviceParams, x: torch.Tensor, gain, ring_idx=None,
              emit_split=None):
         """The AGC on the block ``x`` [B, L] (or on slot ``ring_idx`` of the
-        ring ``x``): K5 → link → K6.  Returns (the gained block — its bf16
+        ring ``x``): K5 → link → K6, or K14 alone under the one-kernel
+        option with scalar knobs.  Returns (the gained block — its bf16
         pair when the conv reads pairs, unless `emit_split` says otherwise —
         and the new [B] gain carry)."""
         cfg = self.cfg
+        emit = self._pair_tail if emit_split is None else emit_split
+        init = gain if cfg.agc_carry else None
+        if self._agc_one_kernel and not any(
+                v.ndim for v in (params.agc_target, params.agc_max_gain,
+                                 params.agc_a_att, params.agc_a_rel)):
+            return agc_rms_apply(x, cfg.agc_window_size, params.agc_a_att,
+                                 params.agc_a_rel, params.agc_target,
+                                 params.agc_max_gain, init=init,
+                                 out_clip=0.99, emit_split=emit,
+                                 ring_idx=ring_idx)
         lp, rp = self._rms_pad
         mc = self._agc_blockwise if self._agc_means else 0
         d = rms_desired(x, self._rms_band, lp, rp, params.agc_target,
@@ -520,10 +583,8 @@ class Pipeline:
             d = self._linked(d)
         return smooth_gain_apply(
             d, x, params.agc_a_att, params.agc_a_rel, params.agc_max_gain,
-            init=gain if cfg.agc_carry else None, out_clip=0.99,
-            emit_split=self._pair_tail if emit_split is None else emit_split,
-            ring_idx=ring_idx, blockwise=self._agc_blockwise,
-            d_is_means=bool(mc))
+            init=init, out_clip=0.99, emit_split=emit, ring_idx=ring_idx,
+            blockwise=self._agc_blockwise, d_is_means=bool(mc))
 
     def _per_stream(self, params: DeviceParams) -> bool:
         """True when the params carry per-stream EQ gains."""
@@ -531,12 +592,14 @@ class Pipeline:
 
     def _ext(self, tail, x):
         """The f32 extended block [B, n−1+L] (the conv's history, then the
-        block) and the next carried tail, from any tail and block form: an
-        int16 tail and block converted n/32768 (the tail stays raw int16), a
-        pair tail merged (the next tail the block's own pair, or, for an f32
-        block — K6's store under banks — the split of the last k_pad
-        columns, `pipeline.py:796-805, 960-971`), or f32."""
-        kp, n, L = self._k_pad, self.n_casc, self.block
+        block of any length L: a block, or a whole signal for the fold) and
+        the next carried tail, from any tail and block form: an int16 tail
+        and block converted n/32768 (the tail stays raw int16), a pair tail
+        merged (the next tail the block's own pair, or, for an f32 block —
+        K6's store under banks — the split of the last k_pad columns,
+        `pipeline.py:796-805, 960-971`), or f32."""
+        kp, n = self._k_pad, self.n_casc
+        L = (x[0] if isinstance(x, tuple) else x).shape[-1]
         if self._i16_tail:
             raw = torch.cat([tail, x], dim=-1)
             return pcm16_to_f32(raw[:, kp - (n - 1):]), raw[:, -kp:].clone()
@@ -598,13 +661,15 @@ class Pipeline:
                 y = quantize_pcm16(y)
         elif per_stream:
             y = fir_td_mxu_per_stream(ext, params.casc_bands, params.eq_gains,
-                                      emit_i16=self._emit16, **dkw)
+                                      emit_i16=self._emit16,
+                                      precision=self.td_precision, **dkw)
         elif banked:
             y = fir_td_mxu_banked(ext, params.casc_bank, params.casc_assign,
                                   emit_i16=self._emit16, **dkw)
         else:
             y = fir_td_mxu(ext, params.combined_cascade(self.has_eq),
-                           emit_i16=self._emit16, **dkw)
+                           emit_i16=self._emit16, precision=self.td_precision,
+                           **dkw)
         return nxt(new_tail), y
 
     def run(self, params: DeviceParams, state: StreamState, blocks):
@@ -627,25 +692,15 @@ class Pipeline:
     def process_signal(self, params: DeviceParams, state: StreamState,
                        signal, fold="auto"):
         """Whole-signal convenience: [B, T] → (state, [B, T'']), T'' the
-        whole blocks of T.  ``fold=False`` and ``'auto'`` stream block by
-        block; the offline fold ('prefer'/True) is ROADMAP §1 item 9 ('auto'
-        may always decline to fold, `afp_tpu/engine/pipeline.py:1507-1514`).
-        With per-stream filter banks the fold is refused (``fold=True``) or
-        declined (`pipeline.py:1559-1569`).  Under pcm16 ingest the signal
-        is int16 PCM."""
-        if params.casc_bank is not None:
-            if fold is True:
-                raise ValueError(
-                    "fold=True is unsupported with per-stream filter banks "
-                    "(the folded batch axis breaks the tile-constant "
-                    "design assignment) — use fold='auto'")
-            fold = False
-        if fold in (True, "prefer"):
-            raise _not_in_slice(f"fold={fold!r} (the offline fold)",
-                                "9 (offline fold)")
-        if fold not in (False, "auto"):
-            raise ValueError(
-                f"fold must be 'auto', 'prefer', True, or False; got {fold!r}")
+        whole blocks of T (`afp_tpu/engine/pipeline.py:1499-1538`).
+        ``fold=False`` streams block by block; ``True`` requires the
+        offline fold (:meth:`process_signal_folded`), ``'prefer'`` folds
+        when :attr:`supports_fold`, and ``'auto'`` folds only where the fold
+        equals the scan bit for bit: 'td_mxu', no per-stream gains, dither
+        off, on the card, batch < 256 (:meth:`_fold_decision`).  Under pcm16
+        ingest the signal is int16 PCM."""
+        if self._fold_decision(fold, params):
+            return self.process_signal_folded(params, state, signal)
         signal = self._signal(signal)
         B, T = signal.shape
         L = self.block
@@ -654,15 +709,141 @@ class Pipeline:
         state, outs = self.run(params, state, blocks)
         return state, outs.transpose(0, 1).reshape(B, nb * L)
 
+    # ---------------- the offline fold ----------------
+
+    @property
+    def supports_fold(self) -> bool:
+        """True when the offline fold applies: no cross-block recurrence
+        (AGC), so each block's output depends only on the signal window
+        behind it (`pipeline.py:1603-1615`; device ASRC, the waterfall and
+        the unfused chain are outside the port's slice)."""
+        return not self._agc_on
+
+    def _fold_decision(self, fold, params: DeviceParams) -> bool:
+        """Resolve `fold` ('auto', 'prefer', True, False) against this
+        pipeline and `params` (`pipeline.py:1552-1601`)."""
+        if params.casc_bank is not None:
+            # the folded batch axis breaks the tile-constant assignment
+            if fold is True:
+                raise ValueError(
+                    "fold=True is unsupported with per-stream filter banks "
+                    "(the folded batch axis breaks the tile-constant "
+                    "design assignment) — use fold='auto'")
+            return False
+        if fold is True:
+            if not self.supports_fold:
+                raise ValueError(
+                    "fold=True but this pipeline cannot fold (needs the "
+                    "fused single-rate chain without AGC)")
+            return True
+        if fold == "prefer":
+            return self.supports_fold
+        if fold == "auto":
+            per_stream = params.eq_gains.ndim == 2 or params.H_main.ndim == 2
+            return (self.supports_fold and self._use_td and not per_stream
+                    and self.cfg.dither_kind == "off"
+                    and self.device.type == "cuda" and self.batch < 256)
+        if fold is not False:
+            raise ValueError(
+                f"fold must be 'auto', 'prefer', True, or False; got {fold!r}")
+        return False
+
+    def _frame_rows(self, ext: torch.Tensor, nb: int, W: int) -> torch.Tensor:
+        """Frame [B, H + nb·L] into the hop-L windows [B·nb, W] (W = H + L),
+        rows B-major (row b·nb + i is block i of stream b), in any dtype
+        (`pipeline.py:1617-1631`)."""
+        return ext.unfold(1, W, self.block)[:, :nb].reshape(-1, W)
+
+    def process_signal_folded(self, params: DeviceParams, state: StreamState,
+                              signal):
+        """The offline fold: the [B, T] signal's blocks fold into the batch
+        axis and the conv chain runs as ONE batched call over [B·nb, ·]
+        rows (`pipeline.py:1633-1808`): K1 at the pipeline's precision; K8
+        under pair and pcm16 ingest (framed in the split domain, or from the
+        raw int16, both exact); K11 for per-stream gains (each stream's
+        gains repeated over its blocks); or, for 'fft', one batched
+        overlap-save, the clip, K2 and the int16 quantizer.  The dither
+        draws from the one key ``(seed, step)`` over the folded rows (the
+        scan walks one key per block: another realization of the same
+        noise); the state comes back as the scan leaves it (the signal's
+        last history columns, ``step`` advanced by the blocks).  The TPU's
+        8-row padding is not needed: the kernels mask rows."""
+        if not self.supports_fold:
+            raise ValueError("this pipeline cannot fold (it runs the AGC)")
+        cfg = self.cfg
+        signal = self._signal(signal)
+        B, T = signal.shape
+        if B != self.batch:
+            raise ValueError(f"signal must be [{self.batch}, T], got "
+                             f"{tuple(signal.shape)}")
+        L, n, kp = self.block, self.n_casc, self._k_pad
+        nb = T // L
+        if nb == 0:  # nothing to fold
+            return state, torch.zeros((B, 0), dtype=self.out_dtype,
+                                      device=self.device)
+        signal = signal[:, : nb * L]
+        tail = state.conv_tail
+        dkw = self._dither_kw(state, cfg.output_clip)
+        per_stream = self._per_stream(params)
+        pair_conv = self._use_td and not per_stream and (
+            self._i16_tail or self._pair_tail)
+        if not pair_conv:
+            # as the staged step: a pair-ingest signal rides as
+            # merge(split(x)) for the per-stream mix
+            ext, new_tail = self._ext(tail, merge_bf16(*split_bf16(signal))
+                                      if self._pair_tail else signal)
+            rows = self._frame_rows(ext, nb, n - 1 + L)
+        if self._use_td and per_stream:
+            gains = params.eq_gains.repeat_interleave(nb, dim=0)
+            y = fir_td_mxu_per_stream(rows, params.casc_bands, gains,
+                                      emit_i16=self._emit16,
+                                      precision=self.td_precision, **dkw)
+        elif self._use_td:
+            h = params.combined_cascade(self.has_eq)
+            if pair_conv:
+                # K8 over the split domain (the split is elementwise, so it
+                # commutes with the framing); the tail stays in its form
+                if self._i16_tail:
+                    raw = torch.cat([tail, signal], dim=-1)
+                    eh, el = split_bf16(pcm16_to_f32(raw))
+                    new_tail = raw[:, -kp:].clone()
+                else:
+                    eh, el = (torch.cat([t, x], dim=-1)
+                              for t, x in zip(tail, split_bf16(signal)))
+                    new_tail = (eh[:, -kp:].clone(), el[:, -kp:].clone())
+                rh, rl = (self._frame_rows(e, nb, kp + L) for e in (eh, el))
+                y, _, _ = fir_td_mxu_pair(rh[:, kp:], rl[:, kp:], rh[:, :kp],
+                                          rl[:, :kp], h, emit_i16=self._emit16,
+                                          **dkw)
+            else:
+                y = fir_td_mxu(rows, h, emit_i16=self._emit16,
+                               precision=self.td_precision, **dkw)
+        else:  # 'fft': one batched overlap-save pass
+            H = params.combined_response(self.has_eq)
+            if H.ndim == 2:  # per-stream responses, repeated over the blocks
+                H = H.repeat_interleave(nb, dim=0)
+            Y = torch.fft.rfft(rows, n=self.nfft) * H
+            y = torch.fft.irfft(Y, n=self.nfft)[:, n - 1: n - 1 + L]
+            if cfg.output_clip is not None:
+                y = torch.clamp(y, -cfg.output_clip, cfg.output_clip)
+            y = dither_cuda(y.contiguous(), (state.seed, state.step),
+                            cfg.dither_bits, cfg.dither_kind)
+            if self._emit16:
+                y = quantize_pcm16(y)
+        out = y.reshape(B, nb * L)
+        return StreamState(new_tail, state.seed, state.step + nb,
+                           state.agc_gain), out
+
     # ---------------- serving rings ----------------
 
     @property
     def supports_ring_step(self) -> bool:
-        """True when the ring forms are available, which needs the 'td_mxu'
-        strategy: the conv ring over one f32 or int16 PCM input ring, the
-        pair rings of pair ingest, or, with AGC, the fused AGC chain over one
-        f32 or int16 input ring."""
-        return self._use_td
+        """True when the ring forms are available, which needs the bf16×3
+        'td_mxu' conv (`pipeline.py:1055-1091`; not under HIGHEST): the conv
+        ring over one f32 or int16 PCM input ring, the pair rings of pair
+        ingest, or, with AGC, the fused AGC chain over one f32 or int16
+        input ring."""
+        return self._use_td and not self._highest
 
     def _taps(self, params: DeviceParams):
         """The conv's taps and bank keywords: the live shared taps, or the
@@ -686,7 +867,7 @@ class Pipeline:
         if not self.supports_ring_step:
             raise ValueError(
                 "ring_step requires a conv ring: conv_strategy='td_mxu' "
-                "(see supports_ring_step)")
+                "with a bf16-class td_precision (see supports_ring_step)")
         if (ring_lo is None) == self._pair_ingest:
             raise ValueError(
                 "ring form mismatch: pair-ingest pipelines take (hi, lo) "
@@ -714,8 +895,9 @@ class Pipeline:
         ``ring_hi`` [S, B, L] into slot `idx` of `out_ring`, written in
         place: K3 over an f32 ring, K12 over an int16 PCM ring (each banked
         under a filter bank), K13 over the pair rings ``(ring_hi,
-        ring_lo)`` of pair ingest.  With AGC, K5 and K6 read the slot in
-        place and K7 convolves K6's pair into the output slot
+        ring_lo)`` of pair ingest.  With AGC, K5 and K6 (or K14 alone under
+        the one-kernel option) read the slot in place and K7 convolves the
+        gained pair into the output slot
         (`afp_tpu/engine/pipeline.py:1093-1299`).  ``ring_lo`` is None
         except under pair ingest."""
         h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring)

@@ -14,7 +14,10 @@ The reference's `apply_agc` (`stream_process_AGC.py:43-89`):
 whole-batch ops), :func:`smooth_gain_blockwise` the 'fast' chunk-granular
 approximation.  The pipeline's hot path runs the same math in kernels K5
 (`ops/cuda/agc_rms.py`) and K6 (`ops/cuda/agc_scan.py`); these functions are
-the ops-level surface and the tests' reference.  ``smooth_gain_parallel``
+the ops-level surface and the tests' reference: on every device they run
+as written here.  :func:`apply_agc` on a CUDA tensor runs the recurrence as
+kernel K9 (`ops/cuda/agc_scan.py:smooth_gain_scan`, bit-exact to
+:func:`smooth_gain_scan`); on the CPU it stays plain.  ``smooth_gain_parallel``
 (the associative-scan solver, a reference implementation only) is ROADMAP
 §1 item 6.
 """
@@ -216,10 +219,13 @@ def apply_agc(x, params: AGCParams, carry: Optional[torch.Tensor] = None):
     """The whole AGC chain on a block: [..., T] → (gained [..., T],
     last gain [...]).  ``carry=None`` restarts every block, as the
     reference does; the returned gain carried into the next call makes the
-    stream block-size invariant."""
+    stream block-size invariant.  The recurrence runs as K9 on a CUDA
+    tensor (the same bits as :func:`smooth_gain_scan`)."""
+    from .cuda.agc_scan import smooth_gain_scan as scan  # K9 on the card
+
     x = _f32(x)
     rms = moving_rms(x, params.window_size)
     d = desired_gain(rms, params.target_level, params.max_gain)
-    g = smooth_gain_scan(d, params.a_att, params.a_rel, init=carry)
+    g = scan(d, params.a_att, params.a_rel, init=carry)
     g = torch.minimum(torch.clamp_min(g, 0.1), _f32(params.max_gain))
     return x * g, g[..., -1]

@@ -43,10 +43,10 @@ _EPI = (_I, _F, _I, _U, _U, _F)  # has_clip, clip, dither, seed, counter, lsb
 #: C entry points and their ctypes signatures (csrc/*.cu); every function
 #: returns the cudaError_t of its launch
 _SIGNATURES = {
-    "afp_fir_td": (_P, _P, _P, _I, _I, _I, _P, _I, _I, *_EPI, _I, _P),
+    "afp_fir_td": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, *_EPI, _I, _P),
     "afp_fir_td_ring": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P, _I, _I, *_EPI, _I, _P),
-    "afp_fir_td_ps": (_P, _P, _P, _P, _I, _I, _I, _I, *_EPI, _I, _P),
+    "afp_fir_td_ps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *_EPI, _I, _P),
     "afp_dither": (_P, _P, _LL, _I, _U, _U, _F, _P),
     "afp_fir_td_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, *_EPI, _I, _P),
@@ -54,6 +54,9 @@ _SIGNATURES = {
                         _F, _F, _P, _P, _P),
     "afp_agc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _F, _P, _P, _P, _P),
+    "afp_agc_scan": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "afp_agc_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                      _F, _P),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,7 @@
 """K6: the AGC gain recurrence, clip, apply and carry in one kernel
-(replaces `afp_tpu/ops/pallas/agc_scan.py:smooth_gain_apply_pallas`).
+(replaces `afp_tpu/ops/pallas/agc_scan.py:smooth_gain_apply_pallas`); K9:
+the recurrence alone (:func:`smooth_gain_scan`, replaces
+`agc_scan.py:smooth_gain_scan_pallas`).
 
 Per stream, over the time-major desired gain ``d`` [T, B]:
 
@@ -24,17 +26,24 @@ updates as XLA's CPU backend rounds the reference's expressions,
 and `afp_tpu` agree bit for bit given the same ``d``.
 ``smooth_gain_apply.launches`` counts kernel launches,
 ``smooth_gain_apply.vector_launches`` those with [B] vectors.
+
+K9's plain version is :func:`~afp_tpu_torch.ops.agc.smooth_gain_scan`
+itself (bit-exact to `afp_tpu`'s); the kernel rounds each step as K6 does and
+restarts without a carry at ``g = d[0]``, so the two agree bit for bit.
+``smooth_gain_scan.launches`` counts K9's launches.
 """
 from __future__ import annotations
 
 import torch
 
 from ..agc import compound_alpha, fma_f32
+from ..agc import smooth_gain_scan as _scan
 from . import _build
 from .agc_rms import knobs
 from .fir_td import _on_cuda, _raise_on, _stream, pcm16_to_f32, split_bf16
 
-__all__ = ["smooth_gain_apply", "smooth_gain_apply_plain"]
+__all__ = ["smooth_gain_apply", "smooth_gain_apply_plain", "smooth_gain_scan",
+           "smooth_gain_scan_plain"]
 
 
 def _chunk_mean(rows: torch.Tensor) -> torch.Tensor:
@@ -178,3 +187,68 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
 
 smooth_gain_apply.launches = 0
 smooth_gain_apply.vector_launches = 0
+
+
+# ---------------------------------------------------------------- K9
+
+
+def _scan_args(desired, time_major):
+    """The [B, T] view of `desired` (time-major [T, B], or [..., T] with its
+    leading axes flattened) and the output's leading shape."""
+    d = torch.as_tensor(desired)
+    if d.dtype != torch.float32 or d.ndim < 1 or (time_major and d.ndim != 2):
+        raise ValueError(f"desired must be float32 [..., T] (time_major: "
+                         f"[T, B]), got {tuple(d.shape)} {d.dtype}")
+    if time_major:
+        return d.T, (d.shape[1],)
+    return d.reshape(-1, d.shape[-1]), tuple(d.shape[:-1])
+
+
+def smooth_gain_scan_plain(desired, a_att, a_rel, init=None,
+                           time_major: bool = False,
+                           out_batch_major: bool = False) -> torch.Tensor:
+    """Plain K9: :func:`~afp_tpu_torch.ops.agc.smooth_gain_scan` on the
+    batch-major view (`out_batch_major` only chooses the kernel's store)."""
+    d, lead = _scan_args(desired, time_major)
+    if init is not None:
+        init = torch.broadcast_to(torch.as_tensor(
+            init, dtype=torch.float32, device=d.device).reshape(-1),
+            (d.shape[0],))
+    return _scan(d, a_att, a_rel, init).reshape(lead + (d.shape[-1],))
+
+
+def smooth_gain_scan(desired: torch.Tensor, a_att, a_rel, init=None,
+                     time_major: bool = False,
+                     out_batch_major: bool = False) -> torch.Tensor:
+    """K9: the exact attack/release recurrence over ``desired`` [..., T]
+    (or [T, B] with ``time_major``, the layout K5 emits), from ``init``
+    [...] or, without one, restarting at ``desired[..., 0]``; the drop-in
+    for :func:`~afp_tpu_torch.ops.agc.smooth_gain_scan`
+    (`agc_scan.py:142-201`).  The result is batch-major [..., T] (or
+    [B, T]); the kernel stores it so with ``out_batch_major``, else it
+    stores [T, B] and the result is that tensor's transposed view."""
+    d, lead = _scan_args(desired, time_major)
+    if not _on_cuda(d):
+        return smooth_gain_scan_plain(desired, a_att, a_rel, init,
+                                      time_major, out_batch_major)
+    B, T = d.shape
+    if init is not None:
+        init = torch.broadcast_to(torch.as_tensor(
+            init, dtype=torch.float32, device=d.device).reshape(-1),
+            (B,)).contiguous()
+    src = (d.T if time_major else d).contiguous()  # the layout as given
+    out = torch.empty((B, T) if out_batch_major else (T, B),
+                      dtype=torch.float32, device=d.device)
+    lib = _build.load()
+    with torch.cuda.device(d.device):
+        rc = lib.afp_agc_scan(
+            src.data_ptr(), None if init is None else init.data_ptr(),
+            out.data_ptr(), B, T, int(bool(time_major)),
+            int(not out_batch_major), float(a_att), float(a_rel), _stream(d))
+    _raise_on(rc, "smooth_gain_scan (K9)")
+    smooth_gain_scan.launches += 1
+    g = out if out_batch_major else out.T
+    return g.reshape(lead + (T,))
+
+
+smooth_gain_scan.launches = 0

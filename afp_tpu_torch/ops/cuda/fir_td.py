@@ -1,5 +1,5 @@
 """The fused FIR of the filter chain: kernels K1, K3, K4, K7, K8, K10, K11,
-K12, K13 and their plain PyTorch versions (counterpart of
+K12, K13, K15 and their plain PyTorch versions (counterpart of
 `afp_tpu/ops/pallas/fir_td.py`).
 
 Every output is the causal/valid convolution
@@ -27,7 +27,19 @@ K13  :func:`fir_td_mxu_ring`                 fir_td.py:fir_td_mxu_ring
 K13  :func:`fir_td_mxu_ring_mega`            fir_td.py:fir_td_mxu_ring_mega
 K10  :func:`fir_td_mxu_banked`               fir_td.py:fir_td_mxu_banked
 K11  :func:`fir_td_mxu_per_stream`           fir_td.py:fir_td_mxu_per_stream
+K15  ``precision=`` of K1 and K11             fir_td.py:_fir_td_call (HIGHEST,
+                                             B3F, B3C), _fir_td_ps_call
 ===  ======================================  ================================
+
+K15, the conv's precision (`AFP_TD_PRECISION` in `afp_tpu`, an argument
+here): ``'B3'`` (the default) is the bf16×3 class above.  ``'B3F'`` and
+``'B3C'`` are the same function in `afp_tpu`, with the input split inside
+the TPU kernel or over time-chunk pairs; this body always reads one f32
+input and splits it in its loader, so all three run the one bf16×3 body and
+agree bit for bit.  ``'HIGHEST'`` is the conv in full fp32, one product per
+tap (the MXU's 6-pass emulation of fp32 on the TPU; here the body's fp32
+option: plain f32 window and taps, one fmaf per tap).  K1 and K11 take it;
+the ring, pair and bank forms are bf16×3 only, as in `afp_tpu`.
 
 The bank option (per-stream filter banks, `engine/batch.py`): K10 is K1 over
 a tap bank ``[D, n]`` with a per-tile design assignment ``assign``
@@ -70,7 +82,7 @@ import torch
 from ..dither import lsb_for_bits, noise
 from . import _build
 
-__all__ = ["LANE", "PCM16_SCALE", "split_bf16", "merge_bf16", "band_matrix",
+__all__ = ["LANE", "PCM16_SCALE", "PRECISIONS", "split_bf16", "merge_bf16", "band_matrix",
            "ring_k_pad", "quantize_pcm16", "pcm16_to_f32",
            "fir_td_mxu", "fir_td_mxu_plain",
            "fir_td_mxu_ring_f32", "fir_td_mxu_ring_f32_plain",
@@ -91,6 +103,9 @@ LANE = 128
 #: int16 PCM full scale: sample n is n/32768 (`fir_td.py:207`).  A power of
 #: two, so the convert is exact in f32.
 PCM16_SCALE = 1.0 / 32768.0
+
+#: the conv precisions (`fir_td.py:43-59`); see the module docstring (K15)
+PRECISIONS = ("B3", "B3F", "B3C", "HIGHEST")
 
 _M32 = 0xFFFFFFFF
 _IN_F32, _IN_I16, _IN_PAIR = 0, 1, 2  # csrc/fir_td.cu kInF32, kInI16, kInPair
@@ -160,6 +175,16 @@ def _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16=False):
         y = y + noise(y.shape, dither_key, lsb_for_bits(dither_bits),
                       dither_tpdf, y.device)
     return quantize_pcm16(y) if emit_i16 else y
+
+
+def is_highest(precision) -> bool:
+    """True for ``'HIGHEST'``, False for the bf16×3 modes; anything else
+    raises (case-insensitive, as `afp_tpu` reads ``AFP_TD_PRECISION``)."""
+    p = str(precision).upper()
+    if p not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return p == "HIGHEST"
 
 
 def _check_taps(h: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -277,21 +302,42 @@ def _conv_split(xh: torch.Tensor, xl: torch.Tensor, h: torch.Tensor):
         return (wh @ bh + wh @ bl + wl @ bh).reshape(B, T)
 
 
+def _conv_f32(x_ext: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """K15's HIGHEST conv of the f32 extended signal [B, n−1+T] → [B, T]:
+    one full-fp32 matmul over LANE-wide output tiles against the band
+    matrix (`fir_td.py:_fir_kernel`)."""
+    B, text = x_ext.shape
+    n = h.shape[0]
+    T = text - (n - 1)
+    w = x_ext.unfold(1, n - 1 + LANE, LANE)  # [B, T/LANE, rows]
+    with _full_fp32_matmul():
+        return (w @ band_matrix(h)).reshape(B, T)
+
+
+def _conv(x_ext: torch.Tensor, h: torch.Tensor, highest: bool):
+    """The conv of K1 at a precision: fp32 (HIGHEST) or bf16×3."""
+    return _conv_f32(x_ext, h) if highest else _conv_split(*_split_f32(x_ext), h)
+
+
 def fir_td_mxu_plain(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
                      dither_key=(0, 0), dither_bits=None,
-                     dither_tpdf=True, emit_i16=False) -> torch.Tensor:
-    """Plain K1: ``[B, n−1+T] → [B, T]``."""
-    y = _conv_split(*_split_f32(x_ext), h)
+                     dither_tpdf=True, emit_i16=False,
+                     precision="B3") -> torch.Tensor:
+    """Plain K1: ``[B, n−1+T] → [B, T]`` at `precision`."""
+    y = _conv(x_ext, h, is_highest(precision))
     return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
 
 
 def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
                dither_key=(0, 0), dither_bits=None,
-               dither_tpdf=True, emit_i16=False) -> torch.Tensor:
+               dither_tpdf=True, emit_i16=False,
+               precision="B3") -> torch.Tensor:
     """K1: causal/valid conv of ``x_ext`` [B, n−1+T] with taps ``h`` [n] →
     [B, T] f32 (int16 PCM with ``emit_i16``), with the optional clip then
     dither fused into the store.  ``T`` must be a multiple of :data:`LANE`
-    (`fir_td.py:1665-1698`)."""
+    (`fir_td.py:1665-1698`).  ``precision='HIGHEST'`` is K15's fp32 conv
+    (``.highest_launches`` counts it); the bf16×3 modes share one body."""
+    highest = is_highest(precision)
     if x_ext.ndim != 2 or x_ext.dtype != torch.float32:
         raise ValueError(f"x_ext must be [B, n-1+T] float32, got "
                          f"{tuple(x_ext.shape)} {x_ext.dtype}")
@@ -303,7 +349,7 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
         raise ValueError(f"output length {T} must be a multiple of {LANE}")
     if not _on_cuda(x_ext):
         return fir_td_mxu_plain(x_ext, h, out_clip, dither_key, dither_bits,
-                                dither_tpdf, emit_i16)
+                                dither_tpdf, emit_i16, precision)
     x_ext = x_ext.contiguous()
     out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
                       device=x_ext.device)
@@ -311,14 +357,16 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
     with torch.cuda.device(x_ext.device):
         rc = lib.afp_fir_td(
             x_ext.data_ptr(), h.data_ptr(), out.data_ptr(), B, T, n, None, 0, 0,
-            *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
+            int(highest), *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
             int(bool(emit_i16)), _stream(x_ext))
-    _raise_on(rc, "fir_td_mxu (K1)")
+    _raise_on(rc, "fir_td_mxu (K15)" if highest else "fir_td_mxu (K1)")
     fir_td_mxu.launches += 1
+    fir_td_mxu.highest_launches += int(highest)
     return out
 
 
 fir_td_mxu.launches = 0
+fir_td_mxu.highest_launches = 0
 
 
 # ---------------------------------------------------------------- K10
@@ -375,7 +423,7 @@ def fir_td_mxu_banked(x_ext: torch.Tensor, bank: torch.Tensor, assign,
     with torch.cuda.device(x_ext.device):
         rc = lib.afp_fir_td(
             x_ext.data_ptr(), bank.data_ptr(), out.data_ptr(), B, T, n,
-            assign.data_ptr(), bt, D,
+            assign.data_ptr(), bt, D, 0,
             *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
             int(bool(emit_i16)), _stream(x_ext))
     _raise_on(rc, "fir_td_mxu_banked (K10)")
@@ -410,33 +458,47 @@ def _check_per_stream(x_ext, kernels, gains):
 
 def fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip=None,
                                 dither_key=(0, 0), dither_bits=None,
-                                dither_tpdf=True, emit_i16=False):
-    """Plain K11: each band's split conv (the plain K1's), mixed as
-    ``y = y + gains[:, k]·z_k`` in band order, then K1's output stage."""
+                                dither_tpdf=True, emit_i16=False,
+                                precision="B3"):
+    """Plain K11: each band's conv (the plain K1's, at `precision`), mixed
+    as ``y = y + gains[:, k]·z_k`` in band order, then K1's output stage."""
     B, T, _, K = _check_per_stream(x_ext, kernels, gains)
-    xh, xl = _split_f32(x_ext)
+    if is_highest(precision):
+        def band(k):
+            return _conv_f32(x_ext, kernels[k])
+    else:
+        xh, xl = _split_f32(x_ext)
+
+        def band(k):
+            return _conv_split(xh, xl, kernels[k])
     y = torch.zeros((B, T), dtype=torch.float32, device=x_ext.device)
     for k in range(K):
-        y = y + gains[:, k:k + 1] * _conv_split(xh, xl, kernels[k])
+        y = y + gains[:, k:k + 1] * band(k)
     return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
 
 
 def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
                           gains: torch.Tensor, out_clip=None,
                           dither_key=(0, 0), dither_bits=None,
-                          dither_tpdf=True, emit_i16=False) -> torch.Tensor:
+                          dither_tpdf=True, emit_i16=False,
+                          precision="B3") -> torch.Tensor:
     """K11: the per-stream EQ mix ``y[b] = Σ_k gains[b, k]·(x[b] ⊛
     kernels[k])`` of ``x_ext`` [B, n−1+T] with K band kernels [K, n] and
     per-stream gains [B, K] → [B, T] (`fir_td.py:1784-1810`), each band in
     the bf16×3 class with fp32 accumulation, mixed in fp32.  The output
     stage is K1's (clip, dither, int16 store), fused: the same bits as
     K11, then clip, then :func:`~afp_tpu_torch.ops.cuda.dither.dither_cuda`,
-    then :func:`quantize_pcm16`.  Any batch runs (rows are masked)."""
+    then :func:`quantize_pcm16`.  Any batch runs (rows are masked).
+    ``precision='HIGHEST'`` runs each band in fp32 (K15,
+    `fir_td.py:_fir_kernel_ps`; ``.highest_launches`` counts it).  (`afp_tpu`
+    sends every mode but 'B3' to its fp32 kernel here; the port keeps B3F
+    and B3C what they are elsewhere, the bf16×3 function.)"""
+    highest = is_highest(precision)
     B, T, n, K = _check_per_stream(x_ext, kernels, gains)
     if not _on_cuda(x_ext):
         return fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip,
                                            dither_key, dither_bits,
-                                           dither_tpdf, emit_i16)
+                                           dither_tpdf, emit_i16, precision)
     x_ext, kernels, gains = (t.contiguous() for t in (x_ext, kernels, gains))
     out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
                       device=x_ext.device)
@@ -444,15 +506,18 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
     with torch.cuda.device(x_ext.device):
         rc = lib.afp_fir_td_ps(
             x_ext.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
-            out.data_ptr(), B, T, n, K,
+            out.data_ptr(), B, T, n, K, int(highest),
             *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
             int(bool(emit_i16)), _stream(x_ext))
-    _raise_on(rc, "fir_td_mxu_per_stream (K11)")
+    _raise_on(rc, "fir_td_mxu_per_stream (K15)" if highest
+              else "fir_td_mxu_per_stream (K11)")
     fir_td_mxu_per_stream.launches += 1
+    fir_td_mxu_per_stream.highest_launches += int(highest)
     return out
 
 
 fir_td_mxu_per_stream.launches = 0
+fir_td_mxu_per_stream.highest_launches = 0
 
 
 # ---------------------------------------------------------------- ring forms

@@ -68,6 +68,9 @@ class RingServer:
     (dispatch each chunk as one K4 launch instead of one K3 launch per
     block — same outputs, bit for bit), and `packing` (a `StreamPacking`:
     the caller sees its own stream order; an identity packing is None).
+    The pipeline's options ride along: with ``agc_one_kernel`` its AGC ring
+    step is K14 → K7; a ``td_precision='HIGHEST'`` pipeline has no ring
+    form and is refused, as in `afp_tpu`.
     """
 
     def __init__(self, pipeline: Pipeline,
@@ -82,7 +85,8 @@ class RingServer:
         if not pipeline.supports_ring_step:
             raise ValueError(
                 "RingServer requires a ring-capable pipeline: the f32 conv "
-                "ring, conv_strategy='td_mxu' (see Pipeline.supports_ring_step)")
+                "ring, conv_strategy='td_mxu' with a bf16-class td_precision "
+                "(see Pipeline.supports_ring_step)")
         if mega and pipeline.cfg.agc_enabled:
             raise ValueError("mega=True has no fused-AGC form: the AGC chain "
                              "serves through run_ring (mega=False)")

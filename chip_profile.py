@@ -25,7 +25,8 @@ BLOCKS = 8  # staged blocks per cell; the serving cells serve 16
 #: device event name → class (first match wins)
 CLASSES = (("fir_ps_kernel", "K11"), ("fir_b3_kernel", "conv"),
            ("ring_tail_kernel", "ring tail"), ("rms_desired_kernel", "K5"),
-           ("agc_apply_kernel", "K6"), ("dither_kernel", "K2"),
+           ("agc_apply_kernel", "K6"), ("agc_fused_kernel", "K14"),
+           ("agc_scan_kernel", "K9"), ("dither_kernel", "K2"),
            ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H"),
            ("Memcpy DtoD", "D2D"), ("Memset", "memset"), ("fft", "cuFFT"),
            ("index", "gather"), ("gather", "gather"))
@@ -76,7 +77,8 @@ def profiled(torch, fn, per: int) -> str:
 
 def cells(torch, dev, sz):
     """(name, pipeline, params, batch, block, serves?, packing) for each
-    cell."""
+    cell: the smoke's, with C5-highest and C8-highest (``td_precision=
+    'HIGHEST'``, staged only: no ring form) and C8-one (``agc_one_kernel``)."""
     from afp_tpu_torch.engine import (Pipeline, PipelineParams, StreamConfig,
                                       batch)
 
@@ -95,8 +97,15 @@ def cells(torch, dev, sz):
     pp = Pipeline(cs.c5_config(sz), dev)
     pparams, pk = cs.c5_bank(pp, interleaved=True)
     out.append(("C5-bank-packed", pp, pparams, sz.batch, sz.block, True, pk))
+    ph = Pipeline(cs.c5_config(sz), dev, td_precision="HIGHEST")
+    out.append(("C5-highest", ph, shared(ph), sz.batch, sz.block, False, None))
     p8 = Pipeline(cs.c8_config(sz), dev)
     out.append(("C8", p8, shared(p8), sz.c8_batch, sz.c8_block, True, None))
+    for name, kw in (("C8-highest", dict(td_precision="HIGHEST")),
+                     ("C8-one", dict(agc_one_kernel=True))):
+        pk8 = Pipeline(cs.c8_config(sz), dev, **kw)
+        out.append((name, pk8, shared(pk8), sz.c8_batch, sz.c8_block,
+                    pk8.supports_ring_step, None))
     out.append(("C8-psg", p8, batch.with_per_stream_gains(
         p8, shared(p8), cs.psg_gains(sz.c8_batch)), sz.c8_batch, sz.c8_block,
         False, None))

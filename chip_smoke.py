@@ -22,8 +22,12 @@ Phases, one output line each; any failure raises (exit code != 0):
    version and row by row ≡ its shared-taps form on that row's design; K11
    at C8-psg (9 bands, per-stream gains) ≤ −110 dB, its fused epilogue ≡
    K11 → clip → K2 → quantize_pcm16; K5/K6 with [B] vectors ≡ the scalar
-   runs per policy group; and one F.conv1d (fp32, TF32 off) per conv shape
-   as the library yardstick;
+   runs per policy group; then the last three: K15's HIGHEST K1 at the C5
+   headline and HIGHEST K11 at C8-psg (≤ −110 dB, B3F/B3C ≡ B3), K14 at the
+   C8 point (f32, int16, pair store, ring slot; restart and carry) and K9
+   (both layouts and stores), each bit-exact against its plain version;
+   and one F.conv1d (fp32, TF32 off) per conv shape as the library
+   yardstick;
 4. `Pipeline.run` at the C5 headline (batch 4096, 8 blocks), and the
    single-stream chain against the float64 oracle of `bench.py:394-418`
    (< −90 dB); then the C8 chain (`bench.py:827-843`): 'exact' and 'fast'
@@ -37,7 +41,12 @@ Phases, one output line each; any failure raises (exit code != 0):
    C5-bank (rows ≡ the shared pipeline on their design), C8-psg and
    C8-psagc 'exact' and 'fast' (each policy group ≡ its scalar pipeline),
    8 blocks each, and their oracles (one stream per design, 4 streams with
-   their own gains, one stream per policy; < −90 dB);
+   their own gains, one stream per policy; < −90 dB); then C5-highest and
+   C8-highest (``td_precision='HIGHEST'``, 8 blocks each) and their oracles,
+   C8-one (``agc_one_kernel=True``, 8 blocks) and its oracle, the offline
+   fold of a stereo file (C5 at batch 2 over 256 blocks, B3 and HIGHEST:
+   fold ≡ scan bit for bit, dither off, both walls), and `apply_agc` at the
+   C8 point on the card (K9) ≡ its plain run;
 5. `RingServer` at the C5 headline (16 slots, chunk 4, 16 blocks),
    megakernel and per-step forms: bit-identical with dither on, ≤ −110 dB
    against staged steps with dither off; then the C8 chain's per-step ring
@@ -46,16 +55,18 @@ Phases, one output line each; any failure raises (exit code != 0):
    steps with dither on, and C8-i16io's per-step ring ≡ its staged steps;
    then C5-bank mega ≡ per-step ≡ staged, C5-bank-packed (interleaved
    designs, `packing=`) ≡ C5-bank in caller order, C5-i16io-bank mega ≡
-   staged, C8-psagc's per-step ring ≡ staged, all with dither on;
+   staged, C8-psagc's per-step ring ≡ staged, all with dither on; C8-one's
+   per-step ring (K14 → K7) ≡ its staged steps, dither on;
 6. `StreamEngine` with the README quick-start configuration ('fft', EQ on,
    batch 512): process_block ×4, set_eq_gains, ×2, process_signal; and with
    the C8 configuration: process_block ×4, apply_config with a new AGC
    target, ×2; then at C8-i16io the same with int16 blocks in and out and a
    float block refused; then QS-psg: per-stream gains [512, 9] after 4
    blocks, ≡ a Pipeline stepped alongside; no degradation-ladder fallback;
-7. every kernel (K1-K8, K10-K13) and every option (the bank option of K3,
-   K4, K12; the vector option of K5, K6) launched during phases 4-6, and
-   each transport and bank phase launched its own.
+7. every kernel (K1-K15) and every option (the bank option of K3, K4, K12;
+   the vector option of K5, K6; the HIGHEST option of K1 and K11, K15)
+   launched during phases 4-6, and each transport, bank and last-slice
+   phase launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times, bound (its operations and bytes at
@@ -772,7 +783,12 @@ def phase_c8_pipeline(torch, dev, sz: Sizes) -> None:
         _, y = pipe.run(params, pipe.init_state(seed=1), sig)
         outs[where.type] = y.cpu().numpy()
     e = err_db(outs[dev.type], outs["cpu"])
-    check(e <= CHAIN_DB, f"C8 batch 8: card vs CPU {e:.1f} dB")
+    diff = np.abs(outs[dev.type] - outs["cpu"])
+    at = np.unravel_index(int(diff.argmax()), diff.shape)
+    check(e <= CHAIN_DB, f"C8 batch 8: card vs CPU {e:.1f} dB, largest at (block, "
+          f"stream, t) {tuple(int(i) for i in at)}: card {outs[dev.type][at]!r}, "
+          f"CPU {outs['cpu'][at]!r}, per block "
+          f"{[round(err_db(a, b), 1) for a, b in zip(outs[dev.type], outs['cpu'])]} dB")
     say(f"phase 4 C8 batch 8, 4 blocks, dither on: card vs the port's CPU run "
         f"{e:.1f} dB (<= {CHAIN_DB})")
 
@@ -1639,6 +1655,323 @@ def phase_bank_engine(torch, dev, sz: Sizes) -> None:
         f"metrics {m.snapshot()}")
 
 
+# ---------------------------------------------------------------- K15, K14, K9
+
+
+def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
+    """K15's HIGHEST K1 at the C5 headline and HIGHEST K11 at C8-psg
+    (≤ −110 dB against their plain versions, B3F/B3C ≡ B3, with the
+    same-function F.conv1d yardstick), K14 at the C8 point (f32, int16,
+    pair store, ring slot; restart and carry) and K9 at [c8_batch, c8_block]
+    (both layouts, restart and carry), each bit-exact against its plain
+    version."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops import agc as A
+    from afp_tpu_torch.ops.cuda import agc_fused as K14
+    from afp_tpu_torch.ops.cuda import agc_rms as R
+    from afp_tpu_torch.ops.cuda import agc_scan as S
+    from afp_tpu_torch.ops.cuda import dither_cuda
+    from afp_tpu_torch.ops.cuda import fir_td as F
+
+    pipe = Pipeline(c5_config(sz), dev)
+    h = pipe.device_params(PipelineParams.design(pipe.cfg)).casc_main
+    n, B, T = pipe.n_casc, sz.batch, sz.block
+    g = torch.Generator(device=dev).manual_seed(100)
+    dkw = dict(out_clip=0.2, dither_key=(5, 7), dither_bits=16, dither_tpdf=True)
+    hi = dict(precision="HIGHEST")
+    res = {}
+
+    # K15: HIGHEST K1 at the C5 headline; B3F and B3C are the B3 body
+    x_ext = torch.randn(B, n - 1 + T, generator=g, device=dev) * 0.3
+    yk = F.fir_td_mxu(x_ext, h, **hi)
+    yp = F.fir_td_mxu_plain(x_ext, h, **hi)
+    e15 = err_db(yk.cpu(), yp.cpu())
+    epi = torch.equal(F.fir_td_mxu(x_ext, h, **hi, **dkw), F._finish(yk, 0.2, (5, 7), 16, True))
+    b3 = F.fir_td_mxu(x_ext, h, **dkw)
+    same = all(torch.equal(F.fir_td_mxu(x_ext, h, precision=p, **dkw), b3)
+               for p in ("B3F", "B3C"))
+    e_b3 = err_db(b3.cpu(), F.fir_td_mxu(x_ext, h, **hi, **dkw).cpu())
+    check(e15 <= CONV_DB and epi and same,
+          f"K15 HIGHEST K1: {e15:.1f} dB, epilogue {epi}, B3F/B3C == B3 {same}")
+    t_b3 = time_ms(torch, lambda: F.fir_td_mxu(x_ext, h, **dkw), 10)
+    res["fir_td_mxu:highest"] = dict(
+        max_abs_err=float((yk - yp).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu(x_ext, h, **hi, **dkw), 10),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_plain(x_ext, h, **hi, **dkw), 3),
+        **bound(2.0 * B * T * n, 4 * (B * (n - 1 + T) + n + B * T), FP32_FLOPS),
+        library_ms=library_conv(torch, "C5 HIGHEST", x_ext, h, yk))
+    r = res["fir_td_mxu:highest"]
+    say(f"phase 3 K15 HIGHEST K1 fir_td_mxu(precision='HIGHEST') [{B}, {n - 1}+{T}] "
+        f"x {n} taps: {e15:.1f} dB vs plain, epilogue bit-exact, {e_b3:.1f} dB "
+        f"from B3; B3F and B3C == B3 bit for bit; {r['ms']:.3f} ms (B3 {t_b3:.3f} "
+        f"ms in this call) vs plain {r['plain_ms']:.3f} ms")
+    del x_ext, yk, yp, b3
+
+    # K15: HIGHEST K11 at C8-psg
+    p8 = Pipeline(c8_config(sz), dev)
+    bands = p8.device_params(PipelineParams.design(p8.cfg)).casc_bands
+    K, n8, B8, T8 = bands.shape[0], p8.n_casc, sz.c8_batch, sz.c8_block
+    gains = torch.as_tensor(psg_gains(B8), device=dev)
+    x8 = torch.randn(B8, n8 - 1 + T8, generator=g, device=dev) * 0.1
+    yk = F.fir_td_mxu_per_stream(x8, bands, gains, **hi)
+    yp = F.fir_td_mxu_per_stream_plain(x8, bands, gains, **hi)
+    e11 = err_db(yk.cpu(), yp.cpu())
+    unfused = dither_cuda(torch.clamp(yk, -0.2, 0.2), (5, 7), 16, "tpdf")
+    fused = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, **hi, **dkw), unfused)
+    check(e11 <= CONV_DB and fused,
+          f"K15 HIGHEST K11: {e11:.1f} dB, fused epilogue {fused}")
+    t_b3 = time_ms(torch, lambda: F.fir_td_mxu_per_stream(x8, bands, gains, **dkw), 5)
+    res["fir_td_mxu_per_stream:highest"] = dict(
+        max_abs_err=float((yk - yp).abs().max()),
+        ms=time_ms(torch, lambda: F.fir_td_mxu_per_stream(x8, bands, gains, **hi,
+                                                          **dkw), 5),
+        plain_ms=time_ms(torch, lambda: F.fir_td_mxu_per_stream_plain(
+            x8, bands, gains, **hi, **dkw), 1),
+        **bound(2.0 * B8 * T8 * n8 * K + 2.0 * B8 * T8 * K,
+                4 * (B8 * (n8 - 1 + T8) + K * n8 + B8 * K + B8 * T8), FP32_FLOPS),
+        # one grouped F.conv1d over each row's mixed taps, as for K11
+        library_ms=library_conv(torch, "C8-psg HIGHEST", x8,
+                                (gains[:, :, None] * bands[None]).sum(1), yk))
+    r = res["fir_td_mxu_per_stream:highest"]
+    say(f"phase 3 K15 HIGHEST K11 fir_td_mxu_per_stream(precision='HIGHEST') "
+        f"[{B8}, {n8 - 1}+{T8}] x {K} bands: {e11:.1f} dB vs plain, fused clip + "
+        f"dither == K11 -> clip -> K2; {r['ms']:.3f} ms (B3 {t_b3:.3f} ms in this "
+        f"call) vs plain {r['plain_ms']:.3f} ms")
+    del x8, yk, yp, unfused
+
+    # K14 at the C8 point: every input form, restart and carry, bit-exact
+    W = sz.c8_window
+    knobs = (p8.agc.a_att, p8.agc.a_rel, 0.1, 10.0)
+    x = torch.randn(B8, T8, generator=g, device=dev) * 0.1
+    x[: B8 // 8] *= 8.0
+    x16 = torch.clamp(torch.round(x * 32768), -32768, 32767).to(torch.int16)
+    ring = torch.stack([torch.zeros_like(x), x, torch.ones_like(x)])
+    init = torch.rand(B8, generator=g, device=dev) * 4.0 + 0.2
+    cases = [("f32 restart", x, {}), ("f32 carry", x, dict(init=init)),
+             ("int16 carry", x16, dict(init=init)),
+             ("pair carry", x, dict(init=init, emit_split=True)),
+             ("ring slot, pair, restart", ring, dict(ring_idx=1, emit_split=True))]
+    for name, src, kw in cases:
+        yk, ck = K14.agc_rms_apply(src, W, *knobs, **kw)
+        yp, cp = K14.agc_rms_apply_plain(src, W, *knobs, **kw)
+        ys = (all(torch.equal(a, b) for a, b in zip(yk, yp)) if isinstance(yk, tuple)
+              else torch.equal(yk, yp))
+        ng = int((ck != cp).sum())
+        check(ys and ng == 0, f"K14 {name}: output equal {ys}, {ng} gains differ")
+    res["agc_rms_apply"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: K14.agc_rms_apply(x, W, *knobs, init=init,
+                                                    emit_split=True), 10),
+        plain_ms=time_ms(torch, lambda: K14.agc_rms_apply_plain(
+            x, W, *knobs, init=init, emit_split=True), 1),
+        # ~20 fp32 operations per sample (square, two running sums, the
+        # window, sqrt, divide, clips, the recurrence, the apply)
+        **bound(20.0 * B8 * T8, 8 * B8 * T8 + 8 * B8, FP32_FLOPS), library_ms=None)
+    r = res["agc_rms_apply"]
+    t56 = (time_ms(torch, lambda: R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0,
+                                                True, transposed=True), 10)
+           + time_ms(torch, lambda: S.smooth_gain_apply(
+               R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0, True,
+                             transposed=True), x, *knobs[:2], 10.0, init=init,
+               emit_split=True), 10))
+    say(f"phase 3 K14 agc_rms_apply [{B8}, {T8}] W={W}: {', '.join(c[0] for c in cases)} "
+        f"== plain bit for bit (output and gain); {r['ms']:.3f} ms (K5 + K6 "
+        f"{t56:.3f} ms in this call, K5 counted twice) vs plain {r['plain_ms']:.3f} ms")
+    del ring, x16
+
+    # K9 at the same shape: both layouts and stores, restart and carry
+    d = R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0, True, transposed=True)
+    db = d.T.contiguous()
+    for ini in (None, init):
+        want = A.smooth_gain_scan(db, *knobs[:2], init=ini)
+        for tm in (False, True):
+            for bm in (False, True):
+                got = S.smooth_gain_scan(d if tm else db, *knobs[:2], init=ini,
+                                         time_major=tm, out_batch_major=bm)
+                check(torch.equal(got, want),
+                      f"K9 time_major={tm} out_batch_major={bm} init="
+                      f"{ini is not None}: differs from the plain scan")
+    res["smooth_gain_scan"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: S.smooth_gain_scan(d, *knobs[:2], init=init,
+                                                     time_major=True,
+                                                     out_batch_major=True), 10),
+        plain_ms=time_ms(torch, lambda: A.smooth_gain_scan(db, *knobs[:2], init=init), 1),
+        # compare, select, subtract, multiply, fma per step
+        **bound(5.0 * B8 * T8, 8 * B8 * T8 + 4 * B8, FP32_FLOPS), library_ms=None)
+    r = res["smooth_gain_scan"]
+    say(f"phase 3 K9 smooth_gain_scan [{T8}, {B8}] and [{B8}, {T8}] in, both "
+        f"stores, restart and carry: == the plain scan bit for bit; {r['ms']:.3f} "
+        f"ms (time-major in, batch-major store) vs plain {r['plain_ms']:.3f} ms")
+    return res
+
+
+def phase_highest_pipeline(torch, dev, sz: Sizes) -> None:
+    """C5-highest, C8-highest and C8-psg-highest (``td_precision='HIGHEST'``:
+    HIGHEST K1, and HIGHEST K11 under per-stream gains) through
+    `Pipeline.run`, 8 blocks at full batch, and their float64 oracles."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, batch
+
+    g = torch.Generator(device=dev).manual_seed(110)
+    for name, cfg, B, T, scale in (
+            ("C5-highest", c5_config(sz), sz.batch, sz.block, 0.3),
+            ("C8-highest", c8_config(sz), sz.c8_batch, sz.c8_block, 0.1),
+            ("C8-psg-highest", c8_config(sz), sz.c8_batch, sz.c8_block, 0.1)):
+        pipe = Pipeline(cfg, dev, td_precision="HIGHEST")
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        if "psg" in name:
+            params = batch.with_per_stream_gains(pipe, params, psg_gains(B))
+        blocks = torch.randn(sz.run_blocks, B, T, generator=g, device=dev) * scale
+        outs, wall = run_wall(torch, dev, pipe, params, blocks)
+        check(outs.shape == blocks.shape and bool(torch.isfinite(outs).all()),
+              f"{name} Pipeline.run: shape or finiteness")
+        audio_s = sz.run_blocks * B * T / pipe.cfg.samplerate
+        say(f"phase 4 {name} Pipeline.run batch {B} x {sz.run_blocks} blocks of {T}: "
+            f"{wall * 1e3:.1f} ms wall ({wall * 1e3 / sz.run_blocks:.2f} ms/block, "
+            f"{audio_s / wall:.0f}x realtime, host clock)")
+        del blocks, outs
+
+    rng = np.random.default_rng(111)
+    x5 = (rng.standard_normal((1, 4 * sz.block)) * 0.3).astype(np.float32)
+    x8 = (rng.standard_normal((4, 4 * sz.c8_block)) * 0.1).astype(np.float32)
+    x8[0, : sz.c8_block] *= 8.0
+    x8[1] *= 1e-2
+    es = {}
+    gains = psg_gains(4, seed=112)
+    for name, base, x, oracle in (
+            ("C5-highest", c5_config(sz, batch=1), x5, c5_oracle),
+            ("C8-highest", c8_config(sz, batch=4), x8, c8_oracle),
+            ("C8-psg-highest", c8_config(sz, batch=4), x8, c8_oracle)):
+        pipe = Pipeline(replace(base, dither_kind="off"), dev, td_precision="HIGHEST")
+        design = PipelineParams.design(pipe.cfg)
+        params, okw = pipe.device_params(design), {}
+        if "psg" in name:
+            params = batch.with_per_stream_gains(pipe, params, gains)
+            okw = dict(gains=gains)
+        _, out = pipe.process_signal(params, pipe.init_state(), x, fold=False)
+        es[name] = err_db(out.cpu().numpy(), oracle(x, pipe.cfg, design, **okw))
+    check(max(es.values()) < ORACLE_DB, f"HIGHEST oracles: {es} (< {ORACLE_DB})")
+    say(f"phase 4 HIGHEST oracles, dither off, 4 blocks: C5-highest one stream "
+        f"{es['C5-highest']:.1f} dB, C8-highest 4 streams {es['C8-highest']:.1f} dB, "
+        f"C8-psg-highest 4 streams with their own gains {es['C8-psg-highest']:.1f} dB "
+        f"vs float64 (< {ORACLE_DB})")
+
+
+def phase_one_kernel(torch, dev, sz: Sizes) -> None:
+    """C8-one (``agc_one_kernel=True``, 'exact'): `Pipeline.run` 8 blocks at
+    full batch (K14 → K8), its float64 oracle, and a per-step `RingServer`
+    (K14 over the slot → K7) ≡ its staged steps bit for bit with dither on."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+
+    g = torch.Generator(device=dev).manual_seed(120)
+    pipe = Pipeline(c8_config(sz), dev, agc_one_kernel=True)
+    check(pipe._agc_one_kernel, "C8-one: the one-kernel gate is off")
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    blocks = torch.randn(sz.run_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                         device=dev) * 0.1
+    outs, wall = run_wall(torch, dev, pipe, params, blocks)
+    check(outs.shape == blocks.shape and bool(torch.isfinite(outs).all())
+          and float(outs.abs().max()) <= 0.99 + 2.0 ** -14,
+          "C8-one Pipeline.run: shape, finiteness or clip")
+    audio_s = sz.run_blocks * sz.c8_batch * sz.c8_block / pipe.cfg.samplerate
+    say(f"phase 4 C8-one Pipeline.run batch {sz.c8_batch} x {sz.run_blocks} blocks "
+        f"of {sz.c8_block}: {wall * 1e3:.1f} ms wall ({wall * 1e3 / sz.run_blocks:.2f} "
+        f"ms/block, {audio_s / wall:.0f}x realtime, host clock)")
+    del blocks, outs
+
+    opipe = Pipeline(c8_config(sz, batch=4, dither_kind="off"), dev, agc_one_kernel=True)
+    design = PipelineParams.design(opipe.cfg)
+    x = (np.random.default_rng(121).standard_normal((4, 4 * sz.c8_block)) * 0.1
+         ).astype(np.float32)
+    x[0, : sz.c8_block] *= 8.0
+    x[1] *= 1e-2
+    _, out = opipe.process_signal(opipe.device_params(design), opipe.init_state(), x,
+                                  fold=False)
+    e = err_db(out.cpu().numpy(), c8_oracle(x, opipe.cfg, design))
+    check(e < ORACLE_DB, f"C8-one oracle: {e:.1f} dB (< {ORACLE_DB})")
+    say(f"phase 4 C8-one oracle: 4 streams, 4 blocks, dither off: {e:.1f} dB vs the "
+        f"float64 AGC + chain (< {ORACLE_DB})")
+
+    src = list((torch.randn(sz.serve_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                            device=dev) * 0.1).cpu().numpy())
+    got, stats = serve_warm(pipe, params, src, sz)
+    check(np.array_equal(got, staged_outputs(torch, pipe, params, src)),
+          "C8-one RingServer differs from its staged steps (dither on)")
+    lat = stats["latency"]
+    say(f"phase 5 C8-one RingServer per-step ring, {sz.slots} slots, chunk "
+        f"{sz.chunk}: {stats['blocks']} blocks in {stats['wall_s'] * 1e3:.1f} ms once "
+        f"warm ({stats['wall_s'] * 1e3 / stats['blocks']:.2f} ms/block, "
+        f"{stats['xrt']:.0f}x realtime, p50 {lat['p50_ms']:.1f} ms, p95 "
+        f"{lat['p95_ms']:.1f} ms land-to-drain, host clock); ring == staged bit for "
+        f"bit, dither on")
+
+
+def phase_fold(torch, dev, sz: Sizes) -> None:
+    """The offline fold of a stereo file: C5 at batch 2 over 256 blocks
+    (about 24 s of audio), dither off: ``fold=True`` ≡ the scan bit for bit
+    (outputs and carried state), both walls printed; again at HIGHEST."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+
+    nb = 256
+    x = (np.random.default_rng(130).standard_normal((2, nb * sz.block)) * 0.3
+         ).astype(np.float32)
+    for prec in ("B3", "HIGHEST"):
+        pipe = Pipeline(c5_config(sz, batch=2, dither_kind="off"), dev,
+                        td_precision=prec)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        check(pipe._fold_decision("auto", params) == (dev.type == "cuda"),
+              f"fold {prec}: 'auto' does not fold on the card")
+        walls, res = {}, {}
+        for fold in (True, False):
+            pipe.process_signal(params, pipe.init_state(), x[:, : 8 * sz.block], fold=fold)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            res[fold] = pipe.process_signal(params, pipe.init_state(), x, fold=fold)
+            sync(torch, dev)
+            walls[fold] = time.perf_counter() - t0
+        (sf, yf), (ss, ys) = res[True], res[False]
+        same = (torch.equal(yf, ys) and torch.equal(sf.conv_tail, ss.conv_tail)
+                and sf.step == ss.step == nb)
+        check(same, f"fold {prec}: the fold differs from the scan (dither off)")
+        audio_s = nb * sz.block / pipe.cfg.samplerate
+        say(f"phase 4 fold {prec} C5 batch 2 x {nb} blocks ({audio_s:.1f} s of stereo "
+            f"audio): fold {walls[True] * 1e3:.1f} ms, scan {walls[False] * 1e3:.1f} ms "
+            f"wall (host clock, {walls[False] / walls[True]:.1f}x); fold == scan bit "
+            f"for bit (outputs, tail, step), dither off; 'auto' "
+            f"{'folds' if dev.type == 'cuda' else 'scans'} here")
+
+
+def phase_apply_agc(torch, dev, sz: Sizes) -> None:
+    """`apply_agc` on the card at [c8_batch, c8_block] (its recurrence is K9)
+    ≡ the same chain with the plain recurrence, bit for bit, restart and
+    carry."""
+    from afp_tpu_torch.ops import agc as A
+
+    g = torch.Generator(device=dev).manual_seed(140)
+    x = torch.randn(sz.c8_batch, sz.c8_block, generator=g, device=dev) * 0.1
+    x[: sz.c8_batch // 8] *= 8.0
+    params = A.AGCParams(window_size=sz.c8_window)
+    mg = torch.tensor(params.max_gain, dtype=torch.float32, device=dev)
+    A.apply_agc(x, params)  # warm-up: cuFFT's plans for the moving RMS
+    carry = None
+    for i in range(2):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        y, gl = A.apply_agc(x, params, carry)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        d = A.desired_gain(A.moving_rms(x, params.window_size), params.target_level,
+                           params.max_gain)
+        gp = torch.minimum(torch.clamp_min(A.smooth_gain_scan(
+            d, params.a_att, params.a_rel, init=carry), 0.1), mg)
+        check(torch.equal(y, x * gp) and torch.equal(gl, gp[:, -1]),
+              f"apply_agc on the card differs from its plain run (carry {i > 0})")
+        say(f"phase 4 apply_agc [{sz.c8_batch}, {sz.c8_block}] W={sz.c8_window} on the "
+            f"card (K9), carry {carry is not None}: == the plain recurrence bit for "
+            f"bit; {wall * 1e3:.1f} ms wall (host clock)")
+        carry = gl
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1670,6 +2003,15 @@ REPLACES = {
                           "afp_tpu/ops/pallas/fir_td.py:556"),
     "fir_td_mxu_per_stream": ("afp_tpu_torch/csrc/fir_td.cu",
                               "afp_tpu/ops/pallas/fir_td.py:1784"),
+    "agc_rms_apply": ("afp_tpu_torch/csrc/agc_fused.cu",
+                      "afp_tpu/ops/pallas/agc_fused.py:295"),
+    "smooth_gain_scan": ("afp_tpu_torch/csrc/agc_scan.cu",
+                         "afp_tpu/ops/pallas/agc_scan.py:142"),
+    # K15: the HIGHEST option of the conv body (K1) and of K11's kernel
+    "fir_td_mxu:highest": ("afp_tpu_torch/csrc/fir_td.cu",
+                           "afp_tpu/ops/pallas/fir_td.py:370"),
+    "fir_td_mxu_per_stream:highest": ("afp_tpu_torch/csrc/fir_td.cu",
+                                      "afp_tpu/ops/pallas/fir_td.py:1701"),
 }
 
 #: what each phase must launch: kernels by wrapper name, and the options of a
@@ -1695,6 +2037,13 @@ PHASE_LAUNCHES = {
                            "rms_desired:vector", "smooth_gain_apply:vector",
                            "fir_td_mxu_pair_to_ring"),
     "phase_bank_engine": ("dither_cuda",),
+    "phase_highest_pipeline": ("fir_td_mxu:highest",
+                               "fir_td_mxu_per_stream:highest", "rms_desired",
+                               "smooth_gain_apply"),
+    "phase_one_kernel": ("agc_rms_apply", "fir_td_mxu_pair",
+                         "fir_td_mxu_pair_to_ring"),
+    "phase_fold": ("fir_td_mxu", "fir_td_mxu:highest"),
+    "phase_apply_agc": ("smooth_gain_scan",),
 }
 
 
@@ -1703,7 +2052,7 @@ def counts(kernels) -> dict:
     out = {}
     for k in kernels:
         out[k.__name__] = k.launches
-        for opt in ("banked", "vector"):
+        for opt in ("banked", "vector", "highest"):
             if hasattr(k, f"{opt}_launches"):
                 out[f"{k.__name__}:{opt}"] = getattr(k, f"{opt}_launches")
     return out
@@ -1711,7 +2060,8 @@ def counts(kernels) -> dict:
 
 def reset(kernels) -> None:
     for k in kernels:
-        for attr in ("launches", "banked_launches", "vector_launches"):
+        for attr in ("launches", "banked_launches", "vector_launches",
+                     "highest_launches"):
             if hasattr(k, attr):
                 setattr(k, attr, 0)
 
@@ -1741,7 +2091,7 @@ def main() -> int:
     sz = Sizes()
     res = {}
     for phase in (phase_kernels, phase_kernels_agc, phase_kernels_transport,
-                  phase_kernels_banks):
+                  phase_kernels_banks, phase_kernels_last):
         t0 = time.perf_counter()
         res.update(phase(torch, dev, sz))
         torch.cuda.synchronize()
@@ -1752,7 +2102,9 @@ def main() -> int:
     for phase in (phase_pipeline, phase_c8_pipeline, phase_transport_pipeline,
                   phase_bank_pipeline, phase_serving, phase_c8_serving,
                   phase_transport_serving, phase_bank_serving, phase_engine,
-                  phase_c8_engine, phase_transport_engine, phase_bank_engine):
+                  phase_c8_engine, phase_transport_engine, phase_bank_engine,
+                  phase_highest_pipeline, phase_one_kernel, phase_fold,
+                  phase_apply_agc):
         t0 = time.perf_counter()
         before = counts(KERNELS)
         phase(torch, dev, sz)
@@ -1774,6 +2126,7 @@ def main() -> int:
     check(not reference, f"jax or the JAX package was imported: {reference[:5]}")
     say(f"phase 7 launches on the main path: {every}")
 
+    launches.update({k: every[k] for k in REPLACES if ":" in k})
     kernels = [dict(name=name, route="cuda", source=REPLACES[name][0],
                     replaces=REPLACES[name][1], launches=launches[name],
                     **res[name]) for name in launches]

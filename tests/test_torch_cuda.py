@@ -7,7 +7,11 @@ transport forms, K12/K13 at those shapes, int16 extremes, the int16 store
 at rounding ties, and K5/K6 on int16 x; for the per-stream banks, K10 and
 the banked K3/K4/K12 at assignment tiles of 8 rows and of a whole 6-row
 batch with up to 8 designs, K11 with 1 and 9 bands over 12 rows, and the
-[B] vectors of K5/K6.  Marked
+[B] vectors of K5/K6; for the last three kernels, K15's HIGHEST K1 and K11
+at those shapes (B3F/B3C ≡ B3), K14 over f32, int16, pair and ring-slot
+input with and without the carry, on batches that fill no block, K9 in
+every layout, `apply_agc` on the card, and the offline fold ≡ the scan.
+Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
 
@@ -17,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from afp_tpu_torch.ops import agc as A
+from afp_tpu_torch.ops.cuda import agc_fused as K14
 from afp_tpu_torch.ops.cuda import agc_rms as R
 from afp_tpu_torch.ops.cuda import agc_scan as S
 from afp_tpu_torch.ops.cuda import dither_cuda
@@ -448,3 +454,127 @@ def test_k5_k6_vectors(dev, B, T, blockwise):
         ys, cs = S.smooth_gain_apply(d, x, float(a_att[b]), float(a_rel[b]),
                                      float(mg[b]), **kw)
         assert torch.equal(ys[b], y[b]) and torch.equal(cs[b], c[b])
+
+
+@pytest.mark.parametrize("B,T,n", [(5, 384, 31), (1, 128, 1), (7, 256, 300),
+                                   (6, 640, 379)])
+def test_k15_highest_k1_vs_plain(dev, B, T, n):
+    """HIGHEST K1 ≤ −110 dB against its plain version (fp32 sums in another
+    order), the fused epilogue bit-exact; B3F and B3C ≡ B3 bit for bit."""
+    x, h = randn(dev, B, n - 1 + T), randn(dev, n, seed=1)
+    y = F.fir_td_mxu(x, h, precision="HIGHEST")
+    e = err_db(y, F.fir_td_mxu_plain(x, h, precision="HIGHEST"))
+    print(f"K15 HIGHEST K1 B={B} T={T} n={n}: {e:.1f} dB")
+    assert y.shape == (B, T) and e <= CONV_DB
+    assert torch.equal(F.fir_td_mxu(x, h, precision="HIGHEST", **EPI),
+                       F._finish(y, 0.3, (9, 4), 16, True))
+    b3 = F.fir_td_mxu(x, h, **EPI)
+    assert all(torch.equal(F.fir_td_mxu(x, h, precision=p, **EPI), b3)
+               for p in ("B3F", "B3C"))
+
+
+@pytest.mark.parametrize("B,T,n,K", [(12, 384, 65, 9), (6, 128, 300, 1)])
+def test_k15_highest_k11_vs_plain(dev, B, T, n, K):
+    """HIGHEST K11 ≤ −110 dB against its plain version, every row written,
+    the fused epilogue ≡ K11 → clip → K2 → quantize_pcm16."""
+    x = randn(dev, B, n - 1 + T)
+    kernels = randn(dev, K, n, seed=1) * 0.3
+    gains = torch.rand(B, K, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev) * 2.0
+    kw = dict(precision="HIGHEST")
+    y = F.fir_td_mxu_per_stream(x, kernels, gains, **kw)
+    e = err_db(y, F.fir_td_mxu_per_stream_plain(x, kernels, gains, **kw))
+    print(f"K15 HIGHEST K11 B={B} T={T} n={n} K={K}: {e:.1f} dB")
+    assert y.shape == (B, T) and e <= CONV_DB
+    assert bool((y.abs().amax(dim=1) > 0).all())
+    unfused = dither_cuda(torch.clamp(y, -0.3, 0.3), (9, 4), 16, "tpdf")
+    assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, **kw, **EPI),
+                       unfused)
+    assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, emit_i16=True,
+                                               **kw, **EPI),
+                       F.quantize_pcm16(unfused))
+
+
+@pytest.mark.parametrize("B,T,w", [(6, 256, 256), (45, 384, 512), (33, 640, 256)])
+def test_k14_vs_plain(dev, B, T, w):
+    """K14 ≡ its plain version bit for bit (y, pair, carry) over f32,
+    int16 and ring-slot input, with and without the carry; a window wider
+    than the block; batches that fill no 32-stream block."""
+    x = randn(dev, B, T)
+    x[0, : T // 2] = 0.95
+    x[1] *= 1e-3
+    init = torch.linspace(0.2, 8.0, B, device=dev)
+    x16 = torch.clamp(torch.round(x * 32768), -32768, 32767).to(torch.int16)
+    ring = torch.stack([randn(dev, B, T, seed=3), x])
+    args = (w, 0.02, 0.002, 0.1, 10.0)
+    for src, kw in ((x, {}), (x16, {}), (ring, dict(ring_idx=1))):
+        for ini in (None, init):
+            for split in (False, True):
+                y, c = K14.agc_rms_apply(src, *args, init=ini, emit_split=split, **kw)
+                yp, cp = K14.agc_rms_apply_plain(src, *args, init=ini,
+                                                 emit_split=split, **kw)
+                same = (all(torch.equal(a, b) for a, b in zip(y, yp)) if split
+                        else torch.equal(y, yp))
+                assert same and torch.equal(c, cp), (src.dtype, ini is None, split)
+    assert K14.agc_rms_apply.launches > 0
+
+
+@pytest.mark.parametrize("B,T", [(6, 256), (300, 300), (17, 128)])
+def test_k9_vs_plain(dev, B, T):
+    """K9 ≡ smooth_gain_scan bit for bit in every layout (time-major in,
+    batch-major store), with the restart and with the carry."""
+    d = torch.rand(B, T, generator=torch.Generator(device=dev).manual_seed(4),
+                   device=dev) * 4.0 + 0.1
+    init = torch.linspace(0.5, 2.0, B, device=dev)
+    for ini in (None, init):
+        want = A.smooth_gain_scan(d, 0.15, 0.013, init=ini)
+        for tm in (False, True):
+            for bm in (False, True):
+                g = S.smooth_gain_scan(d.T.contiguous() if tm else d, 0.15, 0.013,
+                                       init=ini, time_major=tm, out_batch_major=bm)
+                assert g.shape == (B, T) and torch.equal(g, want), (tm, bm)
+
+
+def test_apply_agc_on_the_card(dev):
+    """`apply_agc` on a CUDA tensor runs K9 and equals the same chain with
+    the plain recurrence, bit for bit, with and without the carry."""
+    x = randn(dev, 5, 512)
+    x[0] *= 8.0
+    params = A.AGCParams(window_size=128)
+    before = S.smooth_gain_scan.launches
+    for carry in (None, torch.linspace(0.5, 3.0, 5, device=dev)):
+        y, g = A.apply_agc(x, params, carry)
+        d = A.desired_gain(A.moving_rms(x, 128), params.target_level, params.max_gain)
+        gp = torch.minimum(torch.clamp_min(A.smooth_gain_scan(
+            d, params.a_att, params.a_rel, init=carry), 0.1),
+            torch.tensor(params.max_gain, dtype=torch.float32, device=dev))
+        assert torch.equal(y, x * gp) and torch.equal(g, gp[:, -1])
+    assert S.smooth_gain_scan.launches == before + 2
+
+
+@pytest.mark.parametrize("precision,over", [
+    ("B3", dict()), ("B3", dict(ingest="pcm16")), ("B3", dict(ingest="pair")),
+    ("B3", dict(emit="pcm16", output_clip=0.5)), ("HIGHEST", dict()),
+    ("HIGHEST", dict(emit="pcm16", output_clip=0.5))])
+def test_fold_equals_scan(dev, precision, over):
+    """The offline fold ≡ the block-by-block scan bit for bit on the card
+    with dither off (the conv body's sums do not depend on the batch),
+    outputs and carried state, for each input form and at HIGHEST; B = 6
+    streams × 5 blocks fold into 30 rows, which fill no 4-row tile."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+
+    cfg = StreamConfig(samplerate=44100, blocksize=256, upsample_factor=2,
+                       numtaps=65, batch=6, conv_strategy="td_mxu",
+                       dither_kind="off", **over)
+    pipe = Pipeline(cfg, dev, td_precision=precision)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    x = np.random.default_rng(7).standard_normal((6, 5 * 256 + 77)) * 0.3
+    x = (np.round(x * 8000).astype(np.int16) if over.get("ingest") == "pcm16"
+         else x.astype(np.float32))
+    st0 = pipe.init_state(seed=3)
+    sf, yf = pipe.process_signal(params, st0, x, fold=True)
+    ss, ys = pipe.process_signal(params, st0, x, fold=False)
+    assert yf.dtype == pipe.out_dtype and torch.equal(yf, ys)
+    tails = sf.conv_tail if isinstance(sf.conv_tail, tuple) else (sf.conv_tail,)
+    want = ss.conv_tail if isinstance(ss.conv_tail, tuple) else (ss.conv_tail,)
+    assert all(torch.equal(a, b) for a, b in zip(tails, want)) and sf.step == ss.step

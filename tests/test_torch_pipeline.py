@@ -251,15 +251,17 @@ def test_outside_the_slice_raises(over, item):
 
 
 def test_fold_and_per_stream_raise():
-    """The offline fold raises (item 9); per-stream gains run; a filter
-    bank refuses ``fold=True``, and an assignment outside the bank is
-    refused as it arrives; the framer raises (item 5)."""
+    """The offline fold runs (item 9, ported: `tests/test_torch_fold.py`)
+    and matches the scan; a bad fold value raises; per-stream gains run; a
+    filter bank refuses ``fold=True``, and an assignment outside the bank
+    is refused as it arrives; the framer raises (item 5)."""
     _, t = both("readme", conv_strategy="td_mxu")
     tp, tpar = port(t)
     sig = signal(4, 256)
+    _, scan = tp.process_signal(tpar, tp.init_state(), sig, fold=False)
     for fold in (True, "prefer"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tp.process_signal(tpar, tp.init_state(), sig, fold=fold)
+        _, y = tp.process_signal(tpar, tp.init_state(), sig, fold=fold)
+        assert y.shape == scan.shape and err_db(y.numpy(), scan.numpy()) <= TD_DB
     with pytest.raises(ValueError, match="fold must be"):
         tp.process_signal(tpar, tp.init_state(), sig, fold="sometimes")
     # per-stream gains run (K11): all-ones rows against the shared all-ones
