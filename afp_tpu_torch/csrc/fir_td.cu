@@ -45,19 +45,22 @@
 //       synchronize.  The ring forms (K3, K4, K12) take the same bank option.
 //   K11 fir_td_mxu_per_stream    (fir_td.py:1784, _fir_kernel_ps_b3): the
 //       per-stream EQ mix y[b] = sum_k g[b, k] * (x[b] conv h_k) over K band
-//       kernels.  Its own kernel (fir_ps_kernel): the split window is staged
-//       once, then the band loop runs the body's accumulation into a second
-//       register set z and mixes y += g * z in fp32 (K times K1's work; the
-//       taps are not mixed first, which would round differently).  The store
-//       is the body's (clip, dither, int16), so the fused epilogue equals
+//       kernels.  Its own kernel (fir_ps_kernel), on the tensor cores as the
+//       TPU runs it on the MXU: per band, the product of the staged window
+//       with the band's Toeplitz tiles (band_mma.cuh: mma.sync m16n8k16,
+//       bf16 halves, fp32 accumulate), then y += g * z_k in fp32 (the taps
+//       are not mixed first, which would round differently).  The store is
+//       the body's (clip, dither, int16), so the fused epilogue equals
 //       K11 -> clip -> K2 -> quantize_pcm16 bit for bit.
 //   K15 the precision variants of _fir_td_call (fir_td.py:370): HIGHEST
 //       (_fir_kernel, fir_td.py:148; in K11 _fir_kernel_ps, :1701), the
-//       causal/valid conv in full fp32, one product per tap, as the HIGHEST
-//       template option of K1's body and of K11's kernel: the window stages
-//       plain f32 samples (half the shared memory of the split pairs), the
-//       taps stay unsplit, and the accumulation does one fmaf per tap instead
-//       of three; the store is the same.  B3F (_fir_kernel_b3f, :236) and
+//       causal/valid conv in fp32 class.  In K1's body it is the HIGHEST
+//       template option: the window stages plain f32 samples (half the
+//       shared memory of the split pairs), the taps stay unsplit, and the
+//       accumulation does one fmaf per tap instead of three.  In K11 it is
+//       the TPU's own 6-pass product on the tensor cores: x and the taps
+//       split exactly into three bf16 halves, six products (band_mma.cuh).
+//       The store is the same.  B3F (_fir_kernel_b3f, :236) and
 //       B3C (_fir_kernel_b3c, :316) are B3's function with the split done in
 //       VMEM, or over time-chunk pairs: this body already reads one f32 x and
 //       splits it in the loader (read_split), so both are the bf16x3 body.
@@ -84,18 +87,27 @@
 // consecutive outputs in registers, sliding a 4-sample register window so
 // each tap costs one shared load per row.  The window is stored in four
 // phase-interleaved sub-arrays (position p at [p % 4][p / 4]) so those loads
-// are free of bank conflicts.  The later route is the TPU's own: bf16
-// mma.sync/wgmma on the Toeplitz band with fp32 accumulators.  K11 at the C8
-// per-stream point (9 bands x 209 taps, batch 4096, block 2048) does 9x K8's
-// FMAs, 47 G per block (~1.4 ms at the fp32 peak), against 71 MB of traffic:
-// compute-bound the same way.
-
+// are free of bank conflicts.  The later route for this body is K11's:
+// band_mma.cuh's tensor-core tiles.
+//
+// K11 at the C8 per-stream point (9 bands x 209 taps, batch 4096, block
+// 2048) moves 71 MB (~21 us at 3.35 TB/s) against 4.7e10 useful bf16 MACs
+// in bf16x3 (0.096 ms at the 989 TFLOP/s bf16 peak; 0.19 ms for HIGHEST's
+// six products), so it is bound by the tensor cores, and in practice by
+// the shared-memory reads that feed mma.sync (about 170 bytes per mma per
+// warp: the A fragment of a window position serves four column tiles, the
+// B tile one 8-byte load per lane).  Design (fir_ps_kernel): a block owns
+// 32 rows x 256 outputs in bf16x3 (4 warps) or 512 in HIGHEST (8 warps),
+// each warp 32 rows x 64 outputs (2 x 8 mma tiles) whose z and y stay in
+// registers; the k-steps skip the band's all-zero
+// tiles, so the padding waste is 16 * ceil((n+7)/16) / n (224 / 209 here).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "band_mma.cuh"
 #include "philox.cuh"
 #include "split.cuh"
 
@@ -395,63 +407,181 @@ __global__ void __launch_bounds__(kThreads)
   store_rows(src, b0, t, slot, step, acc, epi, emit_i16, out, bad);
 }
 
-// K11: y[b] = sum_k g[b, k] * (x[b] conv bands[k]), k in order, over the
-// staged x_ext window; the per-band conv is the body's (conv_acc), bf16x3
-// (E = float2) or K15's HIGHEST (E = float).  Shared memory: the taps of
-// every band [n_bands][np], the window, and the block's gains
-// [kRows][n_bands].
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
-    fir_ps_kernel(Src src, const float* __restrict__ bands,
+// K11: y[b] = sum_k g[b, k] * (x[b] conv bands[k]), k in order, on the
+// tensor cores (band_mma.cuh): bf16x3 (P = 2 halves) or K15's HIGHEST (P =
+// 3, the six-product fp32 emulation).  A block of WARPS warps owns kPsRows
+// batch rows x ps_cols(WARPS) outputs; each warp kPsMT x 16 rows x kPsNQ x
+// 8 outputs.  The window of the block (cols - 8 + 16 S positions) is
+// staged once, split into P bf16 arrays; the band tiles stream through a
+// double buffer with cp.async (band k+1 loads while band k runs, so the
+// band count is not bounded by shared memory); after each band the fp32
+// fragment z_k is mixed y = y + g[b, k] * z_k (round to nearest, band
+// order, as the plain version).  The mixed tile is staged through shared
+// memory into the body's store (clip, dither over flat >> 2, f32 or int16).
+// WARPS is 4 for bf16x3 (203 registers: two blocks of 4 warps share an SM;
+// a bound of 168 registers for three spills and ran slower) and 8 for the
+// six-product form (225 registers and a three-half window: one block per
+// SM, so as wide a block as fits).  The window and the band tiles fit the
+// shared memory up to 1033 taps in bf16x3 and 457 in HIGHEST.
+constexpr int kPsMT = 2;             // m16 row tiles per warp
+constexpr int kPsNQ = 8;             // n8 column tiles per warp
+constexpr int kPsRows = 16 * kPsMT;  // batch rows per block
+
+__host__ __device__ constexpr int ps_cols(int warps) { return 8 * kPsNQ * warps; }
+
+struct PsGeom {
+  int S;      // k-steps per 8-output column tile, ceil((n + 7) / 16)
+  int W;      // window positions of a block
+  int wp;     // row stride of a window half (bf16), = 8 mod 64
+  size_t win_bytes, band_bytes, smem;
+};
+
+__host__ __device__ inline PsGeom ps_geom(int n_taps, int P, int warps) {
+  PsGeom g;
+  g.S = (n_taps + 7 + 15) / 16;
+  g.W = ps_cols(warps) - 8 + 16 * g.S;
+  g.wp = (g.W - 8 + 63) / 64 * 64 + 8;
+  g.win_bytes = static_cast<size_t>(P) * kPsRows * g.wp * sizeof(uint16_t);
+  const size_t ys = sizeof(float) * kPsRows * (ps_cols(warps) + 8);
+  g.band_bytes = static_cast<size_t>(g.S) * P * 32 * 8;
+  g.smem = (g.win_bytes > ys ? g.win_bytes : ys) + 2 * g.band_bytes;
+  return g;
+}
+
+template <int P, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+    fir_ps_kernel(Src src, const unsigned char* __restrict__ tiles,
                   const float* __restrict__ gains, int n_bands, int n_taps,
-                  int np, void* __restrict__ out, afp::Epilogue epi,
-                  int emit_i16) {
+                  void* __restrict__ out, afp::Epilogue epi, int emit_i16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int W = kCols + np - 1;
-  const int W4 = phase_len<E>(W);
-  E* taps = reinterpret_cast<E*>(smem_raw);  // [n_bands][np]
-  E* win = taps + n_bands * np;              // [kRows][4][W4]
-  float* g = reinterpret_cast<float*>(win + kRows * 4 * W4);  // [kRows][K]
+  constexpr int kPsThreads = 32 * WARPS;
+  constexpr int kPsCols = ps_cols(WARPS);
+  constexpr int kPsYStride = kPsCols + 8;  // staged f32 tile row stride
+  const PsGeom geo = ps_geom(n_taps, P, WARPS);
+  uint16_t* win = reinterpret_cast<uint16_t*>(smem_raw);  // [P][rows][wp]
+  float* ys = reinterpret_cast<float*>(smem_raw);  // the epilogue's tile
+  unsigned char* bufs = smem_raw + (geo.smem - 2 * geo.band_bytes);
 
-  const int b0 = blockIdx.x * kRows;
-  const int t0 = blockIdx.y * kCols;
-  const int j = threadIdx.x;
+  const int b0 = blockIdx.x * kPsRows;
+  const int t0 = blockIdx.y * kPsCols;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long text = static_cast<long long>(src.hist) + src.T;
 
-  for (int i = j; i < n_bands * np; i += kThreads) {
-    const int k = i / np;
-    const int q = i - k * np;
-    E tk{};
-    if (q < n_taps) to_elem(bands[k * n_taps + q], &tk);
-    taps[i] = tk;
-  }
-  for (int i = j; i < kRows * n_bands; i += kThreads) {
-    const int b = b0 + i / n_bands;
-    g[i] = b < src.B ? gains[static_cast<long long>(b0) * n_bands + i] : 0.f;
-  }
-  stage_window<kModeExt, kInF32, E>(src, b0, 0, t0 + src.hist - (np - 1), W,
-                                    W4, win);
-  __syncthreads();
+  auto load_band = [&](int k) {
+    const unsigned char* from = tiles + k * geo.band_bytes;
+    unsigned char* to = bufs + (k & 1) * geo.band_bytes;
+    for (int i = tid; i < static_cast<int>(geo.band_bytes / 16); i += kPsThreads)
+      afp::cp_async16(to + 16 * i, from + 16 * i);
+    afp::cp_async_commit();
+  };
+  load_band(0);
 
-  float y[kRows][4];
+  // window position p of row r holds x_ext[b0 + r, t0 + p] (0 outside);
+  // each thread issues all its rows' loads of a position before it splits
+  // and stores any, so the loads overlap instead of queueing on latency
+  const float* __restrict__ xg = static_cast<const float*>(src.x);
+  for (int p = tid; p < geo.W; p += kPsThreads) {
+    const long long e = static_cast<long long>(t0) + p;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+    for (int r0 = 0; r0 < kPsRows; r0 += 16) {
+      float v[16];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) y[r][c] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < n_bands; ++k) {
-    float z[kRows][4];
-    conv_acc(win, W4, taps + k * np, np, j, z);
+      for (int r = 0; r < 16; ++r) {
+        const int b = b0 + r0 + r;
+        v[r] = b < src.B && e < text ? __ldg(xg + b * text + e) : 0.f;
+      }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float gk = g[r * n_bands + k];
+      for (int r = 0; r < 16; ++r) {
+        uint16_t h[P];
+        afp::split_halves<P>(v[r], h);
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        y[r][c] = __fadd_rn(y[r][c], __fmul_rn(gk, z[r][c]));
+        for (int q = 0; q < P; ++q)
+          win[(static_cast<size_t>(q) * kPsRows + r0 + r) * geo.wp + p] = h[q];
+      }
     }
   }
-  const int t = t0 + 4 * j;
-  if (t >= src.T) return;
-  store_rows(src, b0, t, 0, 0, y, epi, emit_i16, out);
+
+  // this lane's fragment rows: mt * 16 + lane / 4 (+ 8)
+  float y[kPsMT][kPsNQ][4];
+#pragma unroll
+  for (int mt = 0; mt < kPsMT; ++mt)
+#pragma unroll
+    for (int q = 0; q < kPsNQ; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[mt][q][i] = 0.f;
+  const int cbase = warp * 8 * kPsNQ;
+#pragma unroll 1
+  for (int k = 0; k < n_bands; ++k) {
+    if (k + 1 < n_bands) {
+      load_band(k + 1);
+      afp::cp_async_wait<1>();
+    } else {
+      afp::cp_async_wait<0>();
+    }
+    __syncthreads();  // band k's tiles (and, at k = 0, the window) are in
+    float gk[kPsMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kPsMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = b0 + mt * 16 + (lane >> 2) + 8 * h;
+        gk[mt][h] = b < src.B
+            ? gains[static_cast<long long>(b) * n_bands + k] : 0.f;
+      }
+    float z[kPsMT][kPsNQ][4];
+#pragma unroll
+    for (int mt = 0; mt < kPsMT; ++mt)
+#pragma unroll
+      for (int q = 0; q < kPsNQ; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) z[mt][q][i] = 0.f;
+    afp::band_conv<P, kPsMT, kPsNQ>(win, kPsRows, geo.wp, cbase,
+                                     bufs + (k & 1) * geo.band_bytes, geo.S,
+                                     z);
+#pragma unroll
+    for (int mt = 0; mt < kPsMT; ++mt)
+#pragma unroll
+      for (int q = 0; q < kPsNQ; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          y[mt][q][i] =
+              __fadd_rn(y[mt][q][i], __fmul_rn(gk[mt][i >> 1], z[mt][q][i]));
+    __syncthreads();  // every warp is done with buffer k & 1 (refilled next)
+  }
+
+  // stage the mixed tile (over the window) and store it 4 rows x 4 outputs
+  // at a time through the body's store
+#pragma unroll
+  for (int mt = 0; mt < kPsMT; ++mt)
+#pragma unroll
+    for (int q = 0; q < kPsNQ; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + (lane >> 2) + 8 * h;
+        const int c = cbase + 8 * q + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(ys + r * kPsYStride + c) =
+            make_float2(y[mt][q][2 * h], y[mt][q][2 * h + 1]);
+      }
+  __syncthreads();
+  constexpr int kChunks = kPsRows / kRows * (kPsCols / 4);
+  for (int i = tid; i < kChunks; i += kPsThreads) {
+    const int c = (i % (kPsCols / 4)) * 4;
+    const int r = (i / (kPsCols / 4)) * kRows;
+    if (t0 + c >= src.T) continue;
+    float acc[kRows][4];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(ys + (r + rr) * kPsYStride + c);
+      acc[rr][0] = v.x;
+      acc[rr][1] = v.y;
+      acc[rr][2] = v.z;
+      acc[rr][3] = v.w;
+    }
+    store_rows(src, b0 + r, t0 + c, 0, 0, acc, epi, emit_i16, out);
+  }
 }
 
 // Next tail after n_steps ring steps: the last hist samples of the stream,
@@ -514,24 +644,22 @@ int launch_conv(const Src& s, const float* h, int n_taps, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-int launch_ps(const Src& s, const float* bands, const float* gains,
+template <int P>
+int launch_ps(const Src& s, const void* tiles, const float* gains,
               int n_taps, int n_bands, void* out, const afp::Epilogue& epi,
               int emit_i16, cudaStream_t stream) {
-  const int np = (n_taps + 3) / 4 * 4;
-  const int W = kCols + np - 1;
-  const size_t smem =
-      sizeof(E) * (static_cast<size_t>(n_bands) * np +
-                   4u * kRows * phase_len<E>(W)) +
-      sizeof(float) * kRows * n_bands;
-  if (smem > 227u * 1024u) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int WARPS = P == 2 ? 4 : 8;
+  const PsGeom geo = ps_geom(n_taps, P, WARPS);
+  if (geo.smem > 227u * 1024u) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      fir_ps_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fir_ps_kernel<P, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(geo.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s.B + kRows - 1) / kRows, (s.T + kCols - 1) / kCols);
-  fir_ps_kernel<E><<<grid, kThreads, smem, stream>>>(
-      s, bands, gains, n_bands, n_taps, np, out, epi, emit_i16);
+  const dim3 grid((s.B + kPsRows - 1) / kPsRows,
+                  (s.T + ps_cols(WARPS) - 1) / ps_cols(WARPS));
+  fir_ps_kernel<P, WARPS><<<grid, 32 * WARPS, geo.smem, stream>>>(
+      s, static_cast<const unsigned char*>(tiles), gains, n_bands, n_taps, out,
+      epi, emit_i16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -685,16 +813,18 @@ extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
 }
 
 // K11 (and K15's HIGHEST K11 with `highest`).  x_ext [B, n_taps-1+T], the
-// band kernels [n_bands, n_taps] and the per-stream gains [B, n_bands] ->
-// out [B, T] = sum_k gains[:, k] * (x conv bands[k]), with the body's store
-// (clip, dither, f32 or int16).
-extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
+// band tiles of the n_bands band kernels (`ops/cuda/fir_td.py:band_tiles`:
+// [n_bands][S][P][32 lanes][4] bf16, P = 2 or, for HIGHEST, 3) and the
+// per-stream gains [B, n_bands] -> out [B, T] = sum_k gains[:, k] * (x conv
+// bands[k]), with the body's store (clip, dither, f32 or int16).
+extern "C" int afp_fir_td_ps(const void* x_ext, const void* tiles,
                              const void* gains, void* out, int B, int T,
                              int n_taps, int n_bands, int highest,
                              int has_clip, float clip, int dither,
                              unsigned int seed, unsigned int counter,
                              float lsb, int emit_i16, void* stream) {
-  if (B <= 0 || T <= 0 || T % 4 || n_taps <= 0 || n_bands <= 0)
+  if (B <= 0 || T <= 0 || T % 4 || n_taps <= 0 || n_bands <= 0 ||
+      reinterpret_cast<uintptr_t>(tiles) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   Src s{};
   s.x = x_ext;
@@ -704,11 +834,9 @@ extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
   s.S = 1;
   const afp::Epilogue epi =
       make_epilogue(has_clip, clip, dither, seed, counter, lsb);
-  const float* bf = static_cast<const float*>(bands);
   const float* gf = static_cast<const float*>(gains);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (highest)
-    return launch_ps<float>(s, bf, gf, n_taps, n_bands, out, epi, emit_i16,
-                            st);
-  return launch_ps<float2>(s, bf, gf, n_taps, n_bands, out, epi, emit_i16, st);
+    return launch_ps<3>(s, tiles, gf, n_taps, n_bands, out, epi, emit_i16, st);
+  return launch_ps<2>(s, tiles, gf, n_taps, n_bands, out, epi, emit_i16, st);
 }

@@ -85,7 +85,10 @@ def moving_rms(x, window_size: int) -> torch.Tensor:
     full = torch.fft.irfft(torch.fft.rfft(torch.square(x), n=nfft)
                            * torch.fft.rfft(box, n=nfft), n=nfft)
     start = (w - 1) // 2
-    return torch.sqrt(torch.clamp_min(full[..., start:start + T], 0.0))
+    # sqrt in float64, rounded once: the correctly rounded f32 sqrt (torch's
+    # f32 sqrt on the CPU is not)
+    return torch.sqrt(torch.clamp_min(full[..., start:start + T], 0.0)
+                      .double()).float()
 
 
 def desired_gain(rms, target_level, max_gain) -> torch.Tensor:

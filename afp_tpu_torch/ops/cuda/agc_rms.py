@@ -14,10 +14,9 @@ that the kernel converts ``n/32768`` as it loads (exact: the result is the
 f32 form's bit for bit, `agc_rms.py:111-113`).  ``target`` and
 ``max_gain`` are scalars or, for per-stream AGC policies, [B] vectors;
 either vector promotes both (`agc_rms.py:377-390`).  A CPU tensor takes
-:func:`rms_desired_plain` (the
-split products as fp32 matmuls against the band, as
-:func:`~afp_tpu_torch.ops.cuda.fir_td.fir_td_mxu_plain` does), a CUDA tensor
-launches `csrc/agc_rms.cu` or raises.  ``rms_desired.launches`` counts
+:func:`rms_desired_plain` (the window sums of the split x² as float64
+reductions, rounded once), a CUDA tensor launches `csrc/agc_rms.cu` or
+raises.  ``rms_desired.launches`` counts
 kernel launches, ``rms_desired.vector_launches`` those with [B] vectors.
 """
 from __future__ import annotations
@@ -26,8 +25,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .fir_td import (LANE, _full_fp32_matmul, _on_cuda, _raise_on,
-                     _split_f32, _stream, band_matrix, pcm16_to_f32)
+from .fir_td import (LANE, _on_cuda, _raise_on, _split_f32, _stream,
+                     pcm16_to_f32)
 
 __all__ = ["rms_desired", "rms_desired_plain", "band_is_exact_bf16", "knobs"]
 
@@ -89,39 +88,45 @@ def _two_level(W: int) -> bool:
     return W >= LANE and W % LANE == 0
 
 
+def _window_sums(v: torch.Tensor, w: int) -> torch.Tensor:
+    """Every w-wide window sum of v [B, L] → [B, L − w + 1], summed in
+    float64 by a reduction (no GEMM: the CPU's f32 GEMM has been seen to
+    return another rounding in a few fresh processes) and rounded once to
+    f32."""
+    return v.double().unfold(1, w, 1).sum(-1).float()
+
+
 def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
                       target, max_gain, exact_band: bool,
                       transposed: bool = False, ring_idx=None,
                       mean_chunk: int = 0) -> torch.Tensor:
     """Plain K5, same contract as :func:`rms_desired`: the padded x² split
-    into bf16 halves, unfolded into LANE-wide output tiles and multiplied
-    against the band (two-level: a ones(LANE) band, then the shifted sums)
-    in full fp32; int16 x converts n/32768 first."""
+    into bf16 halves and their window sums (two-level: the LANE-wide sums,
+    then the W/LANE shifted sums added in f32 and ``· (1/W)``; direct: the
+    sums of hi + lo weighted by the bf16 halves of the band's ``1/w``, the
+    lo weight over the sums of hi alone unless ``1/w`` is exact in bf16);
+    int16 x converts n/32768 first."""
     x, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
     x = pcm16_to_f32(x)
     B, T = x.shape
     vec, kn = knobs(B, x.device, target=target, max_gain=max_gain)
     sq = torch.nn.functional.pad(x * x, (lp, rp))  # [B, T + W − 1]
     sh, sl = _split_f32(sq)
-    with _full_fp32_matmul():
-        if _two_level(W):
-            bh = band_matrix(torch.ones(LANE, device=x.device))  # exact in bf16
-            wh = sh.unfold(1, 2 * LANE - 1, LANE)  # [B, T/LANE + m − 1, 255]
-            wl = sl.unfold(1, 2 * LANE - 1, LANE)
-            s_lane = (wh @ bh + wl @ bh).reshape(B, -1)  # [B, T + W − LANE]
-            s = s_lane[:, :T]
-            for j in range(1, W // LANE):
-                s = s + s_lane[:, j * LANE: j * LANE + T]
-            s = s * (1.0 / W)
-        else:
-            bh, bl = _split_f32(band)
-            wh = sh.unfold(1, W - 1 + LANE, LANE)  # [B, T/LANE, W − 1 + LANE]
-            wl = sl.unfold(1, W - 1 + LANE, LANE)
-            s = wh @ bh + wl @ bh
-            if not exact_band:
-                s = s + wh @ bl
-            s = s.reshape(B, T)
-    rms = torch.sqrt(torch.clamp_min(s, 0.0))
+    both = sh + sl  # exact: the halves' bits do not overlap
+    if _two_level(W):
+        s_lane = _window_sums(both, LANE)  # [B, T + W − LANE]
+        s = s_lane[:, :T]
+        for j in range(1, W // LANE):
+            s = s + s_lane[:, j * LANE: j * LANE + T]
+        s = s * (1.0 / W)
+    else:
+        wh, wl = _split_f32(band[W - 1, :1])  # the boxcar weight 1/w
+        s = _window_sums(both, W) * wh
+        if not exact_band:
+            s = s + _window_sums(sh, W) * wl
+    # sqrt in float64, rounded once to f32: the correctly rounded f32 sqrt
+    # of the kernel's __fsqrt_rn (torch's f32 sqrt on the CPU is not)
+    rms = torch.sqrt(torch.clamp_min(s, 0.0).double()).float()
     # a true division (a Python float over a tensor would multiply by the
     # reciprocal); per-stream values broadcast along the rows
     t, mg = (torch.as_tensor(kn[k], dtype=torch.float32, device=x.device)
@@ -130,12 +135,12 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
         t, mg = t[:, None], mg[:, None]
     d = torch.minimum(torch.clamp_min(t / (rms + 1e-10), 0.0), mg)
     if mean_chunk:
-        dh, dl = _split_f32(d)
-        sel = torch.full((mean_chunk, 1), 1.0 / mean_chunk, device=x.device)
-        with _full_fp32_matmul():
-            m = (dh.reshape(B, T // mean_chunk, mean_chunk) @ sel
-                 + dl.reshape(B, T // mean_chunk, mean_chunk) @ sel)
-        return m[..., 0].T.contiguous()  # [T/mean_chunk, B]
+        # the chunk means of d's bf16 halves, each half summed in float64
+        # and rounded once (1/chunk is exact)
+        dh, dl = (h.double().reshape(B, T // mean_chunk, mean_chunk).sum(-1)
+                  for h in _split_f32(d))
+        m = (dh.float() * (1.0 / mean_chunk) + dl.float() * (1.0 / mean_chunk))
+        return m.T.contiguous()  # [T/mean_chunk, B]
     return d.T.contiguous() if transposed else d
 
 

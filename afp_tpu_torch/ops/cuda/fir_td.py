@@ -36,10 +36,12 @@ here): ``'B3'`` (the default) is the bf16×3 class above.  ``'B3F'`` and
 ``'B3C'`` are the same function in `afp_tpu`, with the input split inside
 the TPU kernel or over time-chunk pairs; this body always reads one f32
 input and splits it in its loader, so all three run the one bf16×3 body and
-agree bit for bit.  ``'HIGHEST'`` is the conv in full fp32, one product per
-tap (the MXU's 6-pass emulation of fp32 on the TPU; here the body's fp32
-option: plain f32 window and taps, one fmaf per tap).  K1 and K11 take it;
-the ring, pair and bank forms are bf16×3 only, as in `afp_tpu`.
+agree bit for bit.  ``'HIGHEST'`` is the conv in fp32 class (the MXU's
+6-pass emulation of fp32 on the TPU).  K1 takes it as the body's fp32
+option (plain f32 window and taps, one fmaf per tap); K11 as the TPU's own
+route on the tensor cores, x and the taps split exactly into three bf16
+halves (:func:`split3_bf16`) and six products per tap.  The ring, pair and
+bank forms are bf16×3 only, as in `afp_tpu`.
 
 The bank option (per-stream filter banks, `engine/batch.py`): K10 is K1 over
 a tap bank ``[D, n]`` with a per-tile design assignment ``assign``
@@ -52,7 +54,10 @@ banked row equals the shared-taps form run with its design, bit for bit.
 An entry of ``assign`` outside ``[0, D)`` reads no taps: its rows come out
 NaN (−32768 in an int16 store), on the card and in the plain version alike,
 so a bad assignment shows in the output without a synchronize per launch.  K11
-mixes K band convs per stream, ``y[b] = Σ_k gains[b, k]·(x[b] ⊛ h_k)``.
+mixes K band convs per stream, ``y[b] = Σ_k gains[b, k]·(x[b] ⊛ h_k)``, on
+the tensor cores: each band is the product of the split window with its
+Toeplitz tiles (:func:`band_tiles`, built on the device once per band
+kernels tensor, :func:`cached_band_tiles`).
 
 K8, K7 and K13 take the block (or the rings) and the carried tail as bf16
 (hi, lo) pairs, the form the AGC apply kernel (K6) stores and
@@ -76,6 +81,8 @@ counters ``counter … counter+n−1``.
 from __future__ import annotations
 
 import contextlib
+import functools
+import weakref
 
 import torch
 
@@ -83,6 +90,7 @@ from ..dither import lsb_for_bits, noise
 from . import _build
 
 __all__ = ["LANE", "PCM16_SCALE", "PRECISIONS", "split_bf16", "merge_bf16", "band_matrix",
+           "split3_bf16", "band_steps", "band_tiles", "cached_band_tiles",
            "ring_k_pad", "quantize_pcm16", "pcm16_to_f32",
            "fir_td_mxu", "fir_td_mxu_plain",
            "fir_td_mxu_ring_f32", "fir_td_mxu_ring_f32_plain",
@@ -157,6 +165,52 @@ def band_matrix(h, tile: int = LANE) -> torch.Tensor:
     k = n - 1 + j - i
     inside = (k >= 0) & (k < n)
     return torch.where(inside, h[k.clamp(0, n - 1)], torch.zeros((), device=h.device))
+
+
+def split3_bf16(v: torch.Tensor):
+    """The exact three-way bf16 split of an f32 tensor, HIGHEST's operand
+    halves: hi = bf16(v) (:func:`split_bf16`'s hi), mid = bf16(v − hi),
+    lo = bf16(v − hi − mid); both differences are exact in f32, and hi +
+    mid + lo == v for every finite v with |v| ≥ 2⁻¹¹⁰ whose hi is finite
+    (below that the lo half falls under bf16's normal range)."""
+    hi, mid = split_bf16(v)
+    r = v.to(torch.float32) - hi.to(torch.float32)
+    return hi, mid, (r - mid.to(torch.float32)).to(torch.bfloat16)
+
+
+def band_steps(n_taps: int) -> int:
+    """K-steps of 16 window positions per 8-output column tile of the
+    tensor-core conv, ``ceil((n+7)/16)``: the positions where the band of
+    those outputs is nonzero (`csrc/band_mma.cuh`)."""
+    return (n_taps + 7 + 15) // 16
+
+
+def band_tiles(kernels: torch.Tensor, highest: bool = False) -> torch.Tensor:
+    """The B operands of K11's tensor-core conv (`csrc/band_mma.cuh`): for
+    each band kernel h [K, n] and step s < :func:`band_steps`, the 16×8
+    Toeplitz tile ``B[i][j] = h[n−1−16s+j−i]`` (zero outside the taps),
+    entry for entry :func:`band_matrix`'s ``[p0+i, c0+j]`` at ``p0 = c0 +
+    16s``, split into bf16 halves (:func:`split_bf16`, or
+    :func:`split3_bf16` for HIGHEST) and laid out in the mma B-fragment
+    order: lane l (g = l // 4, t = l % 4) holds ``B[2t][g], B[2t+1][g],
+    B[2t+8][g], B[2t+9][g]``.  Returns [K, S, P, 32, 4] bfloat16 on the
+    kernels' device (P = 2, or 3 for HIGHEST)."""
+    idx, inside = _tile_taps(kernels.shape[1], kernels.device)
+    vals = kernels.to(torch.float32)[:, idx] * inside  # [K, S, 32, 4]
+    halves = split3_bf16(vals) if highest else split_bf16(vals)
+    return torch.stack(halves, dim=2)
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_taps(n: int, device: torch.device):
+    """The tap index of every fragment entry of the band tiles [S, 32, 4]
+    (clamped into the taps) and its 0/1 mask of entries inside them."""
+    lane = torch.arange(32, device=device)
+    g, t = lane // 4, lane % 4
+    i = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=-1)  # [32, 4]
+    s = torch.arange(band_steps(n), device=device)[:, None, None]
+    k = n - 1 - 16 * s + g[:, None] - i  # [S, 32, 4]
+    return k.clamp(0, n - 1), ((k >= 0) & (k < n)).to(torch.float32)
 
 
 def ring_k_pad(n_taps: int) -> int:
@@ -485,12 +539,17 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
     """K11: the per-stream EQ mix ``y[b] = Σ_k gains[b, k]·(x[b] ⊛
     kernels[k])`` of ``x_ext`` [B, n−1+T] with K band kernels [K, n] and
     per-stream gains [B, K] → [B, T] (`fir_td.py:1784-1810`), each band in
-    the bf16×3 class with fp32 accumulation, mixed in fp32.  The output
+    the bf16×3 class on the tensor cores (`mma.sync`, fp32 accumulate,
+    against :func:`band_tiles`), mixed in fp32 in band order.  The output
     stage is K1's (clip, dither, int16 store), fused: the same bits as
     K11, then clip, then :func:`~afp_tpu_torch.ops.cuda.dither.dither_cuda`,
     then :func:`quantize_pcm16`.  Any batch runs (rows are masked).
-    ``precision='HIGHEST'`` runs each band in fp32 (K15,
-    `fir_td.py:_fir_kernel_ps`; ``.highest_launches`` counts it).  (`afp_tpu`
+    ``precision='HIGHEST'`` runs each band as the six products of the
+    three-way bf16 split (K15, `fir_td.py:_fir_kernel_ps`, the MXU's 6-pass
+    fp32; ``.highest_launches`` counts it).  An output's sums depend only on
+    its column, so a row run alone equals the same row in any batch.  Any
+    number of bands runs; the kernel takes up to 1033 taps (457 for
+    HIGHEST) and raises beyond.  (`afp_tpu`
     sends every mode but 'B3' to its fp32 kernel here; the port keeps B3F
     and B3C what they are elsewhere, the bf16×3 function.)"""
     highest = is_highest(precision)
@@ -499,13 +558,14 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
         return fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip,
                                            dither_key, dither_bits,
                                            dither_tpdf, emit_i16, precision)
-    x_ext, kernels, gains = (t.contiguous() for t in (x_ext, kernels, gains))
+    x_ext, gains = x_ext.contiguous(), gains.contiguous()
     out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
                       device=x_ext.device)
     lib = _build.load()
     with torch.cuda.device(x_ext.device):
+        tiles = cached_band_tiles(kernels, highest)
         rc = lib.afp_fir_td_ps(
-            x_ext.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
+            x_ext.data_ptr(), tiles.data_ptr(), gains.data_ptr(),
             out.data_ptr(), B, T, n, K, int(highest),
             *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
             int(bool(emit_i16)), _stream(x_ext))
@@ -518,6 +578,26 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
 
 fir_td_mxu_per_stream.launches = 0
 fir_td_mxu_per_stream.highest_launches = 0
+
+#: band tiles already built, by (id of the kernels tensor, HIGHEST): a weak
+#: reference to that tensor, its version counter and the tiles
+_TILES: dict = {}
+
+
+def cached_band_tiles(kernels: torch.Tensor, highest: bool) -> torch.Tensor:
+    """:func:`band_tiles` of `kernels`, built again only for another tensor
+    or after an in-place write to this one (its version counter moved).  A
+    pipeline passes the same band kernels every block, and building the
+    tiles costs about a third of K11's own device time at C8-psg."""
+    key = (id(kernels), bool(highest))
+    hit = _TILES.get(key)
+    if hit is not None and hit[0]() is kernels and hit[1] == kernels._version:
+        return hit[2]
+    for k in [k for k, v in _TILES.items() if v[0]() is None]:
+        del _TILES[k]  # entries of freed tensors
+    tiles = band_tiles(kernels, highest)
+    _TILES[key] = (weakref.ref(kernels), kernels._version, tiles)
+    return tiles
 
 
 # ---------------------------------------------------------------- ring forms

@@ -77,8 +77,9 @@ def profiled(torch, fn, per: int) -> str:
 
 def cells(torch, dev, sz):
     """(name, pipeline, params, batch, block, serves?, packing) for each
-    cell: the smoke's, with C5-highest and C8-highest (``td_precision=
-    'HIGHEST'``, staged only: no ring form) and C8-one (``agc_one_kernel``)."""
+    cell: the smoke's, with C5-highest, C8-highest and C8-psg-highest
+    (``td_precision='HIGHEST'``, staged only: no ring form) and C8-one
+    (``agc_one_kernel``)."""
     from afp_tpu_torch.engine import (Pipeline, PipelineParams, StreamConfig,
                                       batch)
 
@@ -108,6 +109,10 @@ def cells(torch, dev, sz):
                     pk8.supports_ring_step, None))
     out.append(("C8-psg", p8, batch.with_per_stream_gains(
         p8, shared(p8), cs.psg_gains(sz.c8_batch)), sz.c8_batch, sz.c8_block,
+        False, None))
+    ph8 = Pipeline(cs.c8_config(sz), dev, td_precision="HIGHEST")
+    out.append(("C8-psg-highest", ph8, batch.with_per_stream_gains(
+        ph8, shared(ph8), cs.psg_gains(sz.c8_batch)), sz.c8_batch, sz.c8_block,
         False, None))
     out.append(("C8-psagc", p8, cs.psagc_params(p8, shared(p8)), sz.c8_batch,
                 sz.c8_block, True, None))

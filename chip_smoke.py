@@ -20,14 +20,16 @@ Phases, one output line each; any failure raises (exit code != 0):
    f32 x of n/32768; then the per-stream banks: K10 at C5-bank (4 designs)
    and the banked K3, K4, K12, K12-mega, each ≤ −110 dB against its plain
    version and row by row ≡ its shared-taps form on that row's design; K11
-   at C8-psg (9 bands, per-stream gains) ≤ −110 dB, its fused epilogue ≡
-   K11 → clip → K2 → quantize_pcm16; K5/K6 with [B] vectors ≡ the scalar
-   runs per policy group; then the last three: K15's HIGHEST K1 at the C5
-   headline and HIGHEST K11 at C8-psg (≤ −110 dB, B3F/B3C ≡ B3), K14 at the
-   C8 point (f32, int16, pair store, ring slot; restart and carry) and K9
-   (both layouts and stores), each bit-exact against its plain version;
-   and one F.conv1d (fp32, TF32 off) per conv shape as the library
-   yardstick;
+   at C8-psg (9 bands, per-stream gains; the tensor-core kernel) ≤ −110 dB,
+   its fused epilogue ≡ K11 → clip → K2 → quantize_pcm16, rows run alone ≡
+   the same rows in the batch, its band tiles built on the card ≡ the CPU's;
+   K5/K6 with [B] vectors ≡ the scalar runs per policy group; then the last
+   three: K15's HIGHEST K1 at the C5 headline and HIGHEST K11 at C8-psg
+   (the six-product tensor-core form, with K11's checks; ≤ −110 dB, B3F/B3C
+   ≡ B3), K14 at the C8 point (f32, int16, pair store, ring slot; restart
+   and carry) and K9 (both layouts and stores), each bit-exact against its
+   plain version; and one F.conv1d (fp32, TF32 off) per conv shape as the
+   library yardstick, printed beside K11's times;
 4. `Pipeline.run` at the C5 headline (batch 4096, 8 blocks), and the
    single-stream chain against the float64 oracle of `bench.py:394-418`
    (< −90 dB); then the C8 chain (`bench.py:827-843`): 'exact' and 'fast'
@@ -70,7 +72,8 @@ Phases, one output line each; any failure raises (exit code != 0):
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times, bound (its operations and bytes at
-the card's peaks) and the library call's time, and
+the card's peaks: bf16×3 and HIGHEST's six products on the tensor cores,
+the elementwise kernels in fp32) and the library call's time, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -116,7 +119,9 @@ LIBRARY_DB = -90.0  # F.conv1d in fp32 vs the bf16×3 conv: the same function
 #: least time of a kernel is the larger of its operations at the rate of
 #: their type and its bytes (each input read once, each output written
 #: once) at the memory rate
-BF16_FLOPS = 989e12  # dense bf16 on the tensor cores: the bf16×3 products
+BF16_FLOPS = 989e12  # dense bf16 on the tensor cores: the bf16×3 products,
+# and HIGHEST's six bf16 products per tap (the tensor-core route of the fp32
+# conv, as the TPU's 6-pass HIGHEST)
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores: the elementwise kernels
 HBM_BYTES = 3.35e12
 
@@ -1382,9 +1387,12 @@ def phase_kernels_banks(torch, dev, sz: Sizes) -> dict:
     fused = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, **dkw), unfused)
     fused16 = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, emit_i16=True, **dkw),
                           F.quantize_pcm16(unfused))
-    check(e11 <= CONV_DB and fused and fused16,
+    tiles = torch.equal(F.band_tiles(bands).cpu(), F.band_tiles(bands.cpu()))
+    rows = k11_rows_alone(torch, F, x8, bands, gains, yk)
+    check(e11 <= CONV_DB and fused and fused16 and tiles and rows,
           f"K11: conv {e11:.1f} dB, fused == K11 -> clip -> K2 {fused}, int16 "
-          f"{fused16}")
+          f"{fused16}, band tiles card == CPU {tiles}, rows alone == in the "
+          f"batch {rows}")
     t1 = time_ms(torch, lambda: F.fir_td_mxu(x8, bands[0], **dkw), 10)
     res["fir_td_mxu_per_stream"] = dict(
         max_abs_err=float((yk - yp).abs().max()),
@@ -1397,12 +1405,14 @@ def phase_kernels_banks(torch, dev, sz: Sizes) -> dict:
         # same function (the mix, formed outside the timing, rounds apart)
         library_ms=library_conv(torch, "C8-psg", x8,
                                 (gains[:, :, None] * bands[None]).sum(1), yk))
+    r = res["fir_td_mxu_per_stream"]
     say(f"phase 3 K11 fir_td_mxu_per_stream [{B8}, {n8 - 1}+{T8}] x {K} bands of "
-        f"{n8} taps: conv {e11:.1f} dB vs plain, fused clip + dither (+ int16) == "
-        f"K11 -> clip -> K2 (-> quantize_pcm16) bit for bit; "
-        f"{res['fir_td_mxu_per_stream']['ms']:.3f} ms ({K} x K1's "
-        f"{t1:.3f} ms = {K * t1:.3f} ms in this call) vs plain "
-        f"{res['fir_td_mxu_per_stream']['plain_ms']:.3f} ms")
+        f"{n8} taps (tensor cores, bf16x3): conv {e11:.1f} dB vs plain, fused clip "
+        f"+ dither (+ int16) == K11 -> clip -> K2 (-> quantize_pcm16) bit for bit, "
+        f"band tiles card == CPU, rows alone == in the batch; {r['ms']:.3f} ms vs "
+        f"F.conv1d over mixed taps {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+        f"ms ({r['bound_ms'] / r['ms']:.0%}); {K} x K1's {t1:.3f} ms = {K * t1:.3f} "
+        f"ms in this call; plain {r['plain_ms']:.3f} ms")
     del x8, yk, yp, unfused
 
     # K5 and K6 with [B] vectors at C8-psagc ≡ the scalar runs per group
@@ -1658,6 +1668,17 @@ def phase_bank_engine(torch, dev, sz: Sizes) -> None:
 # ---------------------------------------------------------------- K15, K14, K9
 
 
+def k11_rows_alone(torch, F, x_ext, bands, gains, y, **kw) -> bool:
+    """Rows of K11 run alone, and as a 5-row batch that starts inside a row
+    tile, equal the same rows inside the whole batch `y`, bit for bit (an
+    output's sum order depends only on its column)."""
+    alone = all(torch.equal(F.fir_td_mxu_per_stream(x_ext[b:b + 1], bands,
+                                                    gains[b:b + 1], **kw), y[b:b + 1])
+                for b in (0, 13, x_ext.shape[0] - 1))
+    return alone and torch.equal(
+        F.fir_td_mxu_per_stream(x_ext[3:8], bands, gains[3:8], **kw), y[3:8])
+
+
 def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
     """K15's HIGHEST K1 at the C5 headline and HIGHEST K11 at C8-psg
     (≤ −110 dB against their plain versions, B3F/B3C ≡ B3, with the
@@ -1698,7 +1719,8 @@ def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
         max_abs_err=float((yk - yp).abs().max()),
         ms=time_ms(torch, lambda: F.fir_td_mxu(x_ext, h, **hi, **dkw), 10),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_plain(x_ext, h, **hi, **dkw), 3),
-        **bound(2.0 * B * T * n, 4 * (B * (n - 1 + T) + n + B * T), FP32_FLOPS),
+        # six bf16 products per tap on the tensor cores (the TPU's HIGHEST)
+        **bound(12.0 * B * T * n, 4 * (B * (n - 1 + T) + n + B * T)),
         library_ms=library_conv(torch, "C5 HIGHEST", x_ext, h, yk))
     r = res["fir_td_mxu:highest"]
     say(f"phase 3 K15 HIGHEST K1 fir_td_mxu(precision='HIGHEST') [{B}, {n - 1}+{T}] "
@@ -1718,8 +1740,13 @@ def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
     e11 = err_db(yk.cpu(), yp.cpu())
     unfused = dither_cuda(torch.clamp(yk, -0.2, 0.2), (5, 7), 16, "tpdf")
     fused = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, **hi, **dkw), unfused)
-    check(e11 <= CONV_DB and fused,
-          f"K15 HIGHEST K11: {e11:.1f} dB, fused epilogue {fused}")
+    fused16 = torch.equal(F.fir_td_mxu_per_stream(x8, bands, gains, emit_i16=True, **hi,
+                                                  **dkw), F.quantize_pcm16(unfused))
+    tiles = torch.equal(F.band_tiles(bands, True).cpu(), F.band_tiles(bands.cpu(), True))
+    rows = k11_rows_alone(torch, F, x8, bands, gains, yk, **hi)
+    check(e11 <= CONV_DB and fused and fused16 and tiles and rows,
+          f"K15 HIGHEST K11: {e11:.1f} dB, fused epilogue {fused}, int16 {fused16}, "
+          f"band tiles card == CPU {tiles}, rows alone == in the batch {rows}")
     t_b3 = time_ms(torch, lambda: F.fir_td_mxu_per_stream(x8, bands, gains, **dkw), 5)
     res["fir_td_mxu_per_stream:highest"] = dict(
         max_abs_err=float((yk - yp).abs().max()),
@@ -1727,16 +1754,20 @@ def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
                                                           **dkw), 5),
         plain_ms=time_ms(torch, lambda: F.fir_td_mxu_per_stream_plain(
             x8, bands, gains, **hi, **dkw), 1),
-        **bound(2.0 * B8 * T8 * n8 * K + 2.0 * B8 * T8 * K,
-                4 * (B8 * (n8 - 1 + T8) + K * n8 + B8 * K + B8 * T8), FP32_FLOPS),
+        # six bf16 products per tap and band on the tensor cores, and the mix
+        **bound(12.0 * B8 * T8 * n8 * K + 2.0 * B8 * T8 * K,
+                4 * (B8 * (n8 - 1 + T8) + K * n8 + B8 * K + B8 * T8)),
         # one grouped F.conv1d over each row's mixed taps, as for K11
         library_ms=library_conv(torch, "C8-psg HIGHEST", x8,
                                 (gains[:, :, None] * bands[None]).sum(1), yk))
     r = res["fir_td_mxu_per_stream:highest"]
     say(f"phase 3 K15 HIGHEST K11 fir_td_mxu_per_stream(precision='HIGHEST') "
-        f"[{B8}, {n8 - 1}+{T8}] x {K} bands: {e11:.1f} dB vs plain, fused clip + "
-        f"dither == K11 -> clip -> K2; {r['ms']:.3f} ms (B3 {t_b3:.3f} ms in this "
-        f"call) vs plain {r['plain_ms']:.3f} ms")
+        f"[{B8}, {n8 - 1}+{T8}] x {K} bands (tensor cores, six products): "
+        f"{e11:.1f} dB vs plain, fused clip + dither (+ int16) == K11 -> clip -> "
+        f"K2, band tiles card == CPU, rows alone == in the batch; {r['ms']:.3f} ms "
+        f"vs F.conv1d over mixed taps {r['library_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_ms'] / r['ms']:.0%}); B3 {t_b3:.3f} ms "
+        f"in this call; plain {r['plain_ms']:.3f} ms")
     del x8, yk, yp, unfused
 
     # K14 at the C8 point: every input form, restart and carry, bit-exact

@@ -23,7 +23,8 @@ from afp_tpu_torch.ops.cuda import (band_is_exact_bf16, band_matrix,
                                     fir_td_mxu_pair,
                                     fir_td_mxu_pair_plain,
                                     fir_td_mxu_pair_to_ring, ring_k_pad,
-                                    rms_desired, smooth_gain_apply, split_bf16)
+                                    rms_desired, rms_desired_plain,
+                                    smooth_gain_apply, split_bf16)
 
 EXACT_DB = -130.0  # the same f32 ops in the same order: bit-exact expected
 FFT_DB = -100.0  # two FFT libraries
@@ -182,6 +183,36 @@ def test_rms_desired_matches_pallas(w, transposed, mean_chunk, ring):
                                    0.1, 10.0, exact, interpret=True, **kw)
     check(f"K5 w={w} transposed={transposed} mc={mean_chunk} ring={ring}",
           got.numpy(), np.asarray(want), CONV_DB)
+
+
+@pytest.mark.parametrize("vector,transposed", [(False, False), (True, True)])
+def test_rms_desired_plain_sqrt_correctly_rounded(vector, transposed):
+    """The plain K5's sqrt is the correctly rounded f32 sqrt, as the kernel's
+    __fsqrt_rn (torch's f32 sqrt on the CPU is not): over 102 400 samples of
+    a one-sample window, whose window sum is the exact f32 hi + lo of x², d
+    equals a numpy float32 replica (np.sqrt on f32 rounds correctly) bit for
+    bit: 0 ulp."""
+    B, T = 25, 4096
+    x = (np.random.default_rng(21).standard_normal((B, T))
+         * np.logspace(-3, 0, B)[:, None]).astype(np.float32)
+    t = np.linspace(0.05, 0.3, B).astype(np.float32) if vector else np.float32(0.1)
+    m = np.full(B, 1e30, np.float32) if vector else np.float32(1e30)
+    hi, lo = split_bf16(torch.from_numpy(x * x))
+    s = hi.float().numpy() + lo.float().numpy()  # exact: the halves do not overlap
+    rms = np.sqrt(s)
+    tt = t[:, None] if vector else t
+    want = np.minimum(np.maximum(tt / (rms + np.float32(1e-10)), np.float32(0)),
+                      m[:, None] if vector else m).astype(np.float32)
+    got = rms_desired_plain(torch.from_numpy(x), rms_band(1), 0, 0,
+                            torch.from_numpy(t) if vector else float(t),
+                            torch.from_numpy(m) if vector else float(m), True,
+                            transposed=transposed).numpy()
+    if transposed:
+        got = got.T
+    n = int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+    print(f"K5 plain sqrt: {n} of {got.size} values differ from the correctly "
+          f"rounded replica, {ulps(got, want)} ulp (bound 0)")
+    assert n == 0
 
 
 def test_rms_desired_checks():

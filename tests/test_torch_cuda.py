@@ -10,7 +10,11 @@ batch with up to 8 designs, K11 with 1 and 9 bands over 12 rows, and the
 [B] vectors of K5/K6; for the last three kernels, K15's HIGHEST K1 and K11
 at those shapes (B3F/B3C ≡ B3), K14 over f32, int16, pair and ring-slot
 input with and without the carry, on batches that fill no block, K9 in
-every layout, `apply_agc` on the card, and the offline fold ≡ the scan.
+every layout, `apply_agc` on the card, and the offline fold ≡ the scan;
+for the tensor-core K11, both precisions over tap counts around its
+k-steps, 1 to 40 bands and ragged batches, rows alone ≡ in the batch, the
+band tiles card ≡ CPU and the per-stream fold ≡ the scan; and C8's kernels
+at batch 8 after the caching allocator was poisoned with NaN.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -419,6 +423,111 @@ def test_k11_vs_plain(dev, B, T, n, K):
     assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, **EPI), unfused)
     assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, emit_i16=True, **EPI),
                        F.quantize_pcm16(unfused))
+
+
+@pytest.mark.parametrize("precision", ["B3", "HIGHEST"])
+@pytest.mark.parametrize("B,T,n,K", [(5, 128, 1, 1), (33, 256, 15, 9), (12, 384, 16, 12),
+                                     (7, 128, 17, 40), (37, 640, 209, 9),
+                                     (5, 128, 300, 12)])
+def test_k11_tensor_cores(dev, precision, B, T, n, K):
+    """The tensor-core K11 at both precisions over tap counts around its
+    16-position k-steps (1, 15, 16, 17), the C8-psg taps and 300, 1 to 40
+    bands, batches that fill no 32-row tile and T = 128 (half a time tile):
+    ≤ −110 dB against the plain version, the fused epilogue bit-exact
+    (f32 and int16), rows run alone ≡ the same rows in the batch (at
+    other positions of their row tile), and the card's band tiles ≡ the
+    CPU's bit for bit."""
+    kw = dict(precision=precision)
+    highest = precision == "HIGHEST"
+    x = randn(dev, B, n - 1 + T)
+    kernels = randn(dev, K, n, seed=1)
+    gains = torch.rand(B, K, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev) * 2.0
+    y = F.fir_td_mxu_per_stream(x, kernels, gains, **kw)
+    e = err_db(y, F.fir_td_mxu_per_stream_plain(x, kernels, gains, **kw))
+    print(f"K11 {precision} B={B} T={T} n={n} K={K}: {e:.1f} dB")
+    assert y.shape == (B, T) and e <= CONV_DB
+    unfused = dither_cuda(torch.clamp(y, -0.3, 0.3), (9, 4), 16, "tpdf")
+    assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, **kw, **EPI), unfused)
+    assert torch.equal(F.fir_td_mxu_per_stream(x, kernels, gains, emit_i16=True,
+                                               **kw, **EPI), F.quantize_pcm16(unfused))
+    for b in (0, B // 2, B - 1):
+        assert torch.equal(F.fir_td_mxu_per_stream(x[b:b + 1], kernels, gains[b:b + 1],
+                                                   **kw), y[b:b + 1]), b
+    assert torch.equal(F.band_tiles(kernels, highest).cpu(),
+                       F.band_tiles(kernels.cpu(), highest))
+
+
+@pytest.mark.parametrize("precision", ["B3", "HIGHEST"])
+def test_per_stream_fold_equals_scan(dev, precision):
+    """The offline fold with per-stream EQ gains (K11 over B·nb rows, each
+    stream's gains repeated over its blocks) ≡ the scan bit for bit on the
+    card with dither off: 6 streams × 5 blocks fold into 30 rows."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig, batch
+
+    cfg = StreamConfig(samplerate=44100, blocksize=256, upsample_factor=2,
+                       numtaps=65, batch=6, conv_strategy="td_mxu",
+                       eq_enabled=True, dither_kind="off")
+    pipe = Pipeline(cfg, dev, td_precision=precision)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    gains = np.random.default_rng(8).uniform(0.25, 2.0, (6, len(cfg.eq_bands)))
+    params = batch.with_per_stream_gains(pipe, params, gains.astype(np.float32))
+    x = (np.random.default_rng(7).standard_normal((6, 5 * 256 + 77)) * 0.3
+         ).astype(np.float32)
+    st0 = pipe.init_state(seed=3)
+    before = F.fir_td_mxu_per_stream.launches
+    sf, yf = pipe.process_signal(params, st0, x, fold=True)
+    ss, ys = pipe.process_signal(params, st0, x, fold=False)
+    assert F.fir_td_mxu_per_stream.launches == before + 6
+    assert torch.equal(yf, ys) and torch.equal(sf.conv_tail, ss.conv_tail)
+
+
+def test_c8_batch8_after_allocator_poisoning(dev):
+    """C8's kernels at batch 8 (below K6's 32-stream block and K8's row
+    tiles) after the caching allocator was filled with NaN and freed, so a
+    workspace or output element a kernel failed to write would read NaN:
+    K5 ≤ −110 dB, K6 bit-exact and K8 ≤ −110 dB against their plain
+    versions on the same inputs, four blocks with the gain carry, outputs
+    finite, and the Pipeline step ≡ the kernels called in order."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+
+    junk = torch.full((1 << 26,), float("nan"), device=dev)  # 256 MiB
+    torch.cuda.synchronize()
+    del junk
+    cfg = StreamConfig(samplerate=44100, blocksize=2048, upsample_factor=2,
+                       numtaps=129, batch=8, cutoff=14000.0, eq_enabled=True,
+                       agc_enabled=True, agc_mode="exact", agc_window_size=512,
+                       agc_carry=True, downsample_mode="decimate",
+                       dither_kind="tpdf", output_clip=0.99, conv_strategy="td_mxu")
+    pipe = Pipeline(cfg, dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    lp, rp = pipe._rms_pad
+    h = params.combined_cascade(True)
+    sig = torch.from_numpy((np.random.default_rng(4).standard_normal((4, 8, 2048)) * 0.1
+                            ).astype(np.float32)).to(dev)
+    sig[:, 0] *= 8.0
+    st = pipe.init_state(seed=1)
+    for blk in sig:
+        d = R.rms_desired(blk, pipe._rms_band, lp, rp, params.agc_target,
+                          params.agc_max_gain, True, transposed=True)
+        dp = R.rms_desired_plain(blk, pipe._rms_band, lp, rp, params.agc_target,
+                                 params.agc_max_gain, True, transposed=True)
+        assert err_db(d, dp) <= CONV_DB and bool(torch.isfinite(d).all())
+        knobs = (params.agc_a_att, params.agc_a_rel, params.agc_max_gain)
+        (yh, yl), c = S.smooth_gain_apply(d, blk, *knobs, init=st.agc_gain,
+                                          emit_split=True)
+        (ph, pl), pc = S.smooth_gain_apply_plain(d, blk, *knobs, init=st.agc_gain,
+                                                 emit_split=True)
+        assert torch.equal(yh, ph) and torch.equal(yl, pl) and torch.equal(c, pc)
+        th, tl = st.conv_tail
+        dkw = pipe._dither_kw(st, cfg.output_clip)
+        y, nh, nl = F.fir_td_mxu_pair(yh, yl, th, tl, h, **dkw)
+        yp, _, _ = F.fir_td_mxu_pair_plain(yh, yl, th, tl, h, **dkw)
+        assert err_db(y, yp) <= CONV_DB and bool(torch.isfinite(y).all())
+        st2, ys = pipe.step(params, st, blk)
+        assert torch.equal(ys, y) and torch.equal(st2.agc_gain, c)
+        assert torch.equal(st2.conv_tail[0], nh) and torch.equal(st2.conv_tail[1], nl)
+        st = st2
 
 
 @pytest.mark.parametrize("B,T,blockwise", [(40, 256, 32), (9, 384, None)])
