@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the banded-Toeplitz conv (K11 today; the
-// shared bf16x3 body can move onto the same pieces).
+// Tensor-core building blocks of the banded-Toeplitz conv: the shared body
+// (K1, K3, K4, K7, K8, K10, K12, K13 and HIGHEST K1) and K11, both in
+// csrc/fir_td.cu.
 //
 // The conv y[b, c] = sum_j h[j] * w[b, c + n-1 - j] of a staged window w
 // (window position p holds the extended-signal sample of output c + n-1 - j)
@@ -16,8 +17,9 @@
 //
 //   tile s: B[i][j] = h[n-1 - 16 s + j - i]   (zero outside [0, n)).
 //
-// So a band is S small tiles, built once per call by
-// `ops/cuda/fir_td.py:band_tiles` directly in the mma B-fragment order:
+// So a band is S small tiles, laid out directly in the mma B-fragment order
+// (built in shared memory from the taps, fir_td.cu:build_tiles, entry for
+// entry as `ops/cuda/fir_td.py:band_tiles` builds them):
 // lane l (group g = l / 4, t = l % 4) holds B[2t][g], B[2t+1][g],
 // B[2t+8][g], B[2t+9][g] as four bf16, one 8-byte load.  A tile of one bf16
 // half is 256 bytes.
@@ -30,10 +32,13 @@
 // rounding to nearest) inside one mma.
 //
 // Sum order: an output's accumulator takes the steps s = 0 .. S-1 in order,
-// each step the products in the order above.  That sequence depends on
-// nothing but the output's column within its 8-wide tile, never on its row,
-// its row tile, the batch or the grid, so a row computed alone equals the
-// same row inside any batch, bit for bit.
+// each step the products in the order above.  The callers run band_conv
+// over chunks of steps, each into a fresh fragment whose sum they add in
+// fp32 round-to-nearest (fir_td.cu:conv_chunks), which bounds the truncated
+// adds behind any one rounding.  That sequence depends on nothing but the
+// output's column within its 8-wide tile, never on its row, its row tile,
+// the batch or the grid, so a row computed alone equals the same row inside
+// any batch, bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,20 +70,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// 16-byte asynchronous copy global -> shared, and its group fences.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // The bf16 halves of v as raw bits: P = 2, split_bf16's (hi, lo); P = 3,
@@ -114,41 +105,41 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
   }
 }
 
-// Two A positions m2, m2 + 1 of band_conv: the A fragments of each, then
-// every column tile q of the same parity whose step s = (m - q) / 2 lies in
-// [0, S).  Without kGuard every such q is valid (the steady middle of the
-// loop): the body is one straight block, so the scheduler interleaves the
-// independent accumulators' mma chains.
+// Step t of band_conv (A positions m = 2t, 2t + 1): the A fragments of
+// both positions, then for each column tile pair q = 2j, 2j + 1 whose step
+// s = t - j lies in [0, S) one B tile s, which serves both.  Without kGuard
+// every s does (the steady middle of the loop): the body is one straight
+// block, so the scheduler interleaves the independent accumulators' mma
+// chains.
 template <int P, int MT, int NQ, bool kGuard>
 __device__ __forceinline__ void band_step(const uint16_t* __restrict__ win,
                                           int rows_stride, int wp, int acol,
                                           int arow,
                                           const unsigned char* __restrict__ tiles,
-                                          int S, int m2, int lane,
+                                          int S, int t, int lane,
                                           float (&z)[MT][NQ][4]) {
+  uint32_t a[2][MT][P][4];
 #pragma unroll
-  for (int par = 0; par < 2; ++par) {
-    const int m = m2 + par;
-    uint32_t a[MT][P][4];
+  for (int par = 0; par < 2; ++par)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int p = 0; p < P; ++p)
-        ldmatrix_x4(a[mt][p], win + (static_cast<size_t>(p) * rows_stride +
-                                     mt * 16 + arow) * wp + acol + 8 * m);
+        ldmatrix_x4(a[par][mt][p],
+                    win + (static_cast<size_t>(p) * rows_stride + mt * 16 + arow) * wp +
+                        acol + 8 * (2 * t + par));
 #pragma unroll
-    for (int q = par; q < NQ; q += 2) {
-      const int d = m - q;  // even
-      if (kGuard && (d < 0 || d >= 2 * S)) continue;
-      const int s = d >> 1;
-      uint2 b[P];
+  for (int j = 0; j < NQ / 2; ++j) {
+    const int s = t - j;
+    if (kGuard && (s < 0 || s >= S)) continue;
+    uint2 b[P];
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        b[p] = *reinterpret_cast<const uint2*>(tiles +
-                                               ((s * P + p) * 32 + lane) * 8);
+    for (int p = 0; p < P; ++p)
+      b[p] = *reinterpret_cast<const uint2*>(tiles + ((s * P + p) * 32 + lane) * 8);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_split<P>(z[mt][q], a[mt], b);
-    }
+    for (int par = 0; par < 2; ++par)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_split<P>(z[mt][2 * j + par], a[par][mt], b);
   }
 }
 
@@ -156,10 +147,12 @@ __device__ __forceinline__ void band_step(const uint16_t* __restrict__ win,
 // tiles c = cbase + 8 q (q < NQ, NQ even) of z, from the window halves
 // `win` (P arrays of `rows_stride` rows x `wp` bf16, row-major, wp = 8 mod
 // 64 so the ldmatrix rows fall in distinct bank groups) and the band's S
-// tiles `tiles` ([S][P][32 lanes] x 8 bytes in shared memory).  The A
-// fragment of window position p0 = cbase + 8 m is loaded once and serves
-// every column tile q with m - q = 2 s even, 0 <= s < S.  For m2 in
-// [NQ - 2, 2 S - 2] every q is valid; the edges run guarded.
+// tiles `tiles` ([S][P][32 lanes] x 8 bytes in shared memory).  Column tile
+// q takes step s at window position p0 = cbase + 8 (q + 2 s): the loop runs
+// t = 0 .. NQ/2 + S - 2 over position pairs 2t, 2t + 1, whose A fragments
+// serve the tiles q = 2j, 2j + 1 at step s = t - j, one B tile for both
+// (so a warp reads each A fragment once and each B tile twice per chunk).
+// For t in [NQ/2 - 1, S - 1] every q is valid; the edges run guarded.
 template <int P, int MT, int NQ>
 __device__ __forceinline__ void band_conv(const uint16_t* __restrict__ win,
                                           int rows_stride, int wp, int cbase,
@@ -169,21 +162,21 @@ __device__ __forceinline__ void band_conv(const uint16_t* __restrict__ win,
   const int lane = threadIdx.x & 31;
   const int arow = lane & 15;
   const int acol = cbase + (lane >> 4) * 8;
-  const int nm = NQ + 2 * S - 2;  // A positions m = q + 2 s
-  const bool steady = NQ - 2 <= 2 * S - 2;
-  const int lo = steady ? NQ - 2 : 0;  // the steady m2: [lo, hi)
-  const int hi = steady ? 2 * S : 0;
+  const int nt = NQ / 2 + S - 1;  // position pairs t
+  const bool steady = NQ / 2 <= S;
+  const int lo = steady ? NQ / 2 - 1 : 0;  // the steady t: [lo, hi)
+  const int hi = steady ? S : 0;
 #pragma unroll 1
-  for (int m2 = 0; m2 < lo; m2 += 2)
-    band_step<P, MT, NQ, true>(win, rows_stride, wp, acol, arow, tiles, S, m2,
+  for (int t = 0; t < lo; ++t)
+    band_step<P, MT, NQ, true>(win, rows_stride, wp, acol, arow, tiles, S, t,
                                lane, z);
 #pragma unroll 1
-  for (int m2 = lo; m2 < hi; m2 += 2)
-    band_step<P, MT, NQ, false>(win, rows_stride, wp, acol, arow, tiles, S, m2,
+  for (int t = lo; t < hi; ++t)
+    band_step<P, MT, NQ, false>(win, rows_stride, wp, acol, arow, tiles, S, t,
                                 lane, z);
 #pragma unroll 1
-  for (int m2 = hi; m2 < nm; m2 += 2)
-    band_step<P, MT, NQ, true>(win, rows_stride, wp, acol, arow, tiles, S, m2,
+  for (int t = hi; t < nt; ++t)
+    band_step<P, MT, NQ, true>(win, rows_stride, wp, acol, arow, tiles, S, t,
                                lane, z);
 }
 

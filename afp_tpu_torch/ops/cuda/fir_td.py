@@ -36,28 +36,41 @@ here): ``'B3'`` (the default) is the bf16×3 class above.  ``'B3F'`` and
 ``'B3C'`` are the same function in `afp_tpu`, with the input split inside
 the TPU kernel or over time-chunk pairs; this body always reads one f32
 input and splits it in its loader, so all three run the one bf16×3 body and
-agree bit for bit.  ``'HIGHEST'`` is the conv in fp32 class (the MXU's
-6-pass emulation of fp32 on the TPU).  K1 takes it as the body's fp32
-option (plain f32 window and taps, one fmaf per tap); K11 as the TPU's own
-route on the tensor cores, x and the taps split exactly into three bf16
-halves (:func:`split3_bf16`) and six products per tap.  The ring, pair and
-bank forms are bf16×3 only, as in `afp_tpu`.
+agree bit for bit.  ``'HIGHEST'`` is the conv in fp32 class, the TPU's own
+route (the MXU's 6-pass emulation of fp32): x and the taps split exactly
+into three bf16 halves (:func:`split3_bf16`) and six products per tap, for
+K1 and K11 alike.  The ring, pair and bank forms are bf16×3 only, as in
+`afp_tpu`.
+
+Every form runs on the tensor cores (`csrc/fir_td.cu`, `csrc/band_mma.cuh`):
+a block's staged window times the Toeplitz tiles of the taps
+(:func:`band_tiles`, which every kernel builds in shared memory from the
+taps pointer, entry for entry), ``mma.sync`` m16n8k16 with
+fp32 accumulation.  The k-steps of 16 window positions are summed in
+chunks of :data:`ACC_STEPS`, each in a fresh fragment, the chunk sums added
+in fp32 round-to-nearest; an output's sum order depends only on its column
+in its 8-wide tile, so every form of the body, and K11 with one band at
+gain 1.0, give the same bits on the same window.  Long filters stage their
+window in chunks of k-steps that fit the shared memory
+(:func:`conv_geometry`, checked against the built library by
+:func:`built_conv_geometry`), so every tap count runs.
 
 The bank option (per-stream filter banks, `engine/batch.py`): K10 is K1 over
 a tap bank ``[D, n]`` with a per-tile design assignment ``assign``
 ``[B / bt]`` (int32; row ``b`` takes design ``assign[b // bt]``), and K3,
 K4 and K12 take the same ``assign=`` (the reference's banked ring forms).
 The tile ``bt`` is ``B / len(assign)``: a multiple of 8, or the whole batch
-when ``B <= 8`` (the reference's tile ladder), so a block's four rows never
-straddle two designs.  The kernel selects a block's taps by address, so a
-banked row equals the shared-taps form run with its design, bit for bit.
+when ``B <= 8`` (the reference's tile ladder), so no 8-row group of a
+block straddles two designs.  The kernel selects a group's taps by
+address and runs a block once per distinct design among its groups,
+each row keeping its own design's sums, so a banked row equals the
+shared-taps form run with its design, bit for bit.
 An entry of ``assign`` outside ``[0, D)`` reads no taps: its rows come out
 NaN (−32768 in an int16 store), on the card and in the plain version alike,
 so a bad assignment shows in the output without a synchronize per launch.  K11
 mixes K band convs per stream, ``y[b] = Σ_k gains[b, k]·(x[b] ⊛ h_k)``, on
 the tensor cores: each band is the product of the split window with its
-Toeplitz tiles (:func:`band_tiles`, built on the device once per band
-kernels tensor, :func:`cached_band_tiles`).
+Toeplitz tiles, built in shared memory from the band kernels.
 
 K8, K7 and K13 take the block (or the rings) and the carried tail as bf16
 (hi, lo) pairs, the form the AGC apply kernel (K6) stores and
@@ -81,16 +94,17 @@ counters ``counter … counter+n−1``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
-import weakref
 
 import torch
 
 from ..dither import lsb_for_bits, noise
 from . import _build
 
-__all__ = ["LANE", "PCM16_SCALE", "PRECISIONS", "split_bf16", "merge_bf16", "band_matrix",
-           "split3_bf16", "band_steps", "band_tiles", "cached_band_tiles",
+__all__ = ["LANE", "PCM16_SCALE", "PRECISIONS", "ACC_STEPS", "split_bf16", "merge_bf16",
+           "band_matrix", "split3_bf16", "band_steps", "conv_geometry",
+           "built_conv_geometry", "band_tiles",
            "ring_k_pad", "quantize_pcm16", "pcm16_to_f32",
            "fir_td_mxu", "fir_td_mxu_plain",
            "fir_td_mxu_ring_f32", "fir_td_mxu_ring_f32_plain",
@@ -114,6 +128,15 @@ PCM16_SCALE = 1.0 / 32768.0
 
 #: the conv precisions (`fir_td.py:43-59`); see the module docstring (K15)
 PRECISIONS = ("B3", "B3F", "B3C", "HIGHEST")
+
+#: k-steps of the tensor-core conv summed in one fragment before the fp32
+#: round-to-nearest add of the chunk sums (`csrc/fir_td.cu:kAccSteps`)
+ACC_STEPS = 16
+
+#: the body's block (`csrc/fir_td.cu:conv_geom`): 16 batch rows x 8 warps of
+#: 64 outputs at both precisions, and the shared memory a block may take
+_CONV_ROWS, _CONV_COLS = 16, 512
+_SMEM_LIMIT = 227 * 1024
 
 _M32 = 0xFFFFFFFF
 _IN_F32, _IN_I16, _IN_PAIR = 0, 1, 2  # csrc/fir_td.cu kInF32, kInI16, kInPair
@@ -185,8 +208,54 @@ def band_steps(n_taps: int) -> int:
     return (n_taps + 7 + 15) // 16
 
 
+def conv_geometry(n_taps: int, highest: bool = False) -> dict:
+    """The geometry of the tensor-core conv body for ``n_taps`` taps, as
+    `csrc/fir_td.cu:conv_geom` computes it: ``S`` k-steps
+    (:func:`band_steps`); the window chunk of ``C`` steps (all ``S`` when
+    they fit, else the largest multiple of :data:`ACC_STEPS` that does) and
+    its ``W = cols − 8 + 16·C`` positions in rows of ``wp`` bf16; ``smem``,
+    the bytes of shared memory a block takes (the window's P halves, or the
+    f32 output tile over them, then the chunk's tiles), at most 227 KB;
+    ``chunks``, the window chunks the k-steps take; ``rows`` and ``cols``
+    of a block.  Raises when nothing fits."""
+    P, cols = (3 if highest else 2), _CONV_COLS
+    S = band_steps(n_taps)
+
+    def layout(C):
+        W = cols - 8 + 16 * C
+        wp = (W - 8 + 63) // 64 * 64 + 8
+        region = max(P * _CONV_ROWS * wp * 2, 4 * _CONV_ROWS * (cols + 8))
+        return dict(S=S, C=C, W=W, wp=wp, smem=region + C * P * 256,
+                    rows=_CONV_ROWS, cols=cols)
+
+    g = layout(S)
+    C = S // ACC_STEPS * ACC_STEPS
+    while g["smem"] > _SMEM_LIMIT and C > 0:
+        g = layout(C)
+        C -= ACC_STEPS
+    if g["smem"] > _SMEM_LIMIT:
+        raise ValueError(f"no window chunk of the conv fits {_SMEM_LIMIT} "
+                         f"bytes at {n_taps} taps")
+    g["chunks"] = -(-S // g["C"])
+    return g
+
+
+def built_conv_geometry(n_taps: int, highest: bool = False) -> dict:
+    """The body's geometry as the built library computes it
+    (`csrc/fir_td.cu:afp_conv_geometry`), in :func:`conv_geometry`'s keys
+    plus ``acc_steps`` and ``min_blocks`` (the blocks an SM holds); ``C`` is
+    0 where nothing fits.  Builds the library: the card's machine only."""
+    out = (ctypes.c_longlong * 9)()
+    _raise_on(_build.load().afp_conv_geometry(int(n_taps), int(bool(highest)), out),
+              "afp_conv_geometry")
+    keys = ("S", "C", "W", "wp", "smem", "rows", "cols", "acc_steps", "min_blocks")
+    g = dict(zip(keys, map(int, out)))
+    g["chunks"] = -(-g["S"] // g["C"]) if g["C"] else 0
+    return g
+
+
 def band_tiles(kernels: torch.Tensor, highest: bool = False) -> torch.Tensor:
-    """The B operands of K11's tensor-core conv (`csrc/band_mma.cuh`): for
+    """The B operands of the tensor-core conv (`csrc/band_mma.cuh`): for
     each band kernel h [K, n] and step s < :func:`band_steps`, the 16×8
     Toeplitz tile ``B[i][j] = h[n−1−16s+j−i]`` (zero outside the taps),
     entry for entry :func:`band_matrix`'s ``[p0+i, c0+j]`` at ``p0 = c0 +
@@ -194,7 +263,9 @@ def band_tiles(kernels: torch.Tensor, highest: bool = False) -> torch.Tensor:
     :func:`split3_bf16` for HIGHEST) and laid out in the mma B-fragment
     order: lane l (g = l // 4, t = l % 4) holds ``B[2t][g], B[2t+1][g],
     B[2t+8][g], B[2t+9][g]``.  Returns [K, S, P, 32, 4] bfloat16 on the
-    kernels' device (P = 2, or 3 for HIGHEST)."""
+    kernels' device (P = 2, or 3 for HIGHEST).  K11 takes them from here;
+    the body builds the same entries in shared memory
+    (`csrc/fir_td.cu:build_tiles`)."""
     idx, inside = _tile_taps(kernels.shape[1], kernels.device)
     vals = kernels.to(torch.float32)[:, idx] * inside  # [K, S, 32, 4]
     halves = split3_bf16(vals) if highest else split_bf16(vals)
@@ -389,8 +460,13 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
     """K1: causal/valid conv of ``x_ext`` [B, n−1+T] with taps ``h`` [n] →
     [B, T] f32 (int16 PCM with ``emit_i16``), with the optional clip then
     dither fused into the store.  ``T`` must be a multiple of :data:`LANE`
-    (`fir_td.py:1665-1698`).  ``precision='HIGHEST'`` is K15's fp32 conv
-    (``.highest_launches`` counts it); the bf16×3 modes share one body."""
+    (`fir_td.py:1665-1698`).  On the card it runs on the tensor cores:
+    bf16×3 (the bf16×3 modes share one body), or with
+    ``precision='HIGHEST'`` K15's fp32-class conv, the six products of the
+    exact three-way bf16 split (``.highest_launches`` counts it); the
+    k-steps sum in chunks of :data:`ACC_STEPS` (module docstring), so the
+    result equals :func:`fir_td_mxu_per_stream` with the one band ``h`` at
+    gain 1.0.  Any tap count runs (:func:`conv_geometry`)."""
     highest = is_highest(precision)
     if x_ext.ndim != 2 or x_ext.dtype != torch.float32:
         raise ValueError(f"x_ext must be [B, n-1+T] float32, got "
@@ -540,7 +616,10 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
     kernels[k])`` of ``x_ext`` [B, n−1+T] with K band kernels [K, n] and
     per-stream gains [B, K] → [B, T] (`fir_td.py:1784-1810`), each band in
     the bf16×3 class on the tensor cores (`mma.sync`, fp32 accumulate,
-    against :func:`band_tiles`), mixed in fp32 in band order.  The output
+    against the band's :func:`band_tiles`, built in shared memory from
+    ``kernels``), mixed ``y = y + g·z`` in fp32 per chunk
+    of :data:`ACC_STEPS` k-steps, in band order (one band at gain 1.0 is
+    :func:`fir_td_mxu` bit for bit as values).  The output
     stage is K1's (clip, dither, int16 store), fused: the same bits as
     K11, then clip, then :func:`~afp_tpu_torch.ops.cuda.dither.dither_cuda`,
     then :func:`quantize_pcm16`.  Any batch runs (rows are masked).
@@ -558,14 +637,13 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
         return fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip,
                                            dither_key, dither_bits,
                                            dither_tpdf, emit_i16, precision)
-    x_ext, gains = x_ext.contiguous(), gains.contiguous()
+    x_ext, kernels, gains = x_ext.contiguous(), kernels.contiguous(), gains.contiguous()
     out = torch.empty((B, T), dtype=torch.int16 if emit_i16 else torch.float32,
                       device=x_ext.device)
     lib = _build.load()
     with torch.cuda.device(x_ext.device):
-        tiles = cached_band_tiles(kernels, highest)
         rc = lib.afp_fir_td_ps(
-            x_ext.data_ptr(), tiles.data_ptr(), gains.data_ptr(),
+            x_ext.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
             out.data_ptr(), B, T, n, K, int(highest),
             *_epi(out_clip, dither_key, dither_bits, dither_tpdf),
             int(bool(emit_i16)), _stream(x_ext))
@@ -578,27 +656,6 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
 
 fir_td_mxu_per_stream.launches = 0
 fir_td_mxu_per_stream.highest_launches = 0
-
-#: band tiles already built, by (id of the kernels tensor, HIGHEST): a weak
-#: reference to that tensor, its version counter and the tiles
-_TILES: dict = {}
-
-
-def cached_band_tiles(kernels: torch.Tensor, highest: bool) -> torch.Tensor:
-    """:func:`band_tiles` of `kernels`, built again only for another tensor
-    or after an in-place write to this one (its version counter moved).  A
-    pipeline passes the same band kernels every block, and building the
-    tiles costs about a third of K11's own device time at C8-psg."""
-    key = (id(kernels), bool(highest))
-    hit = _TILES.get(key)
-    if hit is not None and hit[0]() is kernels and hit[1] == kernels._version:
-        return hit[2]
-    for k in [k for k, v in _TILES.items() if v[0]() is None]:
-        del _TILES[k]  # entries of freed tensors
-    tiles = band_tiles(kernels, highest)
-    _TILES[key] = (weakref.ref(kernels), kernels._version, tiles)
-    return tiles
-
 
 # ---------------------------------------------------------------- ring forms
 

@@ -23,7 +23,7 @@ import chip_smoke as cs
 BLOCKS = 8  # staged blocks per cell; the serving cells serve 16
 
 #: device event name → class (first match wins)
-CLASSES = (("fir_ps_kernel", "K11"), ("fir_b3_kernel", "conv"),
+CLASSES = (("fir_ps_kernel", "K11"), ("fir_conv_kernel", "conv"),
            ("ring_tail_kernel", "ring tail"), ("rms_desired_kernel", "K5"),
            ("agc_apply_kernel", "K6"), ("agc_fused_kernel", "K14"),
            ("agc_scan_kernel", "K9"), ("dither_kernel", "K2"),

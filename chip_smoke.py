@@ -7,8 +7,11 @@ Phases, one output line each; any failure raises (exit code != 0):
 
 1. the card's name and power limit (nvidia-smi); no CUDA device → exit 1;
 2. build the CUDA kernels from `afp_tpu_torch/csrc` with nvcc (one nvcc per
-   source, in parallel);
-3. each kernel against its plain PyTorch version on the same device tensors,
+   source, in parallel), and print ptxas's registers and spills of each
+   instantiation of the conv kernels;
+3. the conv body's geometry at C5 and C8 (`conv_geometry`, held against
+   the built library's, `built_conv_geometry`), then each
+   kernel against its plain PyTorch version on the same device tensors,
    both timed with CUDA events: the C5 kernels K1-K4 and K2 at the C5
    headline (conv ≤ −110 dB, clip and noise bit-exact), and the C8 AGC
    kernels at the C8 point (batch 4096, block 2048, W = 512): K5 ≤ −110 dB,
@@ -26,7 +29,8 @@ Phases, one output line each; any failure raises (exit code != 0):
    K5/K6 with [B] vectors ≡ the scalar runs per policy group; then the last
    three: K15's HIGHEST K1 at the C5 headline and HIGHEST K11 at C8-psg
    (the six-product tensor-core form, with K11's checks; ≤ −110 dB, B3F/B3C
-   ≡ B3), K14 at the C8 point (f32, int16, pair store, ring slot; restart
+   ≡ B3; K1 ≡ K11 run with the one band at gain 1.0, bit for bit, at B3
+   and HIGHEST), K14 at the C8 point (f32, int16, pair store, ring slot; restart
    and carry) and K9 (both layouts and stores), each bit-exact against its
    plain version; and one F.conv1d (fp32, TF32 off) per conv shape as the
    library yardstick, printed beside K11's times;
@@ -79,10 +83,12 @@ the elementwise kernels in fp32) and the library call's time, and
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from dataclasses import dataclass, replace
+from pathlib import Path
 
 import numpy as np
 
@@ -163,6 +169,34 @@ def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def ptxas_report(log: Path, names) -> dict:
+    """Registers and spill bytes of each kernel instantiation whose name
+    holds one of `names`, from ptxas's ``-v`` report in the build log
+    (names demangled by c++filt where it exists)."""
+    found, cur = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+        elif cur is not None and any(n in cur for n in names):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                found.setdefault(cur, {})["spills"] = f"{m.group(1)}/{m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                found.setdefault(cur, {})["registers"] = int(m.group(1))
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True,
+                               text=True, timeout=60).stdout.split("\n")
+    except OSError:
+        plain = list(found)
+    out = {}
+    for mangled, name in zip(found, plain):
+        m = re.search(r"(fir_\w+<[^>]*>)", name)
+        out[m.group(1) if m else mangled] = found[mangled]
+    return out
 
 
 def time_ms(torch, fn, reps: int, warm: int = 1) -> float:
@@ -305,8 +339,20 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
 
     dkw = dict(out_clip=0.2, dither_key=(5, 7), dither_bits=16, dither_tpdf=True)
     res = {}
+    n8 = Pipeline(c8_config(sz), dev).n_casc
+    for name, taps, hi in (("C5", n, False), ("C5", n, True), ("C8", n8, False)):
+        geo = F.conv_geometry(taps, hi)
+        built = F.built_conv_geometry(taps, hi)
+        check(all(built[k] == v for k, v in geo.items()) and built["acc_steps"] == F.ACC_STEPS,
+              f"conv geometry: the library's {built} differs from the mirror's {geo}")
+        say(f"phase 3 conv geometry {name} {'HIGHEST' if hi else 'B3'} ({taps} taps, "
+            f"== the library's): "
+            f"block {geo['rows']} rows x {geo['cols']} outputs, {geo['S']} k-steps in "
+            f"{geo['chunks']} window chunk(s) of {geo['C']}, window {geo['W']} "
+            f"positions (row {geo['wp']}), {geo['smem']} B shared; sums in chunks of "
+            f"{F.ACC_STEPS} k-steps")
 
-    # K1: staged conv
+    # K1: staged conv (the tensor-core body)
     x_ext = randn(B, n - 1 + T)
     yk = F.fir_td_mxu(x_ext, h)
     yp = F.fir_td_mxu_plain(x_ext, h)
@@ -1712,8 +1758,13 @@ def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
     same = all(torch.equal(F.fir_td_mxu(x_ext, h, precision=p, **dkw), b3)
                for p in ("B3F", "B3C"))
     e_b3 = err_db(b3.cpu(), F.fir_td_mxu(x_ext, h, **hi, **dkw).cpu())
-    check(e15 <= CONV_DB and epi and same,
-          f"K15 HIGHEST K1: {e15:.1f} dB, epilogue {epi}, B3F/B3C == B3 {same}")
+    one = torch.ones(B, 1, device=dev)
+    k11 = {p: torch.equal(F.fir_td_mxu(x_ext, h, precision=p),
+                          F.fir_td_mxu_per_stream(x_ext, h[None], one, precision=p))
+           for p in ("B3", "HIGHEST")}
+    check(e15 <= CONV_DB and epi and same and all(k11.values()),
+          f"K15 HIGHEST K1: {e15:.1f} dB, epilogue {epi}, B3F/B3C == B3 {same}, "
+          f"K1 == one-band K11 at gain 1 {k11}")
     t_b3 = time_ms(torch, lambda: F.fir_td_mxu(x_ext, h, **dkw), 10)
     res["fir_td_mxu:highest"] = dict(
         max_abs_err=float((yk - yp).abs().max()),
@@ -1725,7 +1776,8 @@ def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
     r = res["fir_td_mxu:highest"]
     say(f"phase 3 K15 HIGHEST K1 fir_td_mxu(precision='HIGHEST') [{B}, {n - 1}+{T}] "
         f"x {n} taps: {e15:.1f} dB vs plain, epilogue bit-exact, {e_b3:.1f} dB "
-        f"from B3; B3F and B3C == B3 bit for bit; {r['ms']:.3f} ms (B3 {t_b3:.3f} "
+        f"from B3; B3F and B3C == B3 bit for bit; K1 == K11 with the one band at "
+        f"gain 1.0, B3 and HIGHEST, bit for bit; {r['ms']:.3f} ms (B3 {t_b3:.3f} "
         f"ms in this call) vs plain {r['plain_ms']:.3f} ms")
     del x_ext, yk, yp, b3
 
@@ -2118,6 +2170,10 @@ def main() -> int:
     _build.load()
     say(f"phase 2 build: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for kern, r in ptxas_report(_build.build().with_suffix(".log"),
+                                ("fir_conv_kernel", "fir_ps_kernel")).items():
+        say(f"phase 2 ptxas {kern}: {r.get('registers')} registers, spills "
+            f"{r.get('spills')}")
 
     sz = Sizes()
     res = {}

@@ -13,8 +13,12 @@ input with and without the carry, on batches that fill no block, K9 in
 every layout, `apply_agc` on the card, and the offline fold ≡ the scan;
 for the tensor-core K11, both precisions over tap counts around its
 k-steps, 1 to 40 bands and ragged batches, rows alone ≡ in the batch, the
-band tiles card ≡ CPU and the per-stream fold ≡ the scan; and C8's kernels
-at batch 8 after the caching allocator was poisoned with NaN.
+band tiles card ≡ CPU and the per-stream fold ≡ the scan; C8's kernels
+at batch 8 after the caching allocator was poisoned with NaN; and for the
+tensor-core conv body, K1 ≡ K11 with one band at gain 1.0 at both
+precisions, the bank option with two designs in every m16 tile, and K1, K3
+and K8 at tap counts around the accumulation and window chunks and the
+k-step edges.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -669,7 +673,7 @@ def test_fold_equals_scan(dev, precision, over):
     """The offline fold ≡ the block-by-block scan bit for bit on the card
     with dither off (the conv body's sums do not depend on the batch),
     outputs and carried state, for each input form and at HIGHEST; B = 6
-    streams × 5 blocks fold into 30 rows, which fill no 4-row tile."""
+    streams × 5 blocks fold into 30 rows, which fill no 16-row tile."""
     from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
 
     cfg = StreamConfig(samplerate=44100, blocksize=256, upsample_factor=2,
@@ -687,3 +691,154 @@ def test_fold_equals_scan(dev, precision, over):
     tails = sf.conv_tail if isinstance(sf.conv_tail, tuple) else (sf.conv_tail,)
     want = ss.conv_tail if isinstance(ss.conv_tail, tuple) else (ss.conv_tail,)
     assert all(torch.equal(a, b) for a, b in zip(tails, want)) and sf.step == ss.step
+
+
+@pytest.mark.parametrize("precision", ["B3", "HIGHEST"])
+@pytest.mark.parametrize("n", [1, 17, 209, 379, 457])
+def test_k1_equals_one_band_k11(dev, precision, n):
+    """K1 ≡ K11 run with the one band h at gain 1.0, bit for bit (both sum
+    each output's k-steps in the same chunks and order; the mix adds
+    0 + 1·z), at both precisions; K1 ≤ −110 dB against its plain version.
+    37 rows fill no row tile and T = 640 no 512-output tile."""
+    B, T = 37, 640
+    x, h = randn(dev, B, n - 1 + T), randn(dev, n, seed=1)
+    y = F.fir_td_mxu(x, h, precision=precision)
+    e = err_db(y, F.fir_td_mxu_plain(x, h, precision=precision))
+    print(f"K1 {precision} n={n}: {e:.1f} dB")
+    assert e <= CONV_DB
+    one = torch.ones(B, 1, device=dev)
+    assert torch.equal(y, F.fir_td_mxu_per_stream(x, h[None], one, precision=precision))
+
+
+@pytest.mark.parametrize("n", [31, 300])
+def test_banked_bt8_alternating_designs(dev, n):
+    """Assignment tiles of 8 rows whose designs alternate, so every m16
+    tile holds two designs, plus one entry
+    outside the bank: K10 and the banked K3, K4, K12 and K12-mega ≤ −110 dB
+    against their plain versions, every row ≡ the shared-taps form on its
+    design bit for bit (clip and dither on), the bad entry's rows NaN
+    (−32768 in int16), tails bit-exact."""
+    B, T, S, D = 48, 384, 2, 3
+    bank = randn(dev, D, n, seed=5)
+    assign = torch.tensor([0, 1, 0, 2, 1, 7], dtype=torch.int32, device=dev)
+    rows = assign.long().repeat_interleave(8)
+    good = rows < D
+    x = randn(dev, B, n - 1 + T)
+    y = F.fir_td_mxu_banked(x, bank, assign)
+    e = err_db(y[good], F.fir_td_mxu_banked_plain(x, bank, assign)[good])
+    print(f"K10 bt=8 alternating n={n}: {e:.1f} dB")
+    assert e <= CONV_DB and torch.isnan(y[~good]).all()
+    ye = F.fir_td_mxu_banked(x, bank, assign, **EPI)
+    y16 = F.fir_td_mxu_banked(x, bank, assign, emit_i16=True, **EPI)
+    assert (y16[~good] == -32768).all()
+    for d in range(D):
+        assert torch.equal(ye[rows == d], F.fir_td_mxu(x, bank[d], **EPI)[rows == d])
+        assert torch.equal(y16[rows == d], F.fir_td_mxu(x, bank[d], emit_i16=True,
+                                                        **EPI)[rows == d])
+    kp = F.ring_k_pad(n)
+    for fn, plain, ring, tail, mega in (
+            (F.fir_td_mxu_ring_f32, F.fir_td_mxu_ring_f32_plain, randn(dev, S, B, T),
+             randn(dev, B, kp, seed=2), False),
+            (F.fir_td_mxu_ring_mega_f32, F.fir_td_mxu_ring_mega_f32_plain,
+             randn(dev, S, B, T), randn(dev, B, kp, seed=2), True),
+            (F.fir_td_mxu_ring_pcm16, F.fir_td_mxu_ring_pcm16_plain, pcm(dev, S, B, T),
+             pcm(dev, B, kp, seed=3), False),
+            (F.fir_td_mxu_ring_mega_pcm16, F.fir_td_mxu_ring_mega_pcm16_plain,
+             pcm(dev, S, B, T), pcm(dev, B, kp, seed=3), True)):
+        args = (1, 3) if mega else (1,)
+
+        def run(f, h, **kw):
+            z = torch.zeros(S, B, T, device=dev)
+            return f(ring, args[0], tail, h, z, *args[1:], **kw)
+
+        out, nt = run(fn, bank, assign=assign)
+        pout, pnt = run(plain, bank, assign=assign)
+        e = err_db(out[:, good], pout[:, good])
+        print(f"banked {fn.__name__} bt=8 alternating n={n}: {e:.1f} dB")
+        written = [0, 1] if mega else [1]  # three steps from slot 1 reach both
+        assert e <= CONV_DB and torch.equal(nt, pnt)
+        assert torch.isnan(out[written][:, ~good]).all()
+        oe, _ = run(fn, bank, assign=assign, **EPI)
+        for d in range(D):
+            se, st = run(fn, bank[d], **EPI)
+            assert torch.equal(oe[:, rows == d], se[:, rows == d]) and torch.equal(st, nt)
+
+
+def window_chunk_edges(highest: bool) -> list[tuple[int, int]]:
+    """(tap count, window chunks) at the edges of `conv_geometry`'s window
+    chunks: the last tap count of one chunk, the first of two and the first
+    of three (bf16×3 2057, 2058, 4090; HIGHEST 1225, 1226, 2042)."""
+    edges, last, n = [], 1, 1
+    while len(edges) < 3:
+        chunks = F.conv_geometry(n, highest)["chunks"]
+        if chunks > last:
+            edges += [(n - 1, last)] if not edges else []
+            edges.append((n, chunks))
+            last = chunks
+        n += 1
+    return edges
+
+
+@pytest.mark.parametrize("precision,n,chunks", [
+    (p, n, c) for p in ("B3", "HIGHEST")
+    for n, c in [(249, 1), (250, 1)] + window_chunk_edges(p == "HIGHEST")])
+def test_k1_at_chunk_boundaries(dev, precision, n, chunks):
+    """K1 at the last tap count of one accumulation chunk of 16 k-steps and
+    the first of two (249, 250), and at the last of one window chunk, the
+    first of two and the first of three (`window_chunk_edges`): ≤ −110 dB
+    against the plain version, ≡ K11 with the one band at gain 1.0 where
+    K11 takes the taps (up to 1033, HIGHEST 457)."""
+    B, T = 9, 384
+    x, h = randn(dev, B, n - 1 + T), randn(dev, n, seed=1)
+    geo = F.conv_geometry(n, precision == "HIGHEST")
+    assert geo["chunks"] == chunks
+    y = F.fir_td_mxu(x, h, precision=precision)
+    e = err_db(y, F.fir_td_mxu_plain(x, h, precision=precision))
+    print(f"K1 {precision} n={n} (S={geo['S']}, {chunks} window chunks of {geo['C']}): "
+          f"{e:.1f} dB")
+    assert e <= CONV_DB
+    if n <= (457 if precision == "HIGHEST" else 1033):
+        one = torch.ones(B, 1, device=dev)
+        assert torch.equal(y, F.fir_td_mxu_per_stream(x, h[None], one,
+                                                      precision=precision))
+
+
+@pytest.mark.parametrize("n,chunks", [(41, 1), (42, 1), (250, 1)]
+                         + window_chunk_edges(False))
+def test_k3_k8_at_chunk_boundaries(dev, n, chunks):
+    """K3 and K8 at the k-step edge of the steady loop (S = 3, 4), two
+    accumulation chunks (250) and the window-chunk edges (one, two and
+    three chunks; the window of a later chunk starts in the carried tail or
+    the slot): ≤ −110 dB against their plain versions, tails bit-exact, and
+    each ≡ K1 on its extended block bit for bit (dither on)."""
+    B, T, S = 6, 256, 2
+    assert F.conv_geometry(n)["chunks"] == chunks
+    h = randn(dev, n, seed=1)
+    kp = F.ring_k_pad(n)
+    ring, tail = randn(dev, S, B, T), randn(dev, B, kp, seed=2)
+    out, nt = F.fir_td_mxu_ring_f32(ring, 1, tail, h, torch.zeros_like(ring))
+    pout, pnt = F.fir_td_mxu_ring_f32_plain(ring, 1, tail, h, torch.zeros_like(ring))
+    e3 = err_db(out[1], pout[1])
+    ext = torch.cat([tail, ring[1]], dim=-1)[:, kp - (n - 1):].contiguous()
+    oe, _ = F.fir_td_mxu_ring_f32(ring, 1, tail, h, torch.zeros_like(ring), **EPI)
+    assert e3 <= CONV_DB and torch.equal(nt, pnt)
+    assert torch.equal(oe[1], F.fir_td_mxu(ext, h, **EPI))
+    (xh, xl), (th, tl) = F.split_bf16(ring[1]), F.split_bf16(tail)
+    y, nh, nl = F.fir_td_mxu_pair(xh, xl, th, tl, h)
+    yp, ph, pl = F.fir_td_mxu_pair_plain(xh, xl, th, tl, h)
+    e8 = err_db(y, yp)
+    print(f"K3 n={n}: {e3:.1f} dB, K8 n={n}: {e8:.1f} dB")
+    assert e8 <= CONV_DB and torch.equal(nh, ph) and torch.equal(nl, pl)
+    assert torch.equal(F.fir_td_mxu_pair(xh, xl, th, tl, h, **EPI)[0], oe[1])
+
+
+@pytest.mark.parametrize("highest", [False, True])
+def test_conv_geometry_mirror(dev, highest):
+    """`conv_geometry` (the Python mirror) ≡ the geometry the built library
+    launches with, at tap counts of one to three window chunks and beyond;
+    the accumulation chunk is ACC_STEPS."""
+    for n in (1, 17, 209, 379, 457, 1151, 1225, 1226, 2042, 2057, 2058, 4090, 16384):
+        want, got = F.conv_geometry(n, highest), F.built_conv_geometry(n, highest)
+        assert all(got[k] == v for k, v in want.items()), (n, want, got)
+        assert got["acc_steps"] == F.ACC_STEPS
+    print(f"conv geometry {'HIGHEST' if highest else 'B3'}: mirror == library")
