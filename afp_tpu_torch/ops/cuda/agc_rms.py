@@ -16,7 +16,10 @@ f32 form's bit for bit, `agc_rms.py:111-113`).  ``target`` and
 either vector promotes both (`agc_rms.py:377-390`).  A CPU tensor takes
 :func:`rms_desired_plain` (the window sums of the split x² as float64
 reductions, rounded once), a CUDA tensor launches `csrc/agc_rms.cu` or
-raises.  ``rms_desired.launches`` counts
+raises.  :func:`rms_desired_model` is the kernel's own summation order in
+plain float32 ops (chunk suffix + whole-chunk totals + chunk prefix, as
+warp scans), which the kernel equals bit for bit; the tests hold it to the
+plain version.  ``rms_desired.launches`` counts
 kernel launches, ``rms_desired.vector_launches`` those with [B] vectors.
 """
 from __future__ import annotations
@@ -28,7 +31,8 @@ from . import _build
 from .fir_td import (LANE, _on_cuda, _raise_on, _split_f32, _stream,
                      pcm16_to_f32)
 
-__all__ = ["rms_desired", "rms_desired_plain", "band_is_exact_bf16", "knobs"]
+__all__ = ["rms_desired", "rms_desired_plain", "rms_desired_model",
+           "band_is_exact_bf16", "knobs"]
 
 _LAYOUT_BT, _LAYOUT_TB, _LAYOUT_MEANS = 0, 1, 2
 
@@ -96,6 +100,20 @@ def _window_sums(v: torch.Tensor, w: int) -> torch.Tensor:
     return v.double().unfold(1, w, 1).sum(-1).float()
 
 
+def _desired(s: torch.Tensor, vec: bool, kn: dict) -> torch.Tensor:
+    """The window sums s [B, T] (weighted) → d, as the kernels' epilogue."""
+    # sqrt in float64, rounded once to f32: the correctly rounded f32 sqrt
+    # of the kernel's __fsqrt_rn (torch's f32 sqrt on the CPU is not)
+    rms = torch.sqrt(torch.clamp_min(s, 0.0).double()).float()
+    # a true division (a Python float over a tensor would multiply by the
+    # reciprocal); per-stream values broadcast along the rows
+    t, mg = (torch.as_tensor(kn[k], dtype=torch.float32, device=s.device)
+             for k in ("target", "max_gain"))
+    if vec:
+        t, mg = t[:, None], mg[:, None]
+    return torch.minimum(torch.clamp_min(t / (rms + 1e-10), 0.0), mg)
+
+
 def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
                       target, max_gain, exact_band: bool,
                       transposed: bool = False, ring_idx=None,
@@ -124,16 +142,7 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
         s = _window_sums(both, W) * wh
         if not exact_band:
             s = s + _window_sums(sh, W) * wl
-    # sqrt in float64, rounded once to f32: the correctly rounded f32 sqrt
-    # of the kernel's __fsqrt_rn (torch's f32 sqrt on the CPU is not)
-    rms = torch.sqrt(torch.clamp_min(s, 0.0).double()).float()
-    # a true division (a Python float over a tensor would multiply by the
-    # reciprocal); per-stream values broadcast along the rows
-    t, mg = (torch.as_tensor(kn[k], dtype=torch.float32, device=x.device)
-             for k in ("target", "max_gain"))
-    if vec:
-        t, mg = t[:, None], mg[:, None]
-    d = torch.minimum(torch.clamp_min(t / (rms + 1e-10), 0.0), mg)
+    d = _desired(s, vec, kn)
     if mean_chunk:
         # the chunk means of d's bf16 halves, each half summed in float64
         # and rounded once (1/chunk is exact)
@@ -141,6 +150,94 @@ def rms_desired_plain(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
                   for h in _split_f32(d))
         m = (dh.float() * (1.0 / mean_chunk) + dl.float() * (1.0 / mean_chunk))
         return m.T.contiguous()  # [T/mean_chunk, B]
+    return d.T.contiguous() if transposed else d
+
+
+def _lane_scans(v: torch.Tensor):
+    """The kernel's warp scans of 128-sample chunks v [..., 128], lane l
+    holding positions 4l .. 4l+3, every add an f32 add in the kernel's
+    order: the exclusive prefix sums P, the inclusive suffix sums S and
+    the chunk totals [...] (the prefix scan's last inclusive sum)."""
+    v0, v1, v2, v3 = v.reshape(*v.shape[:-1], 32, 4).unbind(-1)
+    a0 = v0  # in-lane prefix sums ...
+    a1 = a0 + v1
+    a2 = a1 + v2
+    a3 = a2 + v3
+    b3 = v3  # ... and suffix sums
+    b2 = v2 + b3
+    b1 = v1 + b2
+    b0 = v0 + b1
+    x, y = a3, b0
+    for off in (1, 2, 4, 8, 16):  # Kogge-Stone across the lanes
+        x = torch.cat([x[..., :off], x[..., :-off] + x[..., off:]], -1)
+        y = torch.cat([y[..., :-off] + y[..., off:], y[..., -off:]], -1)
+    zero = torch.zeros_like(x[..., :1])
+    e = torch.cat([zero, x[..., :-1]], -1)  # sum of the lanes below
+    f = torch.cat([y[..., 1:], zero], -1)  # sum of the lanes above
+    p = torch.stack([e, e + a0, e + a1, e + a2], -1)
+    s = torch.stack([f + b0, f + b1, f + b2, f + b3], -1)
+    return p.flatten(-2), s.flatten(-2), x[..., 31]
+
+
+def rms_desired_model(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
+                      target, max_gain, exact_band: bool,
+                      transposed: bool = False, ring_idx=None,
+                      mean_chunk: int = 0) -> torch.Tensor:
+    """K5's summation order as plain float32 ops (for the tests: the kernel
+    equals it bit for bit on the card, and it stays within the class of
+    :func:`rms_desired_plain`).  Two-level form, with 128-sample chunks of
+    the padded row (chunk k holds padded positions 128k .. 128k+127): the
+    window of output t = 128c + r is
+
+        s = (S_c[r] + (T_{c+1} + … + T_{c+m−1})) + P_{c+m}[r],   m = W/128
+
+    the suffix of chunk c from r, the totals of the m−1 whole chunks in
+    order from 0, and the exclusive prefix of chunk c+m to r
+    (:func:`_lane_scans`); then ``· f32(1/W)``.  Every term is a sum of
+    non-negative samples, so no difference cancels.  Direct form: the old
+    doubling, p_2k[u] = p_k[u] + p_k[u+k], the levels of W's set bits added
+    low to high.  Chunk means: the bf16 halves of d summed in time order."""
+    x, W = _check(x, band, lp, rp, transposed, ring_idx, mean_chunk)
+    x = pcm16_to_f32(x)
+    B, T = x.shape
+    vec, kn = knobs(B, x.device, target=target, max_gain=max_gain)
+    sh, sl = _split_f32(torch.nn.functional.pad(x * x, (lp, rp + 1)))
+    both = sh + sl  # [B, T + W], exact
+    if _two_level(W):
+        m, nc = W // LANE, T // LANE
+        p, s, tot = _lane_scans(both.reshape(B, -1, LANE))
+        mid = torch.zeros((B, nc), dtype=torch.float32, device=x.device)
+        for j in range(1, m):
+            mid = mid + tot[:, j: j + nc]
+        s = (s[:, :nc] + mid[..., None]) + p[:, m: m + nc]
+        s = s.reshape(B, T) * torch.tensor(1.0 / W, dtype=torch.float32,
+                                            device=x.device)
+    else:
+        acc = hacc = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+        cur, hcur, off, w = both[:, :-1], sh[:, :-1], 0, 1
+        while w <= W:
+            if W & w:
+                acc = acc + cur[:, off: off + T]
+                hacc = hacc + hcur[:, off: off + T]
+                off += w
+            if 2 * w <= W:
+                cur = cur[:, :-w] + cur[:, w:]
+                hcur = hcur[:, :-w] + hcur[:, w:]
+            w *= 2
+        wh, wl = _split_f32(band[W - 1, :1])
+        s = acc * wh
+        if not exact_band:
+            s = s + hacc * wl
+    d = _desired(s, vec, kn)
+    if mean_chunk:
+        dh, dl = (h.reshape(B, T // mean_chunk, mean_chunk)
+                  for h in _split_f32(d))
+        ah = al = torch.zeros((B, T // mean_chunk), dtype=torch.float32,
+                               device=x.device)
+        for q in range(mean_chunk):
+            ah, al = ah + dh[..., q], al + dl[..., q]
+        inv = 1.0 / mean_chunk  # exact
+        return (ah * inv + al * inv).T.contiguous()
     return d.T.contiguous() if transposed else d
 
 

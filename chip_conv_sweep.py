@@ -10,11 +10,11 @@ The body's geometry is four constants of `afp_tpu_torch/csrc/fir_td.cu`:
 row tiles of a warp) and ``kBodyMinBlocks`` (the blocks an SM must hold,
 which caps the registers), mirrored by ``ACC_STEPS`` and ``_CONV_ROWS,
 _CONV_COLS`` of `afp_tpu_torch/ops/cuda/fir_td.py`.  For each variant the
-sweep copies `afp_tpu_torch/`, `chip_smoke.py` and this script into
-``build/conv_sweep/<i>/`` and rewrites those constants in the copy (the
-first variant is the committed geometry, copied as it is); the checkout's
-own package is never changed.  All copies build at once, one process each,
-and each checks that its library reports the geometry its Python mirror
+sweep copies `afp_tpu_torch/`, `chip_smoke.py`, `chip_variants.py` and this
+script into ``build/conv_sweep/<i>/`` (`chip_variants.make_copy`) and
+rewrites those constants in the copy (the first variant is the committed
+geometry, copied as it is); the checkout's own package is never changed.
+All copies build at once, one process each, and each checks that its library reports the geometry its Python mirror
 computes (`built_conv_geometry` ≡ `conv_geometry`).  Then each copy runs
 ``--measure`` in a process of its own, in turn: ptxas's registers and
 spills of every conv instantiation, the error of the conv against its plain
@@ -33,16 +33,15 @@ from __future__ import annotations
 
 import json
 import re
-import shutil
-import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke as cs
+import chip_variants as cv
 
 ROOT = Path(__file__).resolve().parent
+SCRIPT = Path(__file__).name
 SWEEP_DIR = ROOT / "build" / "conv_sweep"
 
 #: (name, geometry: acc_steps, warps, mt, min_blocks); the first is the
@@ -60,34 +59,24 @@ VARIANTS = (
 def _sub(text: str, pattern: str, value: str) -> str:
     out, n = re.subn(pattern, lambda m: m.group(1) + value, text, flags=re.M)
     if n != 1:
-        raise RuntimeError(f"pattern {pattern!r} matched {n} times")
+        raise ValueError(f"pattern {pattern!r} matched {n} times")
     return out
 
 
-def make_copy(i: int, geo: dict | None) -> Path:
-    """build/conv_sweep/<i>/: the package, the smoke and this script, with
-    the body's geometry constants rewritten to `geo` in the C++ and in the
-    Python mirror."""
-    dst = SWEEP_DIR / str(i)
-    shutil.rmtree(dst, ignore_errors=True)
-    dst.mkdir(parents=True)
-    shutil.copytree(ROOT / "afp_tpu_torch", dst / "afp_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    for f in ("chip_smoke.py", Path(__file__).name):
-        shutil.copy2(ROOT / f, dst / f)
-    if geo is not None:
-        cu = dst / "afp_tpu_torch" / "csrc" / "fir_td.cu"
-        s = cu.read_text()
-        for name, key in (("kAccSteps", "acc_steps"), ("kBodyWarps", "warps"),
-                          ("kBodyMT", "mt"), ("kBodyMinBlocks", "min_blocks")):
-            s = _sub(s, rf"^(constexpr int {name} = )\d+", str(geo[key]))
-        cu.write_text(s)
-        py = dst / "afp_tpu_torch" / "ops" / "cuda" / "fir_td.py"
-        s = _sub(py.read_text(), r"^(ACC_STEPS = )\d+", str(geo["acc_steps"]))
-        s = _sub(s, r"^(_CONV_ROWS, _CONV_COLS = )\d+, \d+",
-                 f"{16 * geo['mt']}, {64 * geo['warps']}")
-        py.write_text(s)
-    return dst
+def set_geometry(dst: Path, geo: dict) -> None:
+    """Rewrite the body's geometry constants of the copy at `dst` to `geo`,
+    in the C++ and in the Python mirror."""
+    cu = dst / "afp_tpu_torch" / "csrc" / "fir_td.cu"
+    s = cu.read_text()
+    for name, key in (("kAccSteps", "acc_steps"), ("kBodyWarps", "warps"),
+                      ("kBodyMT", "mt"), ("kBodyMinBlocks", "min_blocks")):
+        s = _sub(s, rf"^(constexpr int {name} = )\d+", str(geo[key]))
+    cu.write_text(s)
+    py = dst / "afp_tpu_torch" / "ops" / "cuda" / "fir_td.py"
+    s = _sub(py.read_text(), r"^(ACC_STEPS = )\d+", str(geo["acc_steps"]))
+    s = _sub(s, r"^(_CONV_ROWS, _CONV_COLS = )\d+, \d+",
+             f"{16 * geo['mt']}, {64 * geo['warps']}")
+    py.write_text(s)
 
 
 def build_and_check() -> dict:
@@ -170,15 +159,6 @@ def measure(torch, dev) -> dict:
     return out
 
 
-def _child(dst: Path, mode: str) -> dict:
-    """Run this script's copy in `dst` with `mode`; its last line is JSON."""
-    r = subprocess.run([sys.executable, Path(__file__).name, mode], cwd=dst,
-                       capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(f"{dst} {mode} failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
-
-
 def main() -> int:
     import torch
 
@@ -196,14 +176,15 @@ def main() -> int:
     smi = cs.gpu_line()
     cs.say(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    dirs = [make_copy(i, geo) for i, (_, geo) in enumerate(VARIANTS)]
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        regs = list(pool.map(lambda d: _child(d, "--build"), dirs))
+    dirs = [cv.make_copy(SWEEP_DIR / str(i), ROOT, SCRIPT,
+                         None if geo is None else lambda d, g=geo: set_geometry(d, g))
+            for i, (_, geo) in enumerate(VARIANTS)]
+    regs = cv.build_all(dirs, SCRIPT)
     cs.say(f"built {len(dirs)} variants in {time.perf_counter() - t0:.1f} s; each "
            f"library's geometry == its Python mirror")
     results = {}
     for (name, geo), d, reg in zip(VARIANTS, dirs, regs):
-        res = _child(d, "--measure")
+        res = cv.child(d, SCRIPT, "--measure")
         results[name] = dict(geometry=geo, ptxas=reg, **res)
         cs.say(f"variant {name}: " + ", ".join(
             f"{k} {v:.3f}" if k.startswith("ms") else f"{k} {v:.1f}"

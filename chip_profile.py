@@ -2,6 +2,7 @@
 """Where the device time goes, per cell, on one CUDA card (torch.profiler).
 
     python3 chip_profile.py
+    python3 chip_profile.py --walls   # the staged walls alone, no profiler
 
 For each cell of `chip_smoke.py` at its full size: a staged `Pipeline.run`
 over 8 blocks and, for the serving cells, one `RingServer` serve
@@ -11,7 +12,12 @@ prints the host wall time (ending in a synchronize), the device time by
 kernel class (the port's kernels by name, cuFFT, the packing's gathers,
 PyTorch's other kernels, the host↔device copies), the device busy time (the union of the device
 events) and the idle share ``1 − busy / wall``.  The card's name and power
-limit come first.  Without a CUDA device it exits 1.
+limit come first.  With ``--walls`` it times each cell's staged run
+``WALL_RUNS`` times on the host clock (ending in a synchronize), without
+the profiler, after two warm-up runs, and prints the median, least and
+most ms per block and every run: to compare two checkouts, copy this
+script into the other and run the two in turn, more than once.  Without a
+CUDA device it exits 1.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import time
 import chip_smoke as cs
 
 BLOCKS = 8  # staged blocks per cell; the serving cells serve 16
+WALL_RUNS = 20  # timed staged runs per cell with --walls
 
 #: device event name → class (first match wins)
 CLASSES = (("fir_ps_kernel", "K11"), ("fir_conv_kernel", "conv"),
@@ -73,6 +80,23 @@ def profiled(torch, fn, per: int) -> str:
                       sorted(by.items(), key=lambda kv: -kv[1]))
     return (f"wall {wall * ms:.3f} ms/block, busy {busy / 1e3 / per:.3f} ms "
             f"(idle {100 * max(0.0, 1 - busy / 1e6 / wall):.0f}%): {parts}")
+
+
+def walls(torch, fn) -> str:
+    """`fn` (one staged run of BLOCKS blocks) twice to warm up, then
+    WALL_RUNS times on the host clock: one line of ms per block."""
+    fn()
+    fn()
+    ms = []
+    for _ in range(WALL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / BLOCKS)
+    return (f"wall median {sorted(ms)[len(ms) // 2]:.3f} ms/block, least "
+            f"{min(ms):.3f}, most {max(ms):.3f} over {WALL_RUNS} runs: "
+            + " ".join(f"{v:.3f}" for v in ms))
 
 
 def cells(torch, dev, sz):
@@ -137,16 +161,19 @@ def main() -> int:
     print(cs.gpu_line(), flush=True)
     from afp_tpu_torch.runtime import RingServer
 
+    only_walls = sys.argv[1:] == ["--walls"]
     g = torch.Generator(device=dev).manual_seed(7)
     for name, pipe, params, B, T, serve, packing in cells(torch, dev, cs.Sizes()):
         if pipe.in_dtype == torch.int16:
             blocks = cs.pcm16(torch, dev, (BLOCKS, B, T), 8, scale=0.1)
         else:
             blocks = torch.randn(BLOCKS, B, T, generator=g, device=dev) * 0.1
-        line = profiled(torch, lambda: pipe.run(params, pipe.init_state(), blocks),
-                        BLOCKS)
+        def run():
+            return pipe.run(params, pipe.init_state(), blocks)
+
+        line = walls(torch, run) if only_walls else profiled(torch, run, BLOCKS)
         print(f"{name} staged Pipeline.run [{B}, {T}]: {line}", flush=True)
-        if serve and pipe.supports_ring_step:
+        if serve and pipe.supports_ring_step and not only_walls:
             src = list(blocks.cpu().numpy()) * 2
             mega = not pipe.cfg.agc_enabled
             srv = RingServer(pipe, params, slots=16, chunk=4, max_inflight=2,

@@ -14,8 +14,8 @@ Phases, one output line each; any failure raises (exit code != 0):
    kernel against its plain PyTorch version on the same device tensors,
    both timed with CUDA events: the C5 kernels K1-K4 and K2 at the C5
    headline (conv ≤ −110 dB, clip and noise bit-exact), and the C8 AGC
-   kernels at the C8 point (batch 4096, block 2048, W = 512): K5 ≤ −110 dB,
-   K6 bit-exact, K8/K7 ≤ −110 dB with tails bit-exact and K7 ≡ K8; then the
+   kernels at the C8 point (batch 4096, block 2048, W = 512): K5 ≤ −110 dB
+   and ≡ its CPU model (`rms_desired_model`) bit for bit, K6 bit-exact, K8/K7 ≤ −110 dB with tails bit-exact and K7 ≡ K8; then the
    transport forms: K12 and K12-mega (int16 PCM rings reaching −32768 and
    32767) ≡ K3/K4 fed n/32768, K13 and K13-mega ≡ K3/K4 fed the split, each
    ≤ −110 dB against its plain version; the int16 store of K1, K3, K4, K7,
@@ -75,7 +75,10 @@ Phases, one output line each; any failure raises (exit code != 0):
    phase launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
-each kernel's launches, error, times, bound (its operations and bytes at
+each kernel's launches, error, times (CUDA events over back-to-back calls;
+for K5 and K6, whose kernels are shorter than their wrappers' host time,
+also ``device_ms``: the same calls queued behind a spin kernel, so the
+device runs them back to back), bound (its operations and bytes at
 the card's peaks: bf16×3 and HIGHEST's six products on the tensor cores,
 the elementwise kernels in fp32) and the library call's time, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -213,6 +216,37 @@ def time_ms(torch, fn, reps: int, warm: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device milliseconds per call of `fn` when the device never waits
+    for the host: CUDA events around `reps` calls queued behind a spin
+    kernel (`torch.cuda._sleep`), so they run back to back on the device
+    even where a call's host time is longer than its kernels (then
+    `time_ms` reads the host).  The spin must outlast the host's queueing,
+    measured on the host clock; it is lengthened until it does, and the
+    function raises if it never does."""
+    fn()
+    if not torch.cuda.is_available():
+        return float("nan")
+    cycles = 1 << 22  # ~2 ms at the H100's clock
+    for _ in range(4):
+        spin, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        if spin.elapsed_time(start) > queued_ms:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    raise AssertionError(f"the host took {queued_ms:.2f} ms to queue {reps} calls, "
+                         f"longer than the spin ({spin.elapsed_time(start):.2f} ms)")
 
 
 def bound(flops: float, nbytes: float, rate: float = BF16_FLOPS) -> dict:
@@ -479,25 +513,41 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
     band_d = F.band_matrix(np.full(wd, 1.0 / wd, np.float32)).to(dev)
     ex_d = R.band_is_exact_bf16(band_d.cpu())
     pd = (wd // 2, wd - 1 - wd // 2)
-    e5d = err_db(R.rms_desired(x, band_d, *pd, 0.1, 10.0, ex_d, transposed=True).cpu(),
-                 R.rms_desired_plain(x, band_d, *pd, 0.1, 10.0, ex_d,
-                                     transposed=True).cpu())
+    dd = R.rms_desired(x, band_d, *pd, 0.1, 10.0, ex_d, transposed=True)
+    e5d = err_db(dd.cpu(), R.rms_desired_plain(x, band_d, *pd, 0.1, 10.0, ex_d,
+                                               transposed=True).cpu())
     mk = R.rms_desired(x, band, lp, rp, 0.1, 10.0, True, transposed=True, mean_chunk=32)
     e5m = err_db(mk.cpu(), R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, True,
                                                transposed=True, mean_chunk=32).cpu())
     check(max(e5, e5d, e5m) <= CONV_DB and not ex_d,
           f"K5: W={W} {e5:.1f} dB, W={wd} {e5d:.1f} dB, means {e5m:.1f} dB")
+    # the kernel ≡ the CPU model of its summation order, bit for bit (on a
+    # CPU tensor the wrapper runs the plain version: nothing to hold)
+    xc, off = x.cpu(), {}
+    for name, got, b, (p, q), ex, mc in (("two-level", dk, band, (lp, rp), True, 0),
+                                         ("direct", dd, band_d, pd, ex_d, 0),
+                                         ("chunk means", mk, band, (lp, rp), True, 32)):
+        want = R.rms_desired_model(xc, b.cpu(), p, q, 0.1, 10.0, ex, transposed=True,
+                                   mean_chunk=mc)
+        off[name] = int((got.cpu() != want).sum()) if dev.type == "cuda" else 0
+    check(not any(off.values()), f"K5 differs from its CPU model: {off}")
+    del xc, dd
     dp = R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, True, transposed=True)
+
+    def k5():
+        return R.rms_desired(x, band, lp, rp, 0.1, 10.0, True, transposed=True)
+
     res["rms_desired"] = dict(
         max_abs_err=float((dk - dp).abs().max()),
-        ms=time_ms(torch, lambda: R.rms_desired(x, band, lp, rp, 0.1, 10.0, True,
-                                                transposed=True), 10),
+        ms=time_ms(torch, k5, 10), device_ms=device_ms(torch, k5),
         plain_ms=time_ms(torch, lambda: R.rms_desired_plain(
             x, band, lp, rp, 0.1, 10.0, True, transposed=True), 3),
         **elementwise_bound(B * T, 8 * B * T), library_ms=None)
     say(f"phase 3 K5 rms_desired [{B}, {T}] -> [T, B]: W={W} two-level "
         f"{e5:.1f} dB, W={wd} direct {e5d:.1f} dB, chunk means {e5m:.1f} dB vs "
-        f"plain; {res['rms_desired']['ms']:.3f} ms vs plain "
+        f"plain, all three == the CPU model bit for bit; "
+        f"{res['rms_desired']['ms']:.4f} ms a call back to back "
+        f"({res['rms_desired']['device_ms']:.4f} ms on the device alone) vs plain "
         f"{res['rms_desired']['plain_ms']:.3f} ms")
     del dp
 
@@ -519,16 +569,19 @@ def phase_kernels_agc(torch, dev, sz: Sizes) -> dict:
             all(torch.equal(a, b) for a, b in zip(yk, yp))
             if isinstance(yk, tuple) else torch.equal(yk, yp))
         check(same, f"K6 {name}: kernel differs from its plain version")
+    def k6():
+        return S.smooth_gain_apply(dk, x, a_att, a_rel, 10.0, init=init, emit_split=True)
+
     res["smooth_gain_apply"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(torch, lambda: S.smooth_gain_apply(
-            dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 10),
+        ms=time_ms(torch, k6, 10), device_ms=device_ms(torch, k6),
         plain_ms=time_ms(torch, lambda: S.smooth_gain_apply_plain(
             dk, x, a_att, a_rel, 10.0, init=init, emit_split=True), 1),
         **elementwise_bound(B * T, 12 * B * T + 8 * B), library_ms=None)
     say(f"phase 3 K6 smooth_gain_apply [{T}, {B}]: {', '.join(c[0] for c in cases)} "
         f"bit-exact vs plain (y, pair, carry); "
-        f"{res['smooth_gain_apply']['ms']:.3f} ms vs plain "
+        f"{res['smooth_gain_apply']['ms']:.4f} ms a call back to back "
+        f"({res['smooth_gain_apply']['device_ms']:.4f} ms on the device alone) vs plain "
         f"{res['smooth_gain_apply']['plain_ms']:.3f} ms (exact, pair)")
     (xh, xl), _ = S.smooth_gain_apply(dk, x, a_att, a_rel, 10.0, init=init,
                                       emit_split=True)

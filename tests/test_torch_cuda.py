@@ -18,7 +18,12 @@ at batch 8 after the caching allocator was poisoned with NaN; and for the
 tensor-core conv body, K1 ≡ K11 with one band at gain 1.0 at both
 precisions, the bank option with two designs in every m16 tile, and K1, K3
 and K8 at tap counts around the accumulation and window chunks and the
-k-step edges.
+k-step edges; for the chunk-scan K5, its output ≡ `rms_desired_model` bit
+for bit in every layout at time tiles that are not whole, at 1, 5, 33 and
+4096 rows and windows wider than the block, and for the two-role K6, the
+branch at d == g and one ulp either side, both gain clips, T of one chunk,
+part chunks and runs that are not whole, in exact mode and blockwise with
+chunks of 1, 32 and 128.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -169,6 +174,73 @@ def test_k6_vs_plain(dev, B, T, blockwise):
     y0, _ = S.smooth_gain_apply(d, x, 0.3, 0.02, 10.0, blockwise=blockwise)
     y1, _ = S.smooth_gain_apply(d, x, 0.3, 0.02, 10.0, init=init, blockwise=blockwise)
     assert not torch.equal(y0, y1)  # the carry reaches the output
+
+
+@pytest.mark.parametrize("B,T,W,dtype", [
+    (1, 1152, 512, torch.float32),   # a time tile and one more chunk
+    (5, 256, 384, torch.float32),    # the window wider than the block
+    (37, 1152, 1024, torch.float32),  # wider than the 512-output time tile
+    (33, 1152, 128, torch.int16),    # a block of 32 streams and one more
+    (4096, 2048, 512, torch.float32),  # the C8 point
+    (33, 640, 300, torch.float32),   # direct form
+    (5, 384, 1, torch.int16),        # direct, one sample
+])
+def test_k5_equals_model(dev, B, T, W, dtype):
+    """K5 ≡ `rms_desired_model` bit for bit in all three layouts (the
+    kernel's summation order, modelled in plain float32 on the CPU), and
+    ≤ −110 dB against the plain version."""
+    x = randn(dev, B, T)
+    x[0] *= 10.0
+    if dtype == torch.int16:
+        x = torch.clamp(torch.round(x * 32768), -32768, 32767).to(torch.int16)
+    band = F.band_matrix(np.full(W, 1.0 / W, np.float32)).to(dev)
+    exact = R.band_is_exact_bf16(band.cpu())
+    lp, rp = W // 2, W - 1 - W // 2
+    for kw in (dict(), dict(transposed=True), dict(transposed=True, mean_chunk=32)):
+        d = R.rms_desired(x, band, lp, rp, 0.1, 10.0, exact, **kw).cpu()
+        want = R.rms_desired_model(x.cpu(), band.cpu(), lp, rp, 0.1, 10.0, exact, **kw)
+        e = err_db(d, R.rms_desired_plain(x, band, lp, rp, 0.1, 10.0, exact, **kw))
+        nd = int((d != want).sum())
+        print(f"K5 B={B} T={T} W={W} {dtype} {kw}: {nd} differ from the model, "
+              f"{e:.1f} dB vs plain")
+        assert nd == 0 and e <= CONV_DB
+
+
+@pytest.mark.parametrize("B,T,blockwise", [
+    (1, 128, None), (33, 200, None), (4096, 128, None), (33, 101, None),
+    (1, 128, 1), (33, 200, 1), (33, 256, 32), (4096, 256, 128)])
+def test_k6_edges(dev, B, T, blockwise):
+    """K6 bit-exact to its plain version where the step's branch and the
+    clips are on edge: d[0] == the carry exactly and one ulp either side,
+    gains beyond max_gain and below 0.1; T of one chunk, of a part chunk and
+    not whole 8-sample runs (the scalar apply), batches of one stream, of a
+    block and one more, and the C8 batch; exact and blockwise with chunks
+    of 1, 32 and 128; f32 and pair stores, with and without the carry."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = randn(dev, B, T) * 3.0
+    d = torch.exp(torch.rand(T, B, generator=g, device=dev) * 8.0 - 4.5)  # 0.01 .. 30
+    init = torch.exp(torch.rand(B, generator=g, device=dev) * 5.0 - 3.0)
+    k = torch.arange(B, device=dev) % 3
+    d[0] = torch.where(k == 0, init, torch.where(
+        k == 1, torch.nextafter(init, torch.full_like(init, 1e9)),
+        torch.nextafter(init, torch.zeros_like(init))))
+    if blockwise:
+        d[1:blockwise] = d[0]  # the first chunk mean ties the carry too
+    cases = [dict(init=init), dict(init=init, emit_split=True), dict(init=None)]
+    if blockwise == 32:
+        dm = torch.stack([S._chunk_mean(d[c: c + 32]) for c in range(0, T, 32)])
+        cases.append(dict(init=init, d_is_means=True, d=dm))
+    for kw in cases:
+        dd = kw.pop("d", d)
+        a = S.smooth_gain_apply(dd, x, 0.3, 0.02, 10.0, blockwise=blockwise, **kw)
+        b = S.smooth_gain_apply_plain(dd, x, 0.3, 0.02, 10.0, blockwise=blockwise, **kw)
+        (ya, ca), (yb, cb) = a, b
+        assert torch.equal(ca, cb)
+        if isinstance(ya, tuple):
+            assert all(torch.equal(u, v) for u, v in zip(ya, yb))
+        else:
+            assert torch.equal(ya, yb)
+    assert bool((d > 10.0).any()) and bool((d < 0.1).any())  # both clips reached
 
 
 @pytest.mark.parametrize("B,T,n", [(6, 128, 300), (5, 256, 129), (1, 384, 2)])
