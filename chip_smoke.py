@@ -31,8 +31,9 @@ Phases, one output line each; any failure raises (exit code != 0):
    (the six-product tensor-core form, with K11's checks; ≤ −110 dB, B3F/B3C
    ≡ B3; K1 ≡ K11 run with the one band at gain 1.0, bit for bit, at B3
    and HIGHEST), K14 at the C8 point (f32, int16, pair store, ring slot; restart
-   and carry) and K9 (both layouts and stores), each bit-exact against its
-   plain version; and one F.conv1d (fp32, TF32 off) per conv shape as the
+   and carry; its device time beside K5 + K6's in the same call) and K9
+   (both layouts, aligned and one element off, and both stores), each
+   bit-exact against its plain version; and one F.conv1d (fp32, TF32 off) per conv shape as the
    library yardstick, printed beside K11's times;
 4. `Pipeline.run` at the C5 headline (batch 4096, 8 blocks), and the
    single-stream chain against the float64 oracle of `bench.py:394-418`
@@ -76,9 +77,9 @@ Phases, one output line each; any failure raises (exit code != 0):
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times (CUDA events over back-to-back calls;
-for K5 and K6, whose kernels are shorter than their wrappers' host time,
-also ``device_ms``: the same calls queued behind a spin kernel, so the
-device runs them back to back), bound (its operations and bytes at
+for K2, K5, K6, K9 and K14, whose kernels are about as short as their
+wrappers' host time or shorter, also ``device_ms``: the same calls queued
+behind a spin kernel, so the device runs them back to back), bound (its operations and bytes at
 the card's peaks: bf16×3 and HIGHEST's six products on the tensor cores,
 the elementwise kernels in fp32) and the library call's time, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -197,7 +198,7 @@ def ptxas_report(log: Path, names) -> dict:
         plain = list(found)
     out = {}
     for mangled, name in zip(found, plain):
-        m = re.search(r"(fir_\w+<[^>]*>)", name)
+        m = re.search(r"((?:fir|agc)_\w+(?:<[^>]*>)?)", name)
         out[m.group(1) if m else mangled] = found[mangled]
     return out
 
@@ -475,13 +476,16 @@ def phase_kernels(torch, dev, sz: Sizes) -> dict:
     same = all(torch.equal(dither_cuda(x, (3, 9), 24, k), dither_plain(x, (3, 9), 24, k))
                for k in ("tpdf", "rpdf"))
     check(same, "K2: kernel noise differs from the plain version")
+    def k2():
+        return dither_cuda(x, (3, 9), 24, "tpdf")
+
     res["dither_cuda"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(torch, lambda: dither_cuda(x, (3, 9), 24, "tpdf"), 20),
+        max_abs_err=0.0, ms=time_ms(torch, k2, 20), device_ms=device_ms(torch, k2),
         plain_ms=time_ms(torch, lambda: dither_plain(x, (3, 9), 24, "tpdf"), 5),
         **elementwise_bound(x.numel(), 8 * x.numel()), library_ms=None)
     say(f"phase 3 K2 dither_cuda [{sz.quick_batch}, {T}]: TPDF and RPDF "
-        f"bit-exact vs plain; {res['dither_cuda']['ms']:.3f} ms vs plain "
+        f"bit-exact vs plain; {res['dither_cuda']['ms']:.4f} ms a call back to back "
+        f"({res['dither_cuda']['device_ms']:.4f} ms on the device alone) vs plain "
         f"{res['dither_cuda']['plain_ms']:.3f} ms")
     return res
 
@@ -1894,51 +1898,63 @@ def phase_kernels_last(torch, dev, sz: Sizes) -> dict:
               else torch.equal(yk, yp))
         ng = int((ck != cp).sum())
         check(ys and ng == 0, f"K14 {name}: output equal {ys}, {ng} gains differ")
+    def k14():
+        return K14.agc_rms_apply(x, W, *knobs, init=init, emit_split=True)
+
     res["agc_rms_apply"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(torch, lambda: K14.agc_rms_apply(x, W, *knobs, init=init,
-                                                    emit_split=True), 10),
+        max_abs_err=0.0, ms=time_ms(torch, k14, 10), device_ms=device_ms(torch, k14),
         plain_ms=time_ms(torch, lambda: K14.agc_rms_apply_plain(
             x, W, *knobs, init=init, emit_split=True), 1),
         # ~20 fp32 operations per sample (square, two running sums, the
         # window, sqrt, divide, clips, the recurrence, the apply)
         **bound(20.0 * B8 * T8, 8 * B8 * T8 + 8 * B8, FP32_FLOPS), library_ms=None)
     r = res["agc_rms_apply"]
-    t56 = (time_ms(torch, lambda: R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0,
-                                                True, transposed=True), 10)
-           + time_ms(torch, lambda: S.smooth_gain_apply(
-               R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0, True,
-                             transposed=True), x, *knobs[:2], 10.0, init=init,
-               emit_split=True), 10))
+    # the two-kernel chain it replaces, on the device alone in this call
+    d56 = R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0, True, transposed=True)
+    t5 = device_ms(torch, lambda: R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1,
+                                                10.0, True, transposed=True))
+    t6 = device_ms(torch, lambda: S.smooth_gain_apply(d56, x, *knobs[:2], 10.0, init=init,
+                                                      emit_split=True))
     say(f"phase 3 K14 agc_rms_apply [{B8}, {T8}] W={W}: {', '.join(c[0] for c in cases)} "
-        f"== plain bit for bit (output and gain); {r['ms']:.3f} ms (K5 + K6 "
-        f"{t56:.3f} ms in this call, K5 counted twice) vs plain {r['plain_ms']:.3f} ms")
+        f"== plain bit for bit (output and gain); {r['ms']:.4f} ms a call back to back, "
+        f"{r['device_ms']:.4f} ms on the device alone (K5 + K6 on the device in this "
+        f"call: {t5:.4f} + {t6:.4f} = {t5 + t6:.4f} ms) vs plain {r['plain_ms']:.3f} ms")
+    del d56
     del ring, x16
 
     # K9 at the same shape: both layouts and stores, restart and carry
     d = R.rms_desired(x, p8._rms_band, *p8._rms_pad, 0.1, 10.0, True, transposed=True)
     db = d.T.contiguous()
+    buf = torch.empty(d.numel() + 1, device=dev)
+    d_off = buf[1:].view(d.shape)  # one element off: the 4-byte staging
+    d_off.copy_(d)
     for ini in (None, init):
         want = A.smooth_gain_scan(db, *knobs[:2], init=ini)
-        for tm in (False, True):
+        for tm, src in ((False, db), (True, d), (True, d_off)):
             for bm in (False, True):
-                got = S.smooth_gain_scan(d if tm else db, *knobs[:2], init=ini,
+                got = S.smooth_gain_scan(src, *knobs[:2], init=ini,
                                          time_major=tm, out_batch_major=bm)
                 check(torch.equal(got, want),
-                      f"K9 time_major={tm} out_batch_major={bm} init="
-                      f"{ini is not None}: differs from the plain scan")
+                      f"K9 time_major={tm} out_batch_major={bm} aligned "
+                      f"{src is not d_off} init={ini is not None}: differs from the "
+                      f"plain scan")
+    del buf, d_off
+
+    def k9():
+        return S.smooth_gain_scan(d, *knobs[:2], init=init, time_major=True,
+                                  out_batch_major=True)
+
     res["smooth_gain_scan"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(torch, lambda: S.smooth_gain_scan(d, *knobs[:2], init=init,
-                                                     time_major=True,
-                                                     out_batch_major=True), 10),
+        max_abs_err=0.0, ms=time_ms(torch, k9, 10), device_ms=device_ms(torch, k9),
         plain_ms=time_ms(torch, lambda: A.smooth_gain_scan(db, *knobs[:2], init=init), 1),
         # compare, select, subtract, multiply, fma per step
         **bound(5.0 * B8 * T8, 8 * B8 * T8 + 4 * B8, FP32_FLOPS), library_ms=None)
     r = res["smooth_gain_scan"]
-    say(f"phase 3 K9 smooth_gain_scan [{T8}, {B8}] and [{B8}, {T8}] in, both "
-        f"stores, restart and carry: == the plain scan bit for bit; {r['ms']:.3f} "
-        f"ms (time-major in, batch-major store) vs plain {r['plain_ms']:.3f} ms")
+    say(f"phase 3 K9 smooth_gain_scan [{T8}, {B8}] (aligned and one element off) "
+        f"and [{B8}, {T8}] in, both stores, restart and carry: == the plain scan bit "
+        f"for bit; {r['ms']:.4f} ms a call back to back, {r['device_ms']:.4f} ms on "
+        f"the device alone (time-major in, batch-major store) vs plain "
+        f"{r['plain_ms']:.3f} ms")
     return res
 
 
@@ -2224,7 +2240,7 @@ def main() -> int:
     say(f"phase 2 build: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for kern, r in ptxas_report(_build.build().with_suffix(".log"),
-                                ("fir_conv_kernel", "fir_ps_kernel")).items():
+                                ("fir_conv_kernel", "fir_ps_kernel", "agc_")).items():
         say(f"phase 2 ptxas {kern}: {r.get('registers')} registers, spills "
             f"{r.get('spills')}")
 

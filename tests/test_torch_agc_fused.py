@@ -1,8 +1,10 @@
 """K14, the one-kernel AGC (`ops/cuda/agc_fused.py`), against `afp_tpu` on
 the CPU, at the reference's cases (`tests/test_agc_fused.py`: batch 1024,
-block 512, window 256): the plain version against `agc_rms_apply_pallas` in
-interpret mode, the gate, the float64 oracle, and the Pipeline's
-``agc_one_kernel`` route (one vs two kernels, ring ≡ staged).
+block 512, window 256) and at the C8 window (block 1024, window 512) and a
+window as wide as the block (2048): the plain version against
+`agc_rms_apply_pallas` in interpret mode, the gate, the float64 oracle,
+and the Pipeline's ``agc_one_kernel`` route (one vs two kernels, ring ≡
+staged).
 
 Inputs are made with numpy from a seed and handed to both packages.  The
 bounds: the kernel's output and gain bit for bit against `afp_tpu`'s (the
@@ -53,11 +55,14 @@ def test_gate_shapes():
         K14.agc_rms_apply(torch.zeros(4, 256), 128, *ARGS)
 
 
-@pytest.fixture(scope="module")
-def reference_run():
-    """`afp_tpu`'s kernel in interpret mode (one ~15 s compile), with and
-    without the carry."""
-    B, T, w = 1024, 512, 256
+@pytest.fixture(scope="module", params=[(512, 256), (1024, 512), (2048, 2048)],
+                ids=["w256", "w512", "w2048"])
+def reference_run(request):
+    """`afp_tpu`'s kernel in interpret mode (one ~15-20 s compile a shape),
+    with and without the carry, at the smallest batch its gate takes:
+    w = 256 (h = 1: one order of the base sum), the C8 window w = 512
+    (h = 2) and w = 2048 (h = 8, a window as wide as the block)."""
+    B, (T, w) = 1024, request.param
     x = loud_quiet(B, T)
     init = np.random.default_rng(5).uniform(0.2, 5.0, B).astype(np.float32)
     out = {}
@@ -76,7 +81,7 @@ def test_kernel_matches_afp_tpu(reference_run, restart):
                              init=None if restart else torch.from_numpy(init))
     want_y, want_g = out[restart]
     nd = int(np.sum(y.numpy() != want_y))
-    print(f"K14 restart={restart}: {nd} samples and "
+    print(f"K14 T={x.shape[1]} w={w} restart={restart}: {nd} samples and "
           f"{int(np.sum(g.numpy() != want_g))} gains differ from afp_tpu (bound 0)")
     assert nd == 0 and np.array_equal(g.numpy(), want_g)
 

@@ -23,7 +23,11 @@ for bit in every layout at time tiles that are not whole, at 1, 5, 33 and
 4096 rows and windows wider than the block, and for the two-role K6, the
 branch at d == g and one ulp either side, both gain clips, T of one chunk,
 part chunks and runs that are not whole, in exact mode and blockwise with
-chunks of 1, 32 and 128.
+chunks of 1, 32 and 128; for the role-split K14 and K9, the edges of
+their barrier protocols (one chunk, fewer chunks than window warps, a
+reused d slot, h = 8, one stream, a block and one more, the C8 batch),
+unaligned views (the 4-byte paths), a silent and a near-silent row, and
+the first step at, above and below the start value.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -718,6 +722,96 @@ def test_k9_vs_plain(dev, B, T):
                 g = S.smooth_gain_scan(d.T.contiguous() if tm else d, 0.15, 0.013,
                                        init=ini, time_major=tm, out_batch_major=bm)
                 assert g.shape == (B, T) and torch.equal(g, want), (tm, bm)
+
+
+def _offset_copy(t):
+    """A copy of `t` in a contiguous view that starts one element into its
+    buffer: not 16-byte aligned, so the kernels take their 4-byte paths."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("B,T,w", [
+    (1, 128, 256),      # one chunk, one block of one stream
+    (33, 256, 1024),    # the window wider than the block (nch < 2h)
+    (5, 896, 512),      # one more chunk than the 6 window warps: a slot reused
+    (33, 1664, 512),    # three rounds, the last of one chunk
+    (1, 2048, 2048),    # h = 8, one stream
+    (4096, 2048, 2048),  # h = 8 at the C8 batch
+    (4096, 2048, 512),  # the C8 point
+])
+def test_k14_edges(dev, B, T, w):
+    """The redesigned K14 (window warps, recurrence warp, apply warps and
+    their barriers) ≡ its plain version bit for bit, output and
+    gain, where a wrong barrier count or slot would hang or differ: one
+    chunk, fewer chunks than the window warps, a reused d slot, a last
+    round of one chunk, h = 8; one stream, a block and one more, the C8
+    batch; f32, int16, a ring slot and unaligned x; the pair and f32
+    stores; restart and carry; a silent row between loud ones and a row
+    so quiet that the window warps' checked fast path gives way to the
+    IEEE intrinsics."""
+    x = randn(dev, B, T) * 2.0
+    x[: (B + 7) // 8] *= 4.0
+    if B > 2:
+        x[B // 2] = 0.0  # silent inside loud rows
+        x[B // 2 - 1] *= 8.0
+        x[B // 2 + 1] *= 1e-18  # mean squares below 2^-100: the IEEE path
+    x16 = torch.clamp(torch.round(x * 32768), -32768, 32767).to(torch.int16)
+    ring = torch.stack([randn(dev, B, T, seed=3), x, randn(dev, B, T, seed=5)])
+    init = torch.exp(torch.linspace(-2.0, 2.5, B, device=dev))
+    args = (w, 0.02, 0.002, 0.1, 10.0)
+    forms = [(x, {}), (x16, {}), (ring, dict(ring_idx=1)), (_offset_copy(x), {}),
+             (_offset_copy(x16), {})]
+    before = K14.agc_rms_apply.launches
+    for src, kw in forms:
+        for ini in (None, init):
+            for split in (False, True):
+                y, c = K14.agc_rms_apply(src, *args, init=ini, emit_split=split, **kw)
+                yp, cp = K14.agc_rms_apply_plain(src, *args, init=ini,
+                                                 emit_split=split, **kw)
+                same = (all(torch.equal(a, b) for a, b in zip(y, yp)) if split
+                        else torch.equal(y, yp))
+                assert same and torch.equal(c, cp), (src.dtype, kw, ini is None, split)
+    assert K14.agc_rms_apply.launches == before + 4 * len(forms)
+
+
+@pytest.mark.parametrize("B,T", [(1, 128), (33, 129), (4096, 300), (1, 300),
+                                 (33, 2048), (4096, 2048)])
+def test_k9_edges(dev, B, T):
+    """The redesigned K9 (a recurrence warp a chunk ahead of 8 store
+    warps) ≡ the plain scan bit for bit: one chunk, a chunk and one step,
+    T not a multiple of 4, 8 or 128; one stream, a block and one more, the
+    C8 batch; both layouts of d and both stores, aligned and one element
+    off (the 4-byte paths); restart and carry, with the first step's d ==
+    the start value exactly and one ulp either side."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    d = torch.exp(torch.rand(B, T, generator=g, device=dev) * 8.0 - 4.5)
+    init = torch.exp(torch.rand(B, generator=g, device=dev) * 5.0 - 3.0)
+    k = torch.arange(B, device=dev) % 3
+    up, down = torch.full_like(init, 1e9), torch.zeros_like(init)
+
+    def ties(v, ref):  # == ref, one ulp above, one below, by row
+        return torch.where(k == 0, ref, torch.where(
+            k == 1, torch.nextafter(ref, up), torch.nextafter(ref, down)))
+
+    d[:, 0] = ties(d[:, 0], init)  # the carry's first step
+    if T > 1:
+        d[:, 1] = ties(d[:, 1], d[:, 0])  # the restart's first step
+    before = S.smooth_gain_scan.launches
+    for ini in (None, init):
+        want = A.smooth_gain_scan(d, 0.3, 0.02, init=ini)
+        for tm in (False, True):
+            src = d.T.contiguous() if tm else d
+            for aligned in (True, False):
+                s = src if aligned else _offset_copy(src)
+                for bm in (False, True):
+                    got = S.smooth_gain_scan(s, 0.3, 0.02, init=ini, time_major=tm,
+                                             out_batch_major=bm)
+                    assert got.shape == (B, T) and torch.equal(got, want), (
+                        ini is None, tm, aligned, bm)
+    assert S.smooth_gain_scan.launches == before + 16
 
 
 def test_apply_agc_on_the_card(dev):
