@@ -1,0 +1,5 @@
+"""``python -m afp_tpu_torch`` — the command-line interface (`cli.py`)."""
+from .cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

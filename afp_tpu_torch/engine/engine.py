@@ -21,15 +21,26 @@ before the ladder: coercing it would silently quantize), int16 PCM out
 under ``emit='pcm16'`` (the ladder's silence and the underrun blend stay
 int16; the blend requantizes).
 
-Not in this slice: the host ASRC frontend (`process_source_block`), the
-arbitrary-frames framer (`process_frames`), checkpoints and the chunked
-upload of `process_signal` (ROADMAP.md §1 item 5).
+On a card, `process_block` stages its copies through pinned memory (the
+`RingServer` idiom, `runtime/serving.py:_copy_in`), and `process_signal`
+can upload a long signal in chunks on a copy stream behind the compute
+(``AFP_STAGE_CHUNK_MB``); both give the same bits as the pageable one-shot
+copy.  :meth:`StreamEngine.process_frames` regroups chunks of any length
+through the residual framers (`runtime/framer.py`), whose residuals
+checkpoints carry (`engine/checkpoint.py`).
+
+Not in this slice: the host ASRC frontend (`process_source_block`,
+`drain_source_blocks`) and `waterfall_ring` (ROADMAP.md §1 item 10, through
+item 5's frontend).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
 from collections import deque
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +49,7 @@ from ..ops.agc import AGCParams
 from ..utils.log import RateLimited, get_logger
 from .config import PipelineParams, StreamConfig
 from .metrics import EngineMetrics
-from .pipeline import DeviceParams, Pipeline, StreamState, _not_in_slice
+from .pipeline import DeviceParams, Pipeline, StreamState
 
 logger = get_logger("engine")
 _rate = RateLimited(logger)
@@ -108,6 +119,11 @@ class StreamEngine:
         self._out_dtype = np.int16 if self.pipeline._emit16 else np.float32
         self._block_seconds = self.cfg.blocksize / self.cfg.samplerate
         self._out_shape = (self.cfg.batch, self.cfg.blocksize)
+        # lossless arbitrary-frames ingest (process_frames): residual
+        # framers created on first use, the output side primed with ONE
+        # block of silence (the fixed framing latency)
+        self._in_framer = None
+        self._out_framer = None
 
     def apply_config(self, new_cfg: StreamConfig) -> bool:
         """Apply a new configuration.  Returns True if the swap was
@@ -173,9 +189,64 @@ class StreamEngine:
         return np.asarray(block, dtype=np.float32)
 
     def process_frames(self, chunk: np.ndarray) -> np.ndarray:
-        """Arbitrary-length ingest through the residual framer."""
-        raise _not_in_slice("StreamEngine.process_frames (the framer)",
-                            "5 (StreamEngine)")
+        """Lossless arbitrary-frames ingest (`afp_tpu/engine/engine.py:
+        286-337`): [batch, n] in → [batch, n] out for ANY n, at a fixed
+        one-block latency.
+
+        The reference's residual-carrying callback
+        (`stream_process_GUI_Presets.py:617-686`) made lossless: samples are
+        regrouped into whole blocks, never padded or truncated, so the
+        ladder's pad/trim rung fires only on true corruption.  The first
+        ``blocksize`` output samples are the silence of the framing latency;
+        thereafter output[k] is the processed stream one block late.  The
+        residuals ride the transport dtypes (int16 under pcm16 ingest and
+        ``emit='pcm16'``)."""
+        chunk = self._coerce_in(chunk)
+        if chunk.ndim == 1:
+            chunk = np.broadcast_to(chunk[None, :],
+                                    (self.cfg.batch, chunk.shape[-1]))
+        if self._in_framer is None:
+            from ..runtime.framer import BlockFramer
+
+            self._in_framer = BlockFramer(self.cfg.batch, dtype=self._in_dtype)
+            self._out_framer = BlockFramer(self.cfg.batch,
+                                           dtype=self._out_dtype)
+            self._out_framer.push(np.zeros(self._out_shape,
+                                           dtype=self._out_dtype))
+        self._in_framer.push(chunk)
+        while True:
+            blk = self._in_framer.pull(self.cfg.blocksize)
+            if blk is None:
+                break
+            self._out_framer.push(self._process_engine_block(blk))
+        # the one-block priming guarantees availability: emitted ≤ pushed,
+        # buffered = prime + bs·floor(pushed/bs) ≥ pushed
+        out = self._out_framer.pull(chunk.shape[1])
+        if out is None:
+            raise RuntimeError("framer invariant violated")
+        return out
+
+    def _upload(self, block: np.ndarray):
+        """A host block on the engine's device: on a card through pinned
+        memory of the block's own dtype, so the copy queues behind the
+        stream (the host allocator keeps the staging buffer until it has
+        run); on the CPU the array itself."""
+        if self.device.type != "cuda":
+            return block
+        src = torch.from_numpy(np.ascontiguousarray(block))
+        staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        staged.copy_(src)
+        return staged.to(self.device, non_blocking=True)
+
+    def _download(self, out: torch.Tensor) -> np.ndarray:
+        """A device output as numpy: on a card through pinned memory, waited
+        for on the current stream."""
+        if self.device.type != "cuda":
+            return out.cpu().numpy()
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host.numpy()
 
     def _process_engine_block(self, block: np.ndarray) -> np.ndarray:
         expected = (self.cfg.batch, self.cfg.blocksize)
@@ -190,8 +261,8 @@ class StreamEngine:
         try:
             with self._swap_lock:
                 pipeline, params, state_in = self.pipeline, self.params, self.state
-            state, out = pipeline.step(params, state_in, block)
-            out_np = out.cpu().numpy()  # waits for the device
+            state, out = pipeline.step(params, state_in, self._upload(block))
+            out_np = self._download(out)  # waits for the device
             # int16 output is finite by construction: the rung guards floats
             if out_np.dtype != np.int16 and not np.all(np.isfinite(out_np)):
                 raise FloatingPointError("non-finite output")
@@ -240,7 +311,13 @@ class StreamEngine:
         t0 = time.monotonic()
         with self._swap_lock:
             pipeline, params, state_in = self.pipeline, self.params, self.state
-        state, out = pipeline.process_signal(params, state_in, signal, fold=fold)
+        chunk = self._stage_chunk_blocks(signal)
+        if chunk is not None and signal.shape[-1] // pipeline.block > chunk:
+            state, out = self._process_chunked(pipeline, params, state_in,
+                                               signal, chunk, fold)
+        else:
+            state, out = pipeline.process_signal(params, state_in, signal,
+                                                 fold=fold)
         out = out.cpu().numpy()
         with self._swap_lock:
             if self.pipeline is pipeline:
@@ -249,3 +326,81 @@ class StreamEngine:
         n = out.shape[-1]
         self.metrics.record_block(n, busy, n / self.cfg.samplerate)
         return out
+
+    def _process_chunked(self, pipeline: Pipeline, params: DeviceParams,
+                         state: StreamState, signal: np.ndarray, chunk: int,
+                         fold):
+        """:meth:`process_signal` over chunks of `chunk` blocks: on a card
+        chunk k+1 is staged in pinned memory and uploaded on a copy stream
+        while chunk k computes (`afp_tpu/engine/engine.py:457-500`).  Chunk
+        bounds sit on whole blocks and the state threads through, so the
+        scan's result is the one-shot scan's bit for bit; the fold runs per
+        chunk (bit for bit with dither off on the card; with dither on each
+        chunk draws under its own key, another realization of the noise).
+        The trailing partial block is dropped, as the one-shot path drops
+        it."""
+        L = pipeline.block
+        nb = signal.shape[-1] // L
+        bounds = [(i * L, min(nb, i + chunk) * L) for i in range(0, nb, chunk)]
+        cuda = self.device.type == "cuda"
+        copy = torch.cuda.Stream(self.device) if cuda else None
+
+        def stage(lo, hi):
+            piece = np.ascontiguousarray(signal[:, lo:hi])
+            if not cuda:
+                return piece, None
+            src = torch.from_numpy(piece)
+            pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            pinned.copy_(src)
+            with torch.cuda.stream(copy):
+                dev = pinned.to(self.device, non_blocking=True)
+            return dev, copy.record_event()
+
+        outs = []
+        nxt = stage(*bounds[0])
+        for j in range(len(bounds)):
+            x, ev = nxt
+            if ev is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(ev)
+                x.record_stream(compute)  # allocated on the copy stream
+            state, y = pipeline.process_signal(params, state, x, fold=fold)
+            outs.append(y)
+            if j + 1 < len(bounds):  # the next upload runs behind this chunk
+                nxt = stage(*bounds[j + 1])
+        return state, torch.cat(outs, dim=-1)
+
+    def _stage_chunk_blocks(self, signal: np.ndarray) -> Optional[int]:
+        """Blocks per staging chunk for :meth:`_process_chunked`, or None to
+        stage the whole signal in one piece.  Opt-in, as in `afp_tpu`
+        (``AFP_STAGE_CHUNK_MB=<mb>``, default off): a signal under two
+        chunks has nothing to overlap."""
+        mb = float(os.environ.get("AFP_STAGE_CHUNK_MB", "0"))
+        if mb <= 0:
+            return None
+        if signal.size * signal.dtype.itemsize <= 2 * mb * 2 ** 20:
+            return None
+        row_bytes = signal.shape[0] * self.cfg.blocksize * signal.dtype.itemsize
+        return max(1, int(mb * 2 ** 20 / max(row_bytes, 1)))
+
+    @contextlib.contextmanager
+    def profile(self, logdir: str):
+        """A `torch.profiler` trace of the region (counterpart of
+        `afp_tpu`'s `jax.profiler.trace`): host and, on a card, device
+        activity, written on exit as one Chrome trace
+        ``afp_trace_<pid>_<ns>.json`` in `logdir` (open it in Perfetto or
+        chrome://tracing).  Usage::
+
+            with engine.profile("traces") as prof:
+                engine.process_signal(x)
+        """
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            yield prof
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"afp_trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -70,10 +70,26 @@ Phases, one output line each; any failure raises (exit code != 0):
    target, ×2; then at C8-i16io the same with int16 blocks in and out and a
    float block refused; then QS-psg: per-stream gains [512, 9] after 4
    blocks, ≡ a Pipeline stepped alongside; no degradation-ladder fallback;
+8. the CLI and the live stream (in-process `afp_tpu_torch.cli.main`, data
+   made from a seed into `build/smoke_cli/`): `process` of a 60 s stereo
+   24-bit file at the CLI defaults ('fft', K2), of a 60 s 16-bit file with
+   ``--ingest pcm16 --emit pcm16`` (the fold, K8) and with ``--agc
+   --agc-link`` (K5 → K6), each against the float64 oracle over its first
+   43 blocks (< −90 dB; int16 ≤ 1 LSB from the quantized oracle); `batch`
+   of 32 stereo 30 s 16-bit files in one fold dispatch with the C5 filter
+   (``--upsample 4 --numtaps 1001 --cutoff 11000``) ≡ `process` of each
+   file, bit for bit, and its ×realtime; `stream --lockstep` with the
+   linked AGC ≡ its `process`, and 646 blocks + ``--checkpoint-out`` then
+   ``--resume --skip-blocks 646`` ≡ the uninterrupted stream, bit for bit,
+   dither on; a 10 s stream paced at the block rate (underruns, overruns,
+   busy share); ``--fault-drop 50`` (counters as injected); `devices`
+   lists the card.  Every run without a fault processed every block it
+   was handed, with no replay and no design fallback (in lockstep no
+   underrun and no silence either: the ladder swallows exceptions);
 7. every kernel (K1-K15) and every option (the bank option of K3, K4, K12;
    the vector option of K5, K6; the HIGHEST option of K1 and K11, K15)
-   launched during phases 4-6, and each transport, bank and last-slice
-   phase launched its own.
+   launched during phases 4-6 and 8, and each transport, bank, last-slice
+   and CLI phase (and each CLI run) launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times (CUDA events over back-to-back calls;
@@ -86,8 +102,12 @@ the elementwise kernels in fp32) and the library call's time, and
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -156,6 +176,15 @@ class Sizes:
     c8_batch: int = 4096
     c8_block: int = 2048
     c8_window: int = 512
+    #: phase 8 (the CLI): a stereo file of `cli_seconds` at 44.1 kHz, a
+    #: batch of `batch_files` stereo files of `batch_seconds`, a paced
+    #: stream of `paced_seconds`, the oracle over the first `oracle_blocks`
+    #: engine blocks of each output (the chain is causal)
+    cli_seconds: float = 60.0
+    batch_files: int = 32
+    batch_seconds: float = 30.0
+    paced_seconds: float = 10.0
+    oracle_blocks: int = 43
 
 
 def err_db(a, b) -> float:
@@ -2124,6 +2153,287 @@ def phase_apply_agc(torch, dev, sz: Sizes) -> None:
         carry = gl
 
 
+# ---------------------------------------------------------------- phase 8
+
+#: the CLI's rate and block (its defaults: 2048 samples, 2× upsample, the
+#: 129-tap lowpass at 14 kHz, 'fft', TPDF dither at 24 bits)
+CLI_RATE, CLI_BLOCK = 44100, 2048
+SMOKE_CLI = Path(__file__).resolve().parent / "build" / "smoke_cli"
+
+
+def cli_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
+    """The CLI's chain in float64 over [B, N] input of whole blocks: with
+    ``agc_enabled`` first the AGC per block as `c8_oracle` writes it, its
+    desired gain linked by the minimum over each ``agc_link_group`` rows;
+    then upsample, the main FIR, the resampling downsampler
+    (``downsample_mode='resample'``), decimate, and the output clip."""
+    import scipy.signal as sps
+
+    from afp_tpu_torch.ops.agc import agc_alphas
+    from afp_tpu_torch.ops.resample import streaming_kernel
+
+    x = x.astype(np.float64)
+    B, N = x.shape
+    if cfg.agc_enabled:
+        L, w, grp = cfg.blocksize, cfg.agc_window_size, cfg.agc_link_group
+        a_att, a_rel = agc_alphas(w, cfg.agc_attack, cfg.agc_release)
+        g, gained = np.ones(B), np.empty_like(x)
+        for b0 in range(0, N, L):
+            xb = x[:, b0:b0 + L]
+            ss = np.stack([np.convolve(r, np.ones(w) / w, "same") for r in xb * xb])
+            d = np.clip(cfg.agc_target_level / (np.sqrt(np.maximum(ss, 0)) + 1e-10),
+                        0, cfg.agc_max_gain)
+            d = np.repeat(d.reshape(B // grp, grp, -1).min(axis=1), grp, axis=0)
+            gs = np.empty_like(d)
+            for i in range(d.shape[1]):
+                a = np.where(d[:, i] > g, a_att, a_rel)
+                g = a * d[:, i] + (1 - a) * g
+                gs[:, i] = g
+            gs = np.clip(gs, 0.1, cfg.agc_max_gain)
+            g = gs[:, -1]
+            gained[:, b0:b0 + L] = np.clip(xb * gs, -0.99, 0.99)
+        x = gained
+    upf = cfg.upsample_factor
+    h_up = streaming_kernel(upf, 1, quality=cfg.resample_quality)
+    h_down = (streaming_kernel(1, upf, quality=cfg.resample_quality)
+              if cfg.downsample_mode == "resample" and upf > 1 else None)
+    out = []
+    for r in x:
+        y = sps.upfirdn(h_up, r, upf, 1)[: N * upf]
+        y = np.convolve(y, design.main_taps.astype(np.float64))[: len(y)]
+        if h_down is not None:
+            y = np.convolve(y, h_down)[: len(y)]
+        out.append(y[::upf])
+    y = np.stack(out)
+    return y if cfg.output_clip is None else np.clip(y, -cfg.output_clip,
+                                                     cfg.output_clip)
+
+
+@contextlib.contextmanager
+def tracked_engines():
+    """The StreamEngines the CLI builds in the block, in order: the CLI
+    keeps its engine inside the command, and the smoke reads their
+    metrics (the degradation ladder swallows exceptions by design, so a
+    kernel that failed would show only in its counters)."""
+    import afp_tpu_torch.engine as E
+    import afp_tpu_torch.engine.checkpoint as C
+
+    built, base = [], E.StreamEngine
+
+    class Tracked(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+    E.StreamEngine = C.StreamEngine = Tracked
+    try:
+        yield built
+    finally:
+        E.StreamEngine = C.StreamEngine = base
+
+
+def run_cli(torch, dev, argv, want=()) -> tuple:
+    """``afp_tpu_torch.cli.main(argv)`` in this process: checks it returned
+    0 and, on the card, that each kernel in `want` launched; returns (the
+    stream's JSON metrics line or None, the engines it built, its wall in
+    seconds on the host clock, ending in a synchronize)."""
+    from afp_tpu_torch.cli import main
+    from afp_tpu_torch.ops.cuda import KERNELS
+
+    before = counts(KERNELS)
+    out = io.StringIO()
+    with tracked_engines() as engines, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = main([str(a) for a in argv])
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {argv[0]}: exit code {rc}")
+    if dev.type == "cuda":
+        delta = {k: v - before[k] for k, v in counts(KERNELS).items()}
+        check(all(delta[k] > 0 for k in want),
+              f"cli {' '.join(map(str, argv))} did not launch all of {want}: {delta}")
+    text = out.getvalue().strip()
+    snap = json.loads(text.splitlines()[-1]) if argv[0] == "stream" else None
+    return snap, engines, wall, text
+
+
+def check_ladder(what: str, engines, handed: int, lockstep: bool) -> None:
+    """No degradation-ladder event in a run that injected no fault: every
+    block the engine was handed was processed (`record_block` runs only on
+    success), no replay and no design fallback; in lockstep no underrun and
+    no silence either."""
+    for eng in engines:
+        m = eng.metrics
+        check(m.blocks_processed == handed and m.fallback_replays == 0
+              and m.design_fallbacks == 0,
+              f"{what}: {m.blocks_processed} of {handed} blocks processed, "
+              f"{m.fallback_replays} replays, {m.design_fallbacks} design fallbacks")
+        if lockstep:
+            check(m.underruns == 0 and m.fallback_silence == 0,
+                  f"{what}: {m.underruns} underruns, {m.fallback_silence} silent")
+
+
+def phase_cli(torch, dev, sz: Sizes) -> None:
+    """`python -m afp_tpu_torch` (in-process `cli.main`) on the card at the
+    sizes a user of the CLI runs: `process` of a 60 s stereo 24-bit file at
+    the defaults ('fft', K2), of a 60 s 16-bit file with int16 in and out
+    (the fold, K8) and with the linked AGC (K5 → K6, K2), each against the
+    float64 oracle over its first blocks; `batch` of 32 stereo 30 s 16-bit
+    files in one fold dispatch (the C5 filter) ≡ `process` of each file,
+    bit for bit; `stream --lockstep` with the linked AGC ≡ its `process`,
+    and stopped at half with a checkpoint and resumed ≡ uninterrupted, bit
+    for bit, dither on; a paced stream; `--fault-drop 50`; `devices`."""
+    from afp_tpu_torch.utils import (read_wav, read_wav_pcm16, write_wav,
+                                     write_wav_pcm16)
+
+    if dev.type == "cuda":
+        os.environ.pop("AFP_FORCE_CPU", None)
+    else:
+        os.environ["AFP_FORCE_CPU"] = "1"
+    shutil.rmtree(SMOKE_CLI, ignore_errors=True)
+    SMOKE_CLI.mkdir(parents=True)
+    d = SMOKE_CLI
+    rng = np.random.default_rng(150)
+    n = int(sz.cli_seconds * CLI_RATE)
+    nb = -(-n // CLI_BLOCK)
+    x24 = np.clip(0.3 * rng.standard_normal((2, n)), -1, 1).astype(np.float32)
+    x24[:, n // 3: n // 2] *= 0.05  # a quiet passage for the AGC to lift
+    write_wav(str(d / "in24.wav"), x24, CLI_RATE, width=3)
+    x24 = read_wav(str(d / "in24.wav"))[0]  # the 24-bit grid the CLI reads
+    q = np.clip(np.round(rng.standard_normal((2, n)) * 0.3 * 32768),
+                -32768, 32767).astype(np.int16)
+    write_wav_pcm16(str(d / "in16.wav"), q, CLI_RATE)
+    n_or = min(n, sz.oracle_blocks * CLI_BLOCK)
+    io16 = ["--ingest", "pcm16", "--emit", "pcm16"]
+    agc = ["--agc", "--agc-link"]
+
+    # ---- process: defaults, int16 in and out, the linked AGC
+    walls, outs = {}, {}
+    for name, src, flags, want in (
+            ("defaults", "in24.wav", [], ("dither_cuda",)),
+            ("pcm16", "in16.wav", [*io16, "--dither", "off"], ("fir_td_mxu_pair",)),
+            ("agc", "in24.wav", agc, ("rms_desired", "smooth_gain_apply",
+                                      "dither_cuda"))):
+        dst = d / f"process_{name}.wav"
+        _, engines, walls[name], _ = run_cli(torch, dev, ["process", d / src, dst,
+                                                          *flags], want)
+        eng = engines[0]
+        check_ladder(f"process {name}", engines, 1, lockstep=True)
+        check(eng.metrics.samples_processed == nb * CLI_BLOCK,
+              f"process {name}: {eng.metrics.samples_processed} samples")
+        if name == "pcm16":
+            y = read_wav_pcm16(str(dst))[0]
+            ref = quantized(cli_oracle(q[:, :n_or] / 32768.0, eng.cfg, eng.design))
+            lsb, nd = lsb_diff(y[:, :n_or], ref)
+            check(y.shape == q.shape and lsb <= 1,
+                  f"process pcm16: {lsb} LSB from the quantized oracle")
+            acc = f"{lsb} LSB from the quantized oracle ({nd} samples differ)"
+        else:
+            y = read_wav(str(dst))[0]
+            e = err_db(y[:, :n_or], cli_oracle(x24[:, :n_or], eng.cfg, eng.design))
+            check(y.shape == x24.shape and np.all(np.isfinite(y)) and e < ORACLE_DB,
+                  f"process {name}: {e:.1f} dB vs the oracle")
+            acc = f"{e:.1f} dB vs the oracle"
+        outs[name] = y
+        say(f"phase 8 process {name} ({' '.join(flags) or 'CLI defaults'}): 2 x {n} "
+            f"samples ({sz.cli_seconds:g} s stereo), {acc} over the first "
+            f"{n_or} samples; {walls[name]:.2f} s wall (host clock, WAV read and "
+            f"write included), engine busy {eng.metrics.busy_seconds:.3f} s")
+
+    # ---- batch: the C5 filter over 32 stereo files in one fold dispatch
+    nbt = int(sz.batch_seconds * CLI_RATE)
+    srcs = []
+    for i in range(sz.batch_files):
+        qi = np.clip(np.round(rng.standard_normal((2, nbt)) * 0.2 * 32768),
+                     -32768, 32767).astype(np.int16)
+        srcs.append(d / f"b{i:02d}.wav")
+        write_wav_pcm16(str(srcs[-1]), qi, CLI_RATE)
+    c5 = ["--upsample", 4, "--numtaps", 1001, "--cutoff", 11000, *io16,
+          "--dither", "off"]
+    _, engines, wall, _ = run_cli(torch, dev, ["batch", *srcs, "-o", d / "batch_out",
+                                               *c5], ("fir_td_mxu_pair",))
+    check(len(engines) == 1, f"batch: {len(engines)} dispatches, not one")
+    check_ladder("batch", engines, 1, lockstep=True)
+    busy = engines[0].metrics.busy_seconds
+    rows = 2 * sz.batch_files
+    for src in srcs:
+        one = d / "one.wav"
+        run_cli(torch, dev, ["process", src, one, *c5], ("fir_td_mxu_pair",))
+        check(np.array_equal(read_wav_pcm16(str(d / "batch_out" / src.name))[0],
+                             read_wav_pcm16(str(one))[0]),
+              f"batch: {src.name} differs from process of the file alone")
+    audio = rows * sz.batch_seconds
+    say(f"phase 8 batch {sz.batch_files} stereo files x {sz.batch_seconds:g} s "
+        f"({rows} rows x {nbt} samples, one fold dispatch; --upsample 4 --numtaps "
+        f"1001 --cutoff 11000, int16 in and out): each file == process of it alone, "
+        f"bit for bit, dither off; {wall:.2f} s wall, {audio / wall:.0f}x realtime "
+        f"({rows} channels x {sz.batch_seconds:g} s / wall, host clock, WAV I/O "
+        f"included), engine busy {busy:.3f} s ({audio / busy:.0f}x)")
+
+    # ---- stream --lockstep with the linked AGC ≡ process, and resumed
+    def stream(*argv, lockstep=True, want=("rms_desired", "smooth_gain_apply")):
+        return run_cli(torch, dev, ["stream", d / "in24.wav", *agc, *argv,
+                                    *(["--lockstep"] if lockstep else [])], want)
+
+    snap, engines, wall, _ = stream("-o", d / "stream.wav")
+    check_ladder("stream --lockstep", engines, nb, lockstep=True)
+    full = read_wav(str(d / "stream.wav"))[0]
+    check(np.array_equal(full, outs["agc"]),
+          "stream --lockstep differs from process --agc --agc-link")
+    say(f"phase 8 stream --lockstep --agc --agc-link: {snap['blocks']} blocks of "
+        f"{CLI_BLOCK} == process bit for bit, dither on; {wall:.2f} s wall "
+        f"({snap['blocks'] * CLI_BLOCK / CLI_RATE / wall:.0f}x realtime), "
+        f"in ring {snap['in_ring']}, out ring {snap['out_ring']}")
+    half = nb // 2
+    ck = d / "ck.npz"
+    _, e1, _, _ = stream("-o", d / "h1.wav", "--blocks", half, "--checkpoint-out", ck)
+    _, e2, _, _ = run_cli(torch, dev, ["stream", d / "in24.wav", "-o", d / "h2.wav",
+                                       "--skip-blocks", half, "--resume", ck,
+                                       "--lockstep"],
+                          ("rms_desired", "smooth_gain_apply"))
+    check_ladder("stream, first half", e1, half, lockstep=True)
+    check_ladder("stream, resumed", e2, nb - half, lockstep=True)
+    joined = np.concatenate([read_wav(str(d / "h1.wav"))[0],
+                             read_wav(str(d / "h2.wav"))[0]], axis=1)
+    check(np.array_equal(joined, full),
+          "checkpoint + resume differs from the uninterrupted stream")
+    say(f"phase 8 stream {half} blocks + checkpoint, then --resume --skip-blocks "
+        f"{half}: joined == uninterrupted, bit for bit, dither on")
+
+    # ---- paced at the true block rate
+    snap, engines, wall, _ = stream("--seconds", sz.paced_seconds, lockstep=False)
+    m, ring = engines[0].metrics, snap["in_ring"]
+    # realtime: each pop of the input ring hands the engine a block, and a
+    # pop that times out hands it silence (`stream_process_AGC.py:111-115`)
+    check(m.fallback_replays == 0 and m.design_fallbacks == 0
+          and m.blocks_processed == ring["pops"] + ring["underruns"],
+          f"paced stream: ladder events {snap}")
+    share = m.busy_seconds / max(m.blocks_processed * CLI_BLOCK / CLI_RATE, 1e-12)
+    say(f"phase 8 stream paced {sz.paced_seconds:g} s ({snap['blocks']} blocks of "
+        f"{CLI_BLOCK / CLI_RATE * 1e3:.1f} ms): {wall:.2f} s wall; underruns "
+        f"{snap['underruns']}, overruns {snap['overruns']} (pacer "
+        f"{snap.get('pacer_overruns')}), drops {snap['drops']}; engine busy share "
+        f"{share:.4f} of the block time ({m.blocks_processed} blocks processed)")
+
+    # ---- --fault-drop 50: the counters equal the injected count
+    snap, engines, _, _ = stream("--fault-drop", 50)
+    dropped = nb // 50
+    m = engines[0].metrics
+    check(snap["blocks"] == nb - dropped and snap["in_ring"]["pushes"] == nb - dropped
+          and snap["out_ring"]["pops"] == nb - dropped and m.fallback_replays == 0
+          and m.underruns == 0, f"--fault-drop 50: {snap} for {dropped} drops")
+    say(f"phase 8 stream --lockstep --fault-drop 50: {dropped} blocks dropped of "
+        f"{nb}; {snap['blocks']} processed, ring pushes {snap['in_ring']['pushes']}: "
+        f"as injected")
+
+    # ---- devices
+    _, _, _, text = run_cli(torch, dev, ["devices"])
+    name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    check(name in text, f"devices does not list {name}: {text!r}")
+    say(f"phase 8 devices: {text.splitlines()[0]}")
+    shutil.rmtree(SMOKE_CLI, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2196,6 +2506,8 @@ PHASE_LAUNCHES = {
                          "fir_td_mxu_pair_to_ring"),
     "phase_fold": ("fir_td_mxu", "fir_td_mxu:highest"),
     "phase_apply_agc": ("smooth_gain_scan",),
+    "phase_cli": ("dither_cuda", "fir_td_mxu_pair", "rms_desired",
+                  "smooth_gain_apply"),
 }
 
 
@@ -2260,7 +2572,7 @@ def main() -> int:
                   phase_transport_serving, phase_bank_serving, phase_engine,
                   phase_c8_engine, phase_transport_engine, phase_bank_engine,
                   phase_highest_pipeline, phase_one_kernel, phase_fold,
-                  phase_apply_agc):
+                  phase_apply_agc, phase_cli):
         t0 = time.perf_counter()
         before = counts(KERNELS)
         phase(torch, dev, sz)

@@ -27,7 +27,10 @@ chunks of 1, 32 and 128; for the role-split K14 and K9, the edges of
 their barrier protocols (one chunk, fewer chunks than window warps, a
 reused d slot, h = 8, one stream, a block and one more, the C8 batch),
 unaligned views (the 4-byte paths), a silent and a near-silent row, and
-the first step at, above and below the start value.
+the first step at, above and below the start value; and for the CLI
+slice, `process_frames` with pinned staging ≡ a Pipeline fed pageable
+blocks, the chunked upload ≡ one shot, a checkpoint round trip on the
+card, and `python -m afp_tpu_torch devices`.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -1008,3 +1011,115 @@ def test_conv_geometry_mirror(dev, highest):
         assert all(got[k] == v for k, v in want.items()), (n, want, got)
         assert got["acc_steps"] == F.ACC_STEPS
     print(f"conv geometry {'HIGHEST' if highest else 'B3'}: mirror == library")
+
+
+# ---------------------------------------------------------------- CLI slice
+
+#: the engine's forms on the card: the f32 conv (K1), int16 in and out (K12
+#: over a one-slot view), and the AGC chain (K5 → K6 → K8)
+ENGINE_FORMS = {
+    "f32": {},
+    "pcm16-io": dict(ingest="pcm16", emit="pcm16"),
+    "agc": dict(agc_enabled=True, agc_window_size=128, output_clip=0.99),
+}
+
+
+def _engine_cfg(**over):
+    from afp_tpu_torch.engine import StreamConfig
+
+    return StreamConfig(**{**dict(
+        samplerate=44100, blocksize=512, upsample_factor=2, numtaps=65,
+        batch=6, cutoff=9000.0, downsample_mode="decimate", output_clip=None,
+        conv_strategy="td_mxu", dither_kind="tpdf"), **over})
+
+
+def _engine_signal(cfg, n, seed=0):
+    rng = np.random.default_rng(seed)
+    if cfg.ingest == "pcm16":
+        return (rng.standard_normal((cfg.batch, n)) * 6000).astype(np.int16)
+    return (0.3 * rng.standard_normal((cfg.batch, n))).astype(np.float32)
+
+
+@pytest.mark.parametrize("form", list(ENGINE_FORMS))
+def test_process_frames_pinned_equals_pageable(dev, form):
+    """`process_frames` on the card, its copies staged through pinned
+    memory, ≡ a Pipeline on the card fed pageable numpy blocks (one block
+    late), bit for bit, dither on."""
+    from afp_tpu_torch.engine import (Pipeline, PipelineParams,
+                                      StreamEngine)
+
+    cfg = _engine_cfg(**ENGINE_FORMS[form])
+    x = _engine_signal(cfg, 6 * 512)
+    eng = StreamEngine(cfg, device=dev, seed=5)
+    got, i = [], 0
+    for size in (1, 700, 0, 300, 511, 1000, 561):
+        got.append(eng.process_frames(x[:, i:i + size]))
+        i += size
+    got = np.concatenate(got, axis=1)
+    pipe = Pipeline(cfg, dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    state = pipe.init_state(seed=5)
+    want = [np.zeros((cfg.batch, 512), got.dtype)]
+    for k in range(5):
+        state, y = pipe.step(params, state, x[:, k * 512:(k + 1) * 512])
+        want.append(y.cpu().numpy())
+    np.testing.assert_array_equal(got, np.concatenate(want, axis=1))
+    m = eng.metrics
+    assert m.blocks_processed == 6 and m.fallback_replays == m.underruns == 0
+
+
+@pytest.mark.parametrize("fold,dither", [("prefer", "off"), (False, "tpdf")])
+def test_chunked_upload_equals_one_shot_on_the_card(dev, monkeypatch, fold,
+                                                    dither):
+    """`process_signal` in chunks uploaded on a copy stream ≡ one shot, bit
+    for bit: the fold per chunk with dither off (its sums depend only on the
+    column), the scan with dither on."""
+    from afp_tpu_torch.engine import StreamEngine
+
+    cfg = _engine_cfg(dither_kind=dither)
+    x = _engine_signal(cfg, 37 * 512 + 9, seed=1)
+    want = StreamEngine(cfg, device=dev).process_signal(x, fold=fold)
+    monkeypatch.setenv("AFP_STAGE_CHUNK_MB", str(5 * 6 * 512 * 4 / 2 ** 20))
+    eng = StreamEngine(cfg, device=dev)
+    assert eng._stage_chunk_blocks(x) == 5
+    np.testing.assert_array_equal(eng.process_signal(x, fold=fold), want)
+
+
+@pytest.mark.parametrize("form", list(ENGINE_FORMS))
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path, form):
+    """Save on the card mid-block, restore on the card (every tensor there
+    once), stream on: ≡ the uninterrupted stream, bit for bit, dither on."""
+    from afp_tpu_torch.engine import StreamEngine
+    from afp_tpu_torch.engine.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+
+    cfg = _engine_cfg(**ENGINE_FORMS[form])
+    x = _engine_signal(cfg, 5 * 512, seed=2)
+    eng = StreamEngine(cfg, device=dev, seed=3)
+    eng.process_frames(x[:, :1300])
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, eng)
+    resumed = load_checkpoint(path, device=dev)
+    tails = (resumed.state.conv_tail if isinstance(resumed.state.conv_tail,
+                                                   tuple)
+             else (resumed.state.conv_tail,))
+    assert all(t.is_cuda for t in tails) and resumed.params.H_main.is_cuda
+    np.testing.assert_array_equal(resumed.process_frames(x[:, 1300:]),
+                                  eng.process_frames(x[:, 1300:]))
+
+
+def test_cli_devices_lists_the_card(dev):
+    """`python -m afp_tpu_torch devices` runs on the card by default and
+    lists it."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = {k: v for k, v in os.environ.items() if k != "AFP_FORCE_CPU"}
+    r = subprocess.run([sys.executable, "-m", "afp_tpu_torch", "devices"],
+                       cwd=Path(__file__).resolve().parents[1], env=env,
+                       capture_output=True, text=True, timeout=300)
+    print(r.stdout, r.stderr[-2000:])
+    assert r.returncode == 0
+    assert torch.cuda.get_device_name(0) in r.stdout

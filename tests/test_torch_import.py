@@ -1,6 +1,7 @@
 """The port imports no jax and nothing of `afp_tpu`: in a fresh interpreter
-whose import system refuses both, the package and its subpackages import,
-and a small pipeline, with and without AGC, runs end to end on the CPU."""
+whose import system refuses both, the package, its subpackages and every
+module of the CLI slice import, and a small pipeline, with and without
+AGC, and a short `stream` through the CLI run end to end on the CPU."""
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +40,11 @@ for agc in (False, True):
                                     agc_window_size=128), device="cpu")
     out = eng.process_block(np.full((2, 256), 0.1, np.float32))
     assert out.shape == (2, 256) and eng.metrics.underruns == 0
+import os
+os.environ["AFP_FORCE_CPU"] = "1"
+from afp_tpu_torch.cli import main
+assert main(["stream", "--tone", "440", "--blocks", "3", "--lockstep",
+             "--blocksize", "256", "--numtaps", "33", "--agc"]) == 0
 """
 
 
@@ -53,7 +59,12 @@ def _probe(mods, extra=""):
     (["afp_tpu_torch", "afp_tpu_torch.engine", "afp_tpu_torch.runtime",
       "afp_tpu_torch.ops", "afp_tpu_torch.ops.agc", "afp_tpu_torch.ops.cuda",
       "afp_tpu_torch.ops.cuda.agc_rms", "afp_tpu_torch.ops.cuda.agc_scan",
-      "afp_tpu_torch.design", "afp_tpu_torch.utils"], ""),
+      "afp_tpu_torch.design", "afp_tpu_torch.utils",
+      "afp_tpu_torch.utils.wavio", "afp_tpu_torch.engine.presets",
+      "afp_tpu_torch.engine.checkpoint", "afp_tpu_torch.runtime.devices",
+      "afp_tpu_torch.runtime.framer", "afp_tpu_torch.runtime.host",
+      "afp_tpu_torch.runtime.dispatcher", "afp_tpu_torch.runtime.audio",
+      "afp_tpu_torch.cli", "afp_tpu_torch.__main__"], ""),
     (["afp_tpu_torch.engine"], _RUN)], ids=["import", "run"])
 def test_imports_without_jax(mods, extra):
     r = _probe(mods, extra)

@@ -254,7 +254,7 @@ def test_fold_and_per_stream_raise():
     """The offline fold runs (item 9, ported: `tests/test_torch_fold.py`)
     and matches the scan; a bad fold value raises; per-stream gains run; a
     filter bank refuses ``fold=True``, and an assignment outside the bank
-    is refused as it arrives; the framer raises (item 5)."""
+    is refused as it arrives; the framer runs (item 5)."""
     _, t = both("readme", conv_strategy="td_mxu")
     tp, tpar = port(t)
     sig = signal(4, 256)
@@ -283,8 +283,10 @@ def test_fold_and_per_stream_raise():
                               "casc_assign": np.full(1, 2, np.int32)})
     with pytest.raises(ValueError, match="per-stream filter banks"):
         tp.process_signal(bank, tp.init_state(), sig, fold=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        StreamEngine(t, device="cpu").process_frames(sig[:, :100])
+    # the framer runs (item 5, ported: `tests/test_torch_runtime.py`): its
+    # first block of output is the framing latency's silence
+    out = StreamEngine(t, device="cpu").process_frames(sig[:, :100])
+    assert out.shape == (4, 100) and not np.any(out)
 
 
 # ---------------------------------------------------------------- engine
