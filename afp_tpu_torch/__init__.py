@@ -10,12 +10,13 @@ with g++ into `build/afp_tpu_torch/`.
 
 Layers:
   design/    L1 filter design (host float64, numpy)
-  engine/    config, fused pipeline, StreamEngine, metrics, presets,
-             checkpoints
-  ops/       host kernel design, plain dither noise, CUDA kernels (ops/cuda)
+  engine/    config, pipeline (fused and literal multirate chains, device
+             ASRC), StreamEngine, metrics, presets, checkpoints
+  ops/       resampling and FFT convolution, the AGC, plain dither noise,
+             CUDA kernels (ops/cuda)
   runtime/   RingServer (device-ring serving), the native host ring and
              pacer, the block dispatcher and simulated stream, the sound-card
-             bridge, the block framer, device enumeration
+             bridge, the block framer, the ASRC frontend, device enumeration
   utils/     WAV I/O, logging
   csrc/      CUDA C++ sources, built with nvcc at first use
   cli.py     ``python -m afp_tpu_torch process|batch|stream|preset|devices|design``

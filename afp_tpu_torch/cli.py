@@ -21,12 +21,18 @@ and runs the set through one offline-fold dispatch per sample-rate group
 (stream DP on one card).  Presets carry the *sound* (gains + filter
 settings), never the deployment shape (samplerate/blocksize/ingest/emit).
 
+A ``--samplerate`` other than the input file's converts it on the way in
+with the exact ASRC frontend (`runtime/asrc.py`): ``process`` and ``batch``
+pad the input so the resampler's tail flushes and trim the output to
+``ceil(n·samplerate/rate)`` samples; ``stream`` in lockstep emits a block
+whenever a whole converted block exists.  ``--output-rate upsampled``
+keeps the literal multirate chain's high-rate output and writes the WAV at
+``samplerate·upsample``.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-§1 item, with no fallback: ``--mesh N > 1`` (item 11), a ``--samplerate``
-other than the input's (the ASRC: item 10, through item 5's frontend),
-``--output-rate upsampled`` (item 10, raised by the pipeline),
-``--spectrum-plot``, ``--waterfall-plot`` and ``design --plot`` (items 10
-and 12b: the spectrum and `viz/`).
+§1 item, with no fallback: ``--mesh N > 1`` (item 11), ``--spectrum-plot``,
+``--waterfall-plot`` and ``design --plot`` (items 10b and 12b: the
+spectrum and `viz/`).
 """
 from __future__ import annotations
 
@@ -63,7 +69,7 @@ def _refuse_unported(args) -> None:
     for flag in ("spectrum_plot", "waterfall_plot"):
         if getattr(args, flag, None):
             raise _not_in_slice(f"--{flag.replace('_', '-')} (the spectrum "
-                                "and its plots)", "10 (ops/spectrum.py) and "
+                                "and its plots)", "10b (ops/spectrum.py) and "
                                 "12b (viz/)")
 
 
@@ -98,7 +104,8 @@ def _add_config_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--output-rate", default="base",
                     choices=["base", "upsampled"],
                     help="'upsampled': keep the high-rate signal after the "
-                         "FIR (not ported yet: ROADMAP.md §1 item 10)")
+                         "FIR (the literal multirate chain; the WAV is "
+                         "written at samplerate x upsample)")
     ap.add_argument("--emit", default="f32", choices=["f32", "pcm16"],
                     help="pcm16: the device quantizes the dithered output "
                          "to int16 PCM in the conv store and the WAV is "
@@ -195,20 +202,45 @@ def _configure(args, rate: int, batch_rows: int, link_group: int):
     if getattr(args, "emit", "f32") == "pcm16":
         cfg = dataclasses.replace(cfg, emit="pcm16")
     if sr != rate:
-        raise _not_in_slice(
-            f"--samplerate {sr} for a {rate} Hz input (the host ASRC "
-            "frontend)", "10 (PolyResampler), through item 5's ASRC frontend")
+        if getattr(args, "mesh", 1) > 1:
+            raise SystemExit("--mesh is incompatible with rate conversion "
+                             "(the ASRC frontend is an engine surface — "
+                             "drop --samplerate or run --mesh 1)")
+        cfg = dataclasses.replace(cfg, source_samplerate=rate)
     return cfg
 
 
-def _process_rows(args, cfg, x: np.ndarray):
+def _out_rate(cfg) -> int:
+    """The output's sample rate: the upsampled grid under upsampled
+    output, else the engine rate."""
+    return (cfg.upsampled_rate if cfg.output_rate == "upsampled"
+            else cfg.samplerate)
+
+
+def _out_samples(cfg, n_in: int, rate: int) -> int:
+    """Output samples for `n_in` input samples read at `rate` Hz: the
+    ceiling under the ASRC (resample_poly's convention, in integers), ×
+    upsample_factor under upsampled output (`afp_tpu/cli.py:201-212`)."""
+    n = -(-n_in * cfg.samplerate // rate) if cfg.samplerate != rate else n_in
+    if cfg.output_rate == "upsampled":
+        n *= cfg.upsample_factor
+    return n
+
+
+def _process_rows(args, cfg, x: np.ndarray, rate: int):
     """[rows, n] through the engine's offline path; returns ``(out, engine)``
-    with ``out`` trimmed to the input length."""
+    with ``out`` trimmed to the (converted) input length."""
     from .engine import StreamEngine
 
     engine = StreamEngine(cfg, device=args.torch_device)
     n_in = x.shape[1]
-    if n_in % cfg.blocksize:
+    if engine._asrc_frontend is not None:
+        # zero-pad so the resampler's tail flushes through the block
+        # framing, then trim to the exact converted length
+        pad = 2 * cfg.blocksize * rate // cfg.samplerate + \
+            engine._asrc_frontend.l_dev
+        x = np.concatenate([x, np.zeros((x.shape[0], pad), np.float32)], axis=1)
+    elif n_in % cfg.blocksize:
         # zero-pad the final partial block (process_signal takes whole
         # blocks; the causal chain lets us trim back to the input length)
         # in the ingest dtype (int16 for pcm16)
@@ -218,17 +250,18 @@ def _process_rows(args, cfg, x: np.ndarray):
     # over all blocks); with dither on the fold's noise realization differs
     # from blockwise streaming (same distribution)
     out = engine.process_signal(x, fold="prefer")
-    return out[:, :n_in], engine
+    return out[:, :_out_samples(cfg, n_in, rate)], engine
 
 
 def _write_out(path: str, out: np.ndarray, cfg) -> None:
     from .utils import write_wav, write_wav_pcm16
 
+    rate = _out_rate(cfg)
     if cfg.emit == "pcm16":
         # the device already quantized: write the raw samples verbatim
-        write_wav_pcm16(path, out, cfg.samplerate)
+        write_wav_pcm16(path, out, rate)
     else:
-        write_wav(path, out, cfg.samplerate, width=3)
+        write_wav(path, out, rate, width=3)
 
 
 def cmd_process(args) -> int:
@@ -241,7 +274,7 @@ def cmd_process(args) -> int:
     x, rate = reader(args.input)
     cfg = _configure(args, rate, batch_rows=x.shape[0],
                      link_group=x.shape[0])
-    out, engine = _process_rows(args, cfg, x)
+    out, engine = _process_rows(args, cfg, x, rate)
     _write_out(args.output, out, cfg)
     print(f"{args.input} → {args.output}: {x.shape[0]} ch × {x.shape[1]} "
           f"samples, xRT(busy) {engine.metrics.xrt_busy(cfg.samplerate):,.0f}",
@@ -308,10 +341,12 @@ def cmd_batch(args) -> int:
         for _, x in members:
             packed[row0:row0 + x.shape[0], : x.shape[1]] = x
             row0 += x.shape[0]
-        out, engine = _process_rows(args, cfg, packed)
+        out, engine = _process_rows(args, cfg, packed, rate)
         row0 = 0
         for p, x in members:
-            y = out[row0:row0 + x.shape[0], : x.shape[1]]  # per-file trim
+            # per-file trim, on the output grid (the ASRC's ceiling, ×U
+            # for upsampled output)
+            y = out[row0:row0 + x.shape[0], : _out_samples(cfg, x.shape[1], rate)]
             _write_out(os.path.join(args.out_dir, os.path.basename(p)),
                        y, cfg)
             row0 += x.shape[0]
@@ -334,7 +369,10 @@ def cmd_stream(args) -> int:
     monotonic pacer enforces the true block rate, so underruns/overruns
     and engine load are real measurements.  ``--lockstep`` drops the
     pacing (1-in-1-out, no priming silence, nothing dropped) — the mode to
-    use with ``-o`` captures.  ``--audio`` opens the PortAudio duplex
+    use with ``-o`` captures; with an ASRC (--samplerate ≠ the file's
+    rate) lockstep drives the engine synchronously and emits a block
+    exactly when a whole converted block exists (nothing fabricated or
+    dropped).  ``--audio`` opens the PortAudio duplex
     bridge on hosts with a sound card (mic → engine → speakers; no input
     file).  ``--fault-*`` inject driver faults to exercise the degradation
     ladder.  Exit prints ONE JSON metrics line (blocks, underruns,
@@ -413,10 +451,10 @@ def cmd_stream(args) -> int:
         if args.tone is not None and cfg.batch != 1:
             raise SystemExit("--resume: checkpoint expects "
                              f"{cfg.batch} channels; --tone generates 1")
-        if rate != cfg.samplerate and not args.audio:
-            raise SystemExit(f"--resume: checkpoint expects "
-                             f"{cfg.samplerate} Hz input, source is "
-                             f"{rate} Hz")
+        src_rate = cfg.source_samplerate or cfg.samplerate
+        if rate != src_rate and not args.audio:
+            raise SystemExit(f"--resume: checkpoint expects {src_rate} Hz "
+                             f"input, source is {rate} Hz")
     else:
         cfg = _configure(args, rate, batch_rows=batch, link_group=batch)
         engine = None  # built after duration validation
@@ -459,6 +497,11 @@ def cmd_stream(args) -> int:
 
     # ---- real sound card (PortAudio duplex) ----
     if args.audio:
+        if cfg.output_rate == "upsampled":
+            # a resumed checkpoint's config can carry upsampled output
+            raise SystemExit("--audio requires base-rate output; the "
+                             "resumed checkpoint was saved with "
+                             "output_rate='upsampled'")
         from .runtime.audio import AudioStream
 
         device = None
@@ -529,9 +572,11 @@ def cmd_stream(args) -> int:
     if captured:
         out = np.concatenate(captured, axis=1)
         # trim the final block's zero pad back off a non-looped file run
-        # (the chain is causal, so the pad never alters real samples)
-        if nb_file is not None and not args.loop and n_blocks == nb_file:
-            out = out[:, :n_in]
+        # (the chain is causal, so the pad never alters real samples; under
+        # the ASRC the stream keeps whole converted blocks)
+        if (nb_file is not None and not args.loop
+                and cfg.source_samplerate is None and n_blocks == nb_file):
+            out = out[:, :_out_samples(cfg, n_in, rate)]
         _write_out(args.output, out, cfg)
         print(f"captured {out.shape[1]} samples × {out.shape[0]} ch "
               f"→ {args.output}", file=sys.stderr)
@@ -590,7 +635,7 @@ def cmd_design(args) -> int:
 
     if args.plot:
         raise _not_in_slice("design --plot (the response plot)",
-                            "12b (viz/), with item 10's freqz")
+                            "12b (viz/), with item 10b's freqz")
     cutoff = (
         [args.cutoff, args.cutoff_high]
         if args.filter_type in ("bandpass", "bandstop")

@@ -205,7 +205,8 @@ def with_per_stream_filters(pipe: Pipeline, variants: Sequence[dict],
 
     Constraints: one variant per stream, shape-static fields untouched, no
     numtaps bump, ``eq_enabled=False``.  'fft' carries a [B, F] ``H_main``
-    bank (row-level granularity).  'td_mxu' carries the deduplicated
+    bank (row-level granularity): the fused cascades, or under the literal
+    chain the raw main filters.  'td_mxu' carries the deduplicated
     ``casc_bank`` [D, n_casc] and the per-tile ``casc_assign`` [B / bt]:
     streams sharing a design fill whole tiles of `bt` rows (the reference's
     tile ladder, :func:`_banked_tile`).  ``pack=True`` sorts an arbitrary
@@ -242,14 +243,19 @@ def with_per_stream_filters(pipe: Pipeline, variants: Sequence[dict],
     design0 = next(iter(designed.values()))
     mains = np.stack(mains)  # [B, n_kernel]
 
-    # the fused cascade of every stream: upsampler ⊛ main (⊛ downsampler),
-    # phase-0 polyphase component
-    casc = _batched_convolve(pipe._h_up_np, mains)
-    if pipe._h_down_np is not None:
-        casc = _batched_convolve(pipe._h_down_np, casc)
-    casc = casc[:, :: pipe.upf]
-    bank = np.zeros((pipe.batch, pipe.n_casc))
-    bank[:, : casc.shape[-1]] = casc[:, : pipe.n_casc]
+    if pipe.fused:
+        # the fused cascade of every stream: upsampler ⊛ main
+        # (⊛ downsampler), phase-0 polyphase component
+        casc = _batched_convolve(pipe._h_up_np, mains)
+        if pipe._h_down_np is not None:
+            casc = _batched_convolve(pipe._h_down_np, casc)
+        casc = casc[:, :: pipe.upf]
+        bank = np.zeros((pipe.batch, pipe.n_casc))
+        bank[:, : casc.shape[-1]] = casc[:, : pipe.n_casc]
+    else:
+        # the literal chain filters at the upsampled rate: the raw mains
+        # (`afp_tpu/engine/batch.py:301-302`)
+        bank = mains
     params = pipe.device_params(design0)
 
     def spectra(rows):

@@ -4,25 +4,30 @@
 A snapshot of a streaming job, so it can stop and resume mid-stream bit for
 bit: the config, the parameter bank (every `DeviceParams` field: complex64
 spectra, taps, gains, AGC knobs and banks), the carried state (conv tail,
-dither ``(seed, step)``, AGC gain) and the framer residuals of
-`StreamEngine.process_frames`.  One ``.npz`` with the meta as embedded
-JSON.
+dither ``(seed, step)``, AGC gain, the input histories of the compat ASRC
+and the literal chain's ``up``/``down`` resamplers), the framer residuals
+of `StreamEngine.process_frames` and the exact ASRC frontend's host
+accumulators, resampler history and undelivered engine blocks.  One
+``.npz`` with the meta as embedded JSON.
 
-The port writes its own layout (``"format": "afp_tpu_torch"``, version 1):
-named arrays, the tail in the pipeline's own form (f32, raw int16, or the
-bf16 pair stored as uint16 bit views).  A resumed stream equals the
+The port writes its own layout (``"format": "afp_tpu_torch"``, version 2;
+version 1, without the resamplers and the frontend, still loads): named
+arrays, the tail in the pipeline's own form (f32, raw int16, or the bf16
+pair stored as uint16 bit views).  A resumed stream equals the
 uninterrupted one bit for bit, dither on: the Philox key is the state's
 ``(seed, step)``.
 
 It also reads `afp_tpu`'s v1/v2 ``.npz`` (positional pytree leaves of its
-`StreamState` ``(asrc, up, conv_tail, down, agc_gain, key, wf)`` and
-`DeviceParams`, the ``conv_pair`` flag, bf16 leaves as uint16 views,
+`StreamState` ``(asrc, up, conv_tail, down, agc_gain, key, wf)``, each
+`PolyResampler` flattened to ``(hist, h)``, and `DeviceParams`; the
+``conv_pair`` flag, bf16 leaves as uint16 views and the frontend's
+``asrc_in``/``asrc_out``/``asrc_hist``/``asrc_outq``,
 `afp_tpu/engine/checkpoint.py:39-159`).  The conv tail is converted pair ↔
 f32 where the layouts differ, as `afp_tpu` does (`:129-147`); the tail, the
-AGC gain, the parameters and the framer residuals restore bit for bit.  The
-JAX PRNG ``key`` has no Philox counterpart, so such a restore re-keys the
-dither from the checkpoint's seed at step 0: the same distribution, other
-bits.
+AGC gain, the resampler histories, the parameters, the framer residuals and
+the frontend restore bit for bit.  The JAX PRNG ``key`` has no Philox
+counterpart, so such a restore re-keys the dither from the checkpoint's
+seed at step 0: the same distribution, other bits.
 """
 from __future__ import annotations
 
@@ -37,8 +42,12 @@ from .engine import StreamEngine
 __all__ = ["save_checkpoint", "load_checkpoint"]
 
 FORMAT = "afp_tpu_torch"
-#: version of the port's own layout
-_FORMAT_VERSION = 1
+#: version of the port's own layout (2: the resamplers and the frontend)
+_FORMAT_VERSION = 2
+#: the port's layouts this module reads
+_PORT_VERSIONS = (1, 2)
+#: the carried resamplers, in `afp_tpu`'s StreamState order around the tail
+_RESAMPLERS = ("asrc", "up", "down")
 #: `afp_tpu`'s layouts this module reads
 _REFERENCE_VERSIONS = (1, 2)
 #: `afp_tpu`'s `DeviceParams` leaves that are always present, in field order
@@ -75,6 +84,9 @@ def save_checkpoint(path: str, engine: StreamEngine) -> None:
             arrays["tail"] = _to_numpy(tail)
         if state.agc_gain is not None:
             arrays["agc_gain"] = _to_numpy(state.agc_gain)
+        for r in _RESAMPLERS:
+            if getattr(state, r) is not None:
+                arrays[f"rs_{r}"] = _to_numpy(getattr(state, r).hist)
         names = [n for n in params._fields if getattr(params, n) is not None]
         for n in names:
             arrays[f"param_{n}"] = _to_numpy(getattr(params, n))
@@ -92,8 +104,33 @@ def save_checkpoint(path: str, engine: StreamEngine) -> None:
         if engine._in_framer is not None:
             arrays["framer_in"] = engine._in_framer.get_state()
             arrays["framer_out"] = engine._out_framer.get_state()
+        _save_frontend(engine, arrays, meta)
     arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     np.savez(path, **arrays)
+
+
+def _save_frontend(engine: StreamEngine, arrays: dict, meta: dict) -> None:
+    """The exact ASRC frontend's accumulators and resampler history, and
+    the engine blocks drained but not yet delivered, under `afp_tpu`'s
+    names (`afp_tpu/engine/checkpoint.py:72-76`)."""
+    if engine._asrc_frontend is None:
+        return
+    meta["has_asrc"] = True
+    arrays.update(engine._asrc_frontend.get_state())
+    if engine._asrc_outq:
+        arrays["asrc_outq"] = np.stack(list(engine._asrc_outq))
+
+
+def _restore_frontend(engine: StreamEngine, meta: dict, z) -> None:
+    if not meta.get("has_asrc"):
+        return
+    if engine._asrc_frontend is None:
+        raise ValueError("the checkpoint holds an ASRC frontend, but its "
+                         "config builds none")
+    engine._asrc_frontend.set_state(
+        {k: z[k] for k in ("asrc_in", "asrc_out", "asrc_hist")})
+    if "asrc_outq" in z:
+        engine._asrc_outq.extend(np.asarray(z["asrc_outq"]))
 
 
 def _reference_params(cfg: StreamConfig, leaves: list) -> dict:
@@ -139,7 +176,7 @@ def load_checkpoint(path: str, device="cuda") -> StreamEngine:
         meta = json.loads(bytes(z["meta_json"]).decode())
         cfg = StreamConfig.from_dict(meta["config"])
         if meta.get("format") == FORMAT:
-            if meta["version"] != _FORMAT_VERSION:
+            if meta["version"] not in _PORT_VERSIONS:
                 raise ValueError(
                     f"unsupported {FORMAT} checkpoint version {meta['version']}")
             engine = StreamEngine(cfg, device=device, seed=meta["seed"],
@@ -149,7 +186,8 @@ def load_checkpoint(path: str, device="cuda") -> StreamEngine:
                     if "tail_hi" in z else z["tail"])
             state = pipe.state_from_numpy(
                 tail, meta["state_seed"], meta["state_step"],
-                z["agc_gain"] if "agc_gain" in z else None)
+                z["agc_gain"] if "agc_gain" in z else None,
+                {r: z[f"rs_{r}"] for r in _RESAMPLERS if f"rs_{r}" in z})
             params = pipe.params_from_numpy(
                 {n: z[f"param_{n}"] for n in meta["params"]})
         else:
@@ -163,21 +201,30 @@ def load_checkpoint(path: str, device="cuda") -> StreamEngine:
                 return _bf16(z[name]) if name in bf16 else z[name]
 
             st = [leaf(f"state_{i}") for i in range(meta["n_state_leaves"])]
-            # the port's slice is the fused chain without ASRC or
-            # waterfall (StreamEngine refused the rest above), so the
-            # leaves are the conv tail (a pair in conv-pair mode), the AGC
-            # gain when on, and the JAX key, which has no Philox
-            # counterpart
+            # the leaves in StreamState order: the compat ASRC's and the
+            # up resampler's (hist, h), the conv tail (a pair in conv-pair
+            # mode), the down resampler's (hist, h), the AGC gain when on,
+            # and the JAX key, which has no Philox counterpart (the
+            # waterfall is refused when the engine is built)
+            carried = list(engine.pipeline._resamplers())
             n_tail = 2 if meta.get("conv_pair") else 1
-            if len(st) != n_tail + cfg.agc_enabled + 1:
+            if len(st) != 2 * len(carried) + n_tail + cfg.agc_enabled + 1:
                 raise ValueError(f"unexpected state leaves for this config: "
                                  f"{[tuple(a.shape) for a in st]}")
-            tail = tuple(st[:2]) if n_tail == 2 else st[0]
+            hist = {}
+            for r in ("asrc", "up"):
+                if r in carried:
+                    hist[r], st = st[0], st[2:]
+            tail, st = (tuple(st[:2]) if n_tail == 2 else st[0]), st[n_tail:]
+            if "down" in carried:
+                hist["down"], st = st[0], st[2:]
             state = engine.pipeline.state_from_numpy(
-                tail, meta["seed"], 0, st[n_tail] if cfg.agc_enabled else None)
+                tail, meta["seed"], 0, st[0] if cfg.agc_enabled else None,
+                hist)
             params = engine.pipeline.params_from_numpy(_reference_params(
                 cfg, [z[f"param_{i}"] for i in range(meta["n_param_leaves"])]))
         if meta.get("has_framer"):
             _restore_framers(engine, z)
+        _restore_frontend(engine, meta, z)
     engine.state, engine.params = state, params
     return engine

@@ -27,11 +27,17 @@ can upload a long signal in chunks on a copy stream behind the compute
 (``AFP_STAGE_CHUNK_MB``); both give the same bits as the pageable one-shot
 copy.  :meth:`StreamEngine.process_frames` regroups chunks of any length
 through the residual framers (`runtime/framer.py`), whose residuals
-checkpoints carry (`engine/checkpoint.py`).
+checkpoints carry (`engine/checkpoint.py`); under upsampled output it
+emits ``upsample_factor`` samples per input sample.
 
-Not in this slice: the host ASRC frontend (`process_source_block`,
-`drain_source_blocks`) and `waterfall_ring` (ROADMAP.md §1 item 10, through
-item 5's frontend).
+Block-exact ASRC (``asrc_mode='exact'``, `afp_tpu/engine/engine.py:103-116,
+202-252`): the host frontend (`runtime/asrc.py`) converts source-rate
+pushes of any length on the engine's device and regroups them into engine
+blocks; :meth:`StreamEngine.process_source_block` returns a block when one
+is ready, :meth:`StreamEngine.drain_source_blocks` every block a push
+completes, and a full output queue drops the incoming block and counts it.
+
+Not in this slice: `waterfall_ring` (ROADMAP.md §1 item 10b).
 """
 from __future__ import annotations
 
@@ -58,6 +64,8 @@ __all__ = ["StreamEngine"]
 
 #: last-good-block history depth (`stream_process.py:50`).
 LAST_GOOD_DEPTH = 4
+#: engine blocks the ASRC output queue holds (`afp_tpu/engine/engine.py:116`)
+ASRC_QUEUE_DEPTH = 64
 
 
 def _fallback_params(n_kernel: int, n_bands: int) -> PipelineParams:
@@ -118,7 +126,20 @@ class StreamEngine:
         self._in_dtype = np.int16 if self.pipeline._i16_ingest else np.float32
         self._out_dtype = np.int16 if self.pipeline._emit16 else np.float32
         self._block_seconds = self.cfg.blocksize / self.cfg.samplerate
-        self._out_shape = (self.cfg.batch, self.cfg.blocksize)
+        self._out_shape = (self.cfg.batch, self.pipeline.out_block)
+        # block-exact host ASRC (asrc_mode='exact'): the frontend regroups
+        # source-rate pushes into engine-rate blocks, converted on the
+        # engine's device; the pipeline never sees the rate conversion
+        self._asrc_frontend = None
+        cfg = self.cfg
+        if (cfg.source_samplerate and cfg.source_samplerate != cfg.samplerate
+                and cfg.asrc_mode == "exact"):
+            from ..runtime.asrc import AsrcFrontend
+
+            self._asrc_frontend = AsrcFrontend(
+                cfg.source_samplerate, cfg.samplerate, batch=cfg.batch,
+                quality=cfg.resample_quality, device=self.device)
+            self._asrc_outq: deque = deque(maxlen=ASRC_QUEUE_DEPTH)
         # lossless arbitrary-frames ingest (process_frames): residual
         # framers created on first use, the output side primed with ONE
         # block of silence (the fixed framing latency)
@@ -168,11 +189,70 @@ class StreamEngine:
 
     # ---------------- block processing with the ladder ----------------
 
+    def process_source_block(self, block: np.ndarray):
+        """Block-exact ASRC: push a source-rate block of ANY length and get
+        an engine-rate [batch, blocksize] output when one is ready, else
+        None (the stream is still buffering).  Without the frontend this is
+        :meth:`process_block`."""
+        if self._asrc_frontend is None:
+            return self.process_block(block)
+        self._asrc_drain(block)
+        return self._asrc_outq.popleft() if self._asrc_outq else None
+
+    def drain_source_blocks(self, block: np.ndarray) -> list:
+        """Push one source-rate block and return EVERY engine block it
+        completes: none, one or several (up-conversion completes more
+        engine blocks than it is handed).  The lockstep ASRC stream's
+        surface: an output exists exactly when a whole converted block
+        does, so no underrun blend or silence is fabricated.  Without the
+        frontend: one block in, one block out."""
+        if self._asrc_frontend is None:
+            return [self.process_block(block)]
+        self._asrc_drain(block)
+        outs = list(self._asrc_outq)
+        self._asrc_outq.clear()
+        return outs
+
+    def _asrc_drain(self, block: np.ndarray) -> None:
+        """Push a source-rate block (any length; the batch coerced, the
+        never-raises contract) and process EVERY completed engine block into
+        the bounded queue: up-conversion completes more engine blocks than
+        calls, so pulling one per call would grow the frontend without
+        bound.  A full queue drops the INCOMING block and counts it (the
+        reference's put_nowait, `stream_process_AGC.py:198-199`)."""
+        block = np.asarray(block, dtype=np.float32)
+        B = self.cfg.batch
+        if block.ndim == 1:
+            block = np.broadcast_to(block[None, :], (B, block.shape[-1]))
+        elif block.shape[0] != B:
+            fixed = np.zeros((B, block.shape[1]), np.float32)
+            b = min(block.shape[0], B)
+            fixed[:b] = block[:b]
+            block = fixed
+        self._asrc_frontend.push(block)
+        while True:
+            pulled = self._asrc_frontend.pull(self.cfg.blocksize)
+            if pulled is None:
+                break
+            if len(self._asrc_outq) == self._asrc_outq.maxlen:
+                self.metrics.drops += 1
+                continue
+            self._asrc_outq.append(self._process_engine_block(pulled))
+
     def process_block(self, block: np.ndarray) -> np.ndarray:
-        """One [batch, blocksize] block in → [batch, blocksize] out (numpy).
-        Never raises once the block has the ingest's dtype: on failure,
-        degrades per the reference ladder."""
+        """One [batch, blocksize] block in → [batch, blocksize·r] out
+        (numpy; r = upsample_factor under upsampled output, else 1).  Never
+        raises once the block has the ingest's dtype: on failure, degrades
+        per the reference ladder.  Under exact-mode ASRC the block is
+        source-rate and routes through the frontend; while it is still
+        buffering the output is the underrun blend
+        (:meth:`process_source_block` has the honest Optional)."""
         block = self._coerce_in(block)
+        if self._asrc_frontend is not None:
+            self._asrc_drain(block)
+            if not self._asrc_outq:
+                return self.underrun_block()
+            return self._asrc_outq.popleft()
         if block.ndim == 1:
             block = block[None, :]
         return self._process_engine_block(block)
@@ -190,7 +270,8 @@ class StreamEngine:
 
     def process_frames(self, chunk: np.ndarray) -> np.ndarray:
         """Lossless arbitrary-frames ingest (`afp_tpu/engine/engine.py:
-        286-337`): [batch, n] in → [batch, n] out for ANY n, at a fixed
+        286-337`): [batch, n] in → [batch, n·r] out for ANY n (r =
+        upsample_factor under upsampled output, else 1), at a fixed
         one-block latency.
 
         The reference's residual-carrying callback
@@ -200,7 +281,13 @@ class StreamEngine:
         ``blocksize`` output samples are the silence of the framing latency;
         thereafter output[k] is the processed stream one block late.  The
         residuals ride the transport dtypes (int16 under pcm16 ingest and
-        ``emit='pcm16'``)."""
+        ``emit='pcm16'``).  Exact-mode ASRC takes its chunks through
+        :meth:`process_source_block` instead."""
+        if self._asrc_frontend is not None:
+            raise ValueError(
+                "process_frames requires source_samplerate == samplerate; "
+                "use process_source_block for exact-mode ASRC (it already "
+                "accepts arbitrary chunk lengths)")
         chunk = self._coerce_in(chunk)
         if chunk.ndim == 1:
             chunk = np.broadcast_to(chunk[None, :],
@@ -219,9 +306,10 @@ class StreamEngine:
             if blk is None:
                 break
             self._out_framer.push(self._process_engine_block(blk))
-        # the one-block priming guarantees availability: emitted ≤ pushed,
-        # buffered = prime + bs·floor(pushed/bs) ≥ pushed
-        out = self._out_framer.pull(chunk.shape[1])
+        # the one-block priming guarantees availability: emitted ≤ r·pushed,
+        # buffered = prime + r·bs·floor(pushed/bs) ≥ r·pushed
+        r = self._out_shape[1] // self.cfg.blocksize
+        out = self._out_framer.pull(chunk.shape[1] * r)
         if out is None:
             raise RuntimeError("framer invariant violated")
         return out
@@ -303,11 +391,20 @@ class StreamEngine:
     def process_signal(self, signal: np.ndarray, fold="auto") -> np.ndarray:
         """Whole-signal convenience: [batch, T] → [batch, T''] (whole
         blocks), streamed block by block or folded; ``fold`` as
-        :meth:`Pipeline.process_signal`."""
+        :meth:`Pipeline.process_signal`.  Under exact-mode ASRC `signal` is
+        source-rate: it streams through the frontend, and every completed
+        engine block runs in order (`afp_tpu/engine/engine.py:426-456`)."""
         signal = self._coerce_in(signal)
         if signal.ndim == 1:
             signal = np.broadcast_to(
                 signal[None, :], (self.cfg.batch, signal.shape[-1]))
+        if self._asrc_frontend is not None:
+            self._asrc_frontend.push(signal)
+            L = self.cfg.blocksize
+            nb = self._asrc_frontend.available() // L
+            if nb == 0:
+                return np.zeros((self.cfg.batch, 0), dtype=self._out_dtype)
+            signal = self._asrc_frontend.pull(nb * L)
         t0 = time.monotonic()
         with self._swap_lock:
             pipeline, params, state_in = self.pipeline, self.params, self.state

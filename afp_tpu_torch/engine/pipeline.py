@@ -98,17 +98,50 @@ TPU dither has no interpret lowering.  Here the plain versions fuse the
 same Philox noise as the kernels, so both forms run with dither on, on
 every device.
 
-Not in this slice: each raises NotImplementedError naming its ROADMAP.md §1
-item (`_check_slice`).  Nothing falls back to another path.
+The literal multirate chain (`pipeline.py:153-177, 974-994`):
+``fuse_rate_conversion=False``, or ``output_rate='upsampled'`` with
+``upsample_factor > 1`` (whose output keeps the upsampled grid, so there is
+nothing to fuse), runs the chain as the reference wrote it: the ``up``
+`PolyResampler`, overlap-save at the upsampled rate on the raw band and
+main spectra (``H_eq · H_main``), then `decimate` or the ``down``
+resampler (neither for upsampled output), then the clip, K2 over the
+[B, U·L] or [B, L] output and the int16 quantize.  It runs on 'fft'
+(cuFFT); `StreamConfig.validate` refuses 'td_mxu' without fusion, and
+'td_mxu' with upsampled output runs it on 'fft' as the reference does.
+
+Device ASRC (``source_samplerate`` ≠ ``samplerate`` under
+``asrc_mode='compat'``, `pipeline.py:356-372, 619-633`) converts each
+source-rate block before the AGC: the streaming `PolyResampler` when the
+block is a multiple of the reduced decimation factor, else a stateless
+`resample_poly` per block.  Either way the converted block is padded or
+trimmed to ``blocksize``: the reference's compat semantics
+(`stream_process_AGC.py:126-129`), reproduced as they are (at 88.2 → 44.1
+kHz half a block of audio, then half a block of zeros).  ``asrc_mode=
+'exact'`` is the StreamEngine's host frontend (`runtime/asrc.py`); the
+pipeline then sees engine-rate blocks.
+
+``agc_mode='parallel'`` (`pipeline.py:734-740`): K5 gives the batch-major
+desired gain, `ops.agc.smooth_gain_parallel` solves the recurrence by
+branch-consistent fixed-point iteration over an associative scan, and
+torch ops clip and apply the gain; the conv reads the f32 result (K1 on
+'td_mxu').
+
+None of these has a ring form or folds (`supports_ring_step`,
+`supports_fold`, `pipeline.py:1078, 1090-1091, 1604-1615`).
+
+Not in this slice: the scan-carried waterfall raises NotImplementedError
+naming its ROADMAP.md §1 item (`_check_slice`).  Nothing falls back to
+another path.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..ops.agc import AGCParams, link_desired
+from ..ops.agc import AGCParams, link_desired, smooth_gain_parallel
 from ..ops.convolve import next_pow2
 from ..ops.cuda.agc_fused import agc_rms_apply, fused_rms_supported
 from ..ops.cuda.agc_rms import band_is_exact_bf16, rms_desired
@@ -123,7 +156,8 @@ from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_banked,
                                fir_td_mxu_ring_pcm16, is_highest, merge_bf16,
                                pcm16_to_f32, quantize_pcm16, ring_k_pad,
                                split_bf16)
-from ..ops.resample import streaming_kernel
+from ..ops.resample import (PolyResampler, decimate, resample_poly,
+                            streaming_kernel)
 from .config import PipelineParams, StreamConfig
 
 __all__ = ["DeviceParams", "StreamState", "Pipeline"]
@@ -156,24 +190,13 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
 
 
 def _check_slice(cfg: StreamConfig) -> None:
-    """Reject every configuration outside the ported fused chain, its AGC
-    ('exact' and 'fast') and its transport forms.  `validate()` makes the
-    block a power of two of at least 256 samples, so the AGC's block is
-    always whole 128-sample lanes (the TPU's K9 + XLA route for other
-    lengths cannot arise)."""
-    if cfg.agc_enabled and cfg.agc_mode == "parallel":
-        raise _not_in_slice("agc_mode='parallel' (the associative-scan "
-                            "solver)", "6 (AGC: 'parallel' mode)")
+    """Reject the one configuration outside the port: the scan-carried
+    waterfall.  `validate()` makes the block a power of two of at least 256
+    samples, so the AGC's block is always whole 128-sample lanes (the TPU's
+    K9 + XLA route for other lengths cannot arise)."""
     if cfg.waterfall_enabled:
-        raise _not_in_slice("waterfall_enabled", "10 (remaining ops)")
-    if cfg.source_samplerate and cfg.source_samplerate != cfg.samplerate:
-        raise _not_in_slice("source_samplerate (ASRC)",
-                            "5 (StreamEngine: host ASRC frontend)")
-    if not cfg.fuse_rate_conversion or (
-            cfg.output_rate == "upsampled" and cfg.upsample_factor > 1):
-        raise _not_in_slice(
-            "the literal multirate chain (fuse_rate_conversion=False or "
-            "output_rate='upsampled')", "10 (remaining ops)")
+        raise _not_in_slice("waterfall_enabled (the scan-carried spectrum)",
+                            "10b (the spectrum, the waterfall and the plots)")
 
 
 class DeviceParams(NamedTuple):
@@ -199,20 +222,24 @@ class DeviceParams(NamedTuple):
     casc_bank: Optional[torch.Tensor] = None  # [D, n_casc] float32
     casc_assign: Optional[torch.Tensor] = None  # [B // bt] int32
 
-    def combined_response(self, eq_enabled: bool) -> torch.Tensor:
-        """The live fused response, [F] or per-stream [B, F]: the
-        gain-combined per-band cascade spectra, or the no-EQ cascade.  The
-        band sum is written out (for [B, n_bands] gains one band at a
-        time, never a [B, K, F] product), so no matmul precision mode
-        (TF32) can touch it."""
+    def combined_response(self, eq_enabled: bool,
+                          premultiplied: bool = True) -> torch.Tensor:
+        """The live response, [F] or per-stream [B, F].  Fused
+        (`premultiplied`): the H_bands are whole per-band cascades, so the
+        response is their gain combination, or the no-EQ cascade H_main.
+        Literal chain: the H_bands are raw band spectra, so the gain
+        combination multiplies H_main.  The band sum is written out (for
+        [B, n_bands] gains one band at a time, never a [B, K, F] product),
+        so no matmul precision mode (TF32) can touch it."""
         if eq_enabled and self.H_bands.shape[0] > 0:
             g = self.eq_gains.to(self.H_bands.dtype)
             if g.ndim == 1:
-                return (g[:, None] * self.H_bands).sum(0)
-            H = g[:, :1] * self.H_bands[0]
-            for k in range(1, g.shape[1]):
-                H = H + g[:, k:k + 1] * self.H_bands[k]
-            return H
+                H = (g[:, None] * self.H_bands).sum(0)
+            else:
+                H = g[:, :1] * self.H_bands[0]
+                for k in range(1, g.shape[1]):
+                    H = H + g[:, k:k + 1] * self.H_bands[k]
+            return H if premultiplied else H * self.H_main
         return self.H_main
 
     def combined_cascade(self, eq_enabled: bool) -> torch.Tensor:
@@ -234,12 +261,17 @@ class StreamState(NamedTuple):
     one key of its first).  Under AGC with the bf16×3 'td_mxu' conv and
     under pair ingest the conv tail is the bf16 (hi, lo) pair of the conv
     input's history, the form K8/K7/K13 read; under pcm16 ingest without
-    AGC it is the raw int16 history (K12)."""
+    AGC it is the raw int16 history (K12).  The resamplers are None except
+    where they run: ``asrc`` the streaming compat ASRC, ``up`` and
+    ``down`` the literal chain's."""
 
     conv_tail: "torch.Tensor | tuple[torch.Tensor, torch.Tensor]"  # [B, k_pad]
     seed: int
     step: int
     agc_gain: Optional[torch.Tensor] = None  # [B] float32 carried gain
+    asrc: Optional[PolyResampler] = None
+    up: Optional[PolyResampler] = None
+    down: Optional[PolyResampler] = None
 
 
 class Pipeline:
@@ -276,30 +308,57 @@ class Pipeline:
         self.n_kernel = n_design
         self.has_eq = cfg.eq_enabled and len(cfg.eq_bands) > 0
         self.n_fused = 2 * n_design - 1 if self.has_eq else n_design
-        # upsample(U) → filter → downsample(U) at base-rate output is
-        # y[n] = Σ_p cascade[U·(n−p)]·x[p]: one base-rate FIR whose taps
-        # are the phase-0 polyphase component of the whole cascade
-        if self.upf > 1:
-            self._h_up_np = streaming_kernel(self.upf, 1,
-                                             quality=cfg.resample_quality)
-            self._h_down_np = (
-                streaming_kernel(1, self.upf, quality=cfg.resample_quality)
-                if cfg.downsample_mode == "resample" else None)
+        self.up_block = self.block * self.upf
+        # upsampled output keeps the literal multirate chain: the fusion
+        # exists because the output returns to the base rate
+        self.upsampled_out = cfg.output_rate == "upsampled" and self.upf > 1
+        self.fused = bool(cfg.fuse_rate_conversion) and not self.upsampled_out
+        #: samples per output block: U·L for upsampled output, else L
+        self.out_block = self.up_block if self.upsampled_out else self.block
+        if self.fused:
+            # upsample(U) → filter → downsample(U) at base-rate output is
+            # y[n] = Σ_p cascade[U·(n−p)]·x[p]: one base-rate FIR whose
+            # taps are the phase-0 polyphase component of the whole cascade
+            if self.upf > 1:
+                self._h_up_np = streaming_kernel(
+                    self.upf, 1, quality=cfg.resample_quality)
+                self._h_down_np = (
+                    streaming_kernel(1, self.upf, quality=cfg.resample_quality)
+                    if cfg.downsample_mode == "resample" else None)
+            else:
+                self._h_up_np = np.ones(1)
+                self._h_down_np = None
+            n_total = len(self._h_up_np) + self.n_fused - 1
+            if self._h_down_np is not None:
+                n_total += len(self._h_down_np) - 1
+            self.n_casc = -(-n_total // self.upf)  # ceil: decimated length
+            self.nfft = next_pow2(self.block + self.n_casc - 1)
         else:
-            self._h_up_np = np.ones(1)
-            self._h_down_np = None
-        n_total = len(self._h_up_np) + self.n_fused - 1
-        if self._h_down_np is not None:
-            n_total += len(self._h_down_np) - 1
-        self.n_casc = -(-n_total // self.upf)  # ceil: decimated length
-        self.nfft = next_pow2(self.block + self.n_casc - 1)
-        self._use_td = cfg.conv_strategy == "td_mxu"
+            # the literal chain convolves band ⊛ main at the upsampled rate
+            self.n_casc = None
+            self.nfft = next_pow2(self.up_block + self.n_fused - 1)
+        #: taps of the conv the tail feeds: the cascade, or band ⊛ main
+        self._n_conv = self.n_casc if self.fused else self.n_fused
+        self._use_td = self.fused and cfg.conv_strategy == "td_mxu"
         #: the 'td_mxu' conv's precision (K15): HIGHEST runs K1/K11 in fp32
         self.td_precision = str(td_precision).upper()
         self._highest = is_highest(td_precision) and self._use_td
-        self._k_pad = ring_k_pad(self.n_casc)
+        self._k_pad = ring_k_pad(self._n_conv)
         self.agc = AGCParams.from_config(cfg)
         self._agc_on = cfg.agc_enabled
+        #: the associative-scan AGC solver ('parallel'): K5, then torch ops
+        self._agc_parallel = self._agc_on and cfg.agc_mode == "parallel"
+        # device ASRC runs only under 'compat'; under 'exact' the engine's
+        # host frontend converts and the pipeline sees engine-rate blocks
+        self._asrc_device = bool(
+            cfg.source_samplerate and cfg.source_samplerate != cfg.samplerate
+            and cfg.asrc_mode == "compat")
+        # compat submode: streaming when the block is a multiple of the
+        # reduced decimation factor, else the reference's stateless
+        # per-block conversion (`stream_process_AGC.py:126-129`)
+        self._asrc_stateless = self._asrc_device and bool(
+            self.block % (cfg.source_samplerate
+                          // math.gcd(cfg.samplerate, cfg.source_samplerate)))
         #: transport forms (`afp_tpu/engine/pipeline.py:303-345`): both need
         #: a bf16×3 conv (the pair IS its operand split).  K5 and K6 take
         #: int16 x on every route, so pcm16 + AGC needs no flag of its own
@@ -316,9 +375,10 @@ class Pipeline:
         self._i16_tail = self._i16_ingest and not self._agc_on
         self._emit16 = cfg.emit == "pcm16"
         #: the conv reads a bf16 pair (K6's or K14's store, or the ingest's),
-        #: and the tail is carried so; under HIGHEST the AGC stores f32
-        #: (`_agc_chain_pair`, `pipeline.py:296-302`)
-        self._pair_tail = ((self._agc_on and self._use_td and not self._highest)
+        #: and the tail is carried so; under HIGHEST and the 'parallel'
+        #: solver the AGC stores f32 (`_agc_chain_pair`, `pipeline.py:296-302`)
+        self._pair_tail = ((self._agc_on and self._use_td and not self._highest
+                            and not self._agc_parallel)
                            or self._pair_ingest)
         #: the one-kernel AGC (K14) under the reference's conditions
         #: (`pipeline.py:256-264`); per-stream AGC vectors are checked per
@@ -370,8 +430,10 @@ class Pipeline:
                       agc: AGCParams | None = None) -> DeviceParams:
         """Upload a designed parameter bank: per-band and no-EQ cascades,
         as taps ('td_mxu') and as spectra at the static FFT length, and the
-        AGC scalars.  `cfg`/`agc` override the pipeline's dynamic fields, so
-        a reconfiguration can build the new bank before it swaps it in."""
+        AGC scalars; for the literal chain the raw band and main spectra
+        (`afp_tpu/engine/pipeline.py:455-462`).  `cfg`/`agc` override the
+        pipeline's dynamic fields, so a reconfiguration can build the new
+        bank before it swaps it in."""
         cfg = cfg if cfg is not None else self.cfg
         agc = agc if agc is not None else self.agc
         dev = self.device
@@ -381,10 +443,15 @@ class Pipeline:
         def f32(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
 
-        bands = (np.stack([self._cascade(main64, np.asarray(b, np.float64))
-                           for b in p.eq_taps]) if n_b
-                 else np.zeros((0, self.n_casc)))
-        casc = self._cascade(main64, None)
+        if self.fused:
+            bands = (np.stack([self._cascade(main64, np.asarray(b, np.float64))
+                               for b in p.eq_taps]) if n_b
+                     else np.zeros((0, self.n_casc)))
+            casc = self._cascade(main64, None)
+        else:
+            bands = (np.asarray(p.eq_taps) if n_b
+                     else np.zeros((0, self.n_kernel)))
+            casc = main64
         gains = np.asarray(p.eq_gains, dtype=np.float32) if n_b else np.zeros(0)
         F = self.nfft // 2 + 1
         return DeviceParams(
@@ -456,6 +523,24 @@ class Pipeline:
         (pair ingest also takes f32 blocks and splits them at entry)."""
         return torch.int16 if self._i16_ingest else torch.float32
 
+    def _resamplers(self) -> dict:
+        """The streaming resamplers this pipeline carries, at zero history
+        (`afp_tpu/engine/pipeline.py:486-508`): the compat ASRC in its
+        streaming submode, and the literal chain's ``up`` and (base-rate
+        output under 'resample') ``down``."""
+        cfg, B, dev = self.cfg, (self.batch,), self.device
+        kw = dict(batch_shape=B, quality=cfg.resample_quality, device=dev)
+        out = {}
+        if self._asrc_device and not self._asrc_stateless:
+            out["asrc"] = PolyResampler.init(
+                cfg.samplerate, cfg.source_samplerate, block=self.block, **kw)
+        if self.upf > 1 and not self.fused:
+            out["up"] = PolyResampler.init(self.upf, 1, block=self.block, **kw)
+            if cfg.downsample_mode == "resample" and not self.upsampled_out:
+                out["down"] = PolyResampler.init(1, self.upf,
+                                                 block=self.up_block, **kw)
+        return out
+
     def init_state(self, seed: int = 0) -> StreamState:
         B, kp, dev = self.batch, self._k_pad, self.device
         if self._i16_tail:
@@ -468,7 +553,7 @@ class Pipeline:
         # the gain carry starts at unity (`afp_tpu/engine/pipeline.py:529`)
         gain = (torch.ones(B, dtype=torch.float32, device=dev)
                 if self._agc_on else None)
-        return StreamState(tail, int(seed), 0, gain)
+        return StreamState(tail, int(seed), 0, gain, **self._resamplers())
 
     def _padded(self, t: torch.Tensor) -> torch.Tensor:
         """[B, <= k_pad] → [B, k_pad], zero columns on the left."""
@@ -479,7 +564,7 @@ class Pipeline:
         return torch.nn.functional.pad(t, (pad, 0))
 
     def state_from_numpy(self, conv_tail, seed: int, step: int,
-                         agc_gain=None) -> StreamState:
+                         agc_gain=None, resampler_hist=None) -> StreamState:
         """A state from `afp_tpu`'s carried state as numpy arrays, each
         tail zero-padded on the left to k_pad.  The conv tail comes in any
         of `afp_tpu`'s forms: f32 [B, <= k_pad], the bf16 pair ``(hi, lo)``
@@ -487,7 +572,10 @@ class Pipeline:
         converted to this pipeline's form (split, or widened), or the raw
         int16 history of pcm16 ingest without AGC (`pipeline.py:511-518`),
         which only such a pipeline takes.  ``agc_gain`` is the [B] gain
-        carry (unity when absent); `seed`/`step` key the dither."""
+        carry (unity when absent); `seed`/`step` key the dither;
+        ``resampler_hist`` maps each resampler this pipeline carries
+        (``'asrc'``, ``'up'``, ``'down'``) to its [B, hist_len] input
+        history (zero when absent)."""
         dev = self.device
         i16 = (not isinstance(conv_tail, (tuple, list))
                and np.asarray(conv_tail).dtype == np.int16)
@@ -511,7 +599,18 @@ class Pipeline:
             gain = (torch.ones(self.batch, dtype=torch.float32, device=dev)
                     if agc_gain is None else torch.as_tensor(
                         np.array(agc_gain, dtype=np.float32), device=dev))
-        return StreamState(tail, int(seed), int(step), gain)
+        rs = self._resamplers()
+        hist = dict(resampler_hist or {})
+        if set(hist) - set(rs):
+            raise ValueError(f"this pipeline carries the resamplers "
+                             f"{sorted(rs)}, not {sorted(set(hist) - set(rs))}")
+        for name, h in hist.items():
+            h = torch.as_tensor(np.array(h, dtype=np.float32), device=dev)
+            if h.shape != rs[name].hist.shape:
+                raise ValueError(f"{name} history must be "
+                                 f"{tuple(rs[name].hist.shape)}, got {tuple(h.shape)}")
+            rs[name] = rs[name]._replace(hist=h)
+        return StreamState(tail, int(seed), int(step), gain, **rs)
 
     # ---------------- the staged step ----------------
 
@@ -566,6 +665,8 @@ class Pipeline:
         cfg = self.cfg
         emit = self._pair_tail if emit_split is None else emit_split
         init = gain if cfg.agc_carry else None
+        if self._agc_parallel:
+            return self._agc_solver(params, x, init, emit)
         if self._agc_one_kernel and not any(
                 v.ndim for v in (params.agc_target, params.agc_max_gain,
                                  params.agc_a_att, params.agc_a_rel)):
@@ -586,6 +687,25 @@ class Pipeline:
             init=init, out_clip=0.99, emit_split=emit, ring_idx=ring_idx,
             blockwise=self._agc_blockwise, d_is_means=bool(mc))
 
+    def _agc_solver(self, params: DeviceParams, x: torch.Tensor, init, emit):
+        """``agc_mode='parallel'`` (`afp_tpu/engine/pipeline.py:637-740`):
+        K5's batch-major desired gain [B, T], the group-min, the
+        associative-scan solver, then the clip to [0.1, max_gain], the apply
+        and the ±0.99 clip as torch ops.  Returns the f32 gained block (its
+        pair with `emit`) and the [B] carry."""
+        lp, rp = self._rms_pad
+        d = rms_desired(x, self._rms_band, lp, rp, params.agc_target,
+                        params.agc_max_gain, exact_band=self._rms_exact)
+        d = link_desired(d, self.cfg.agc_link_group, batch_axis=0)
+        g = smooth_gain_parallel(d, params.agc_a_att, params.agc_a_rel,
+                                 init=init)
+        mg = params.agc_max_gain.to(g.device)
+        g = torch.minimum(torch.clamp_min(g, 0.1),
+                          mg[:, None] if mg.ndim else mg)
+        xf = pcm16_to_f32(x) if x.dtype == torch.int16 else x
+        y = torch.clamp(xf * g, -0.99, 0.99)
+        return (split_bf16(y) if emit else y), g[:, -1].contiguous()
+
     def _per_stream(self, params: DeviceParams) -> bool:
         """True when the params carry per-stream EQ gains."""
         return self.has_eq and params.eq_gains.ndim == 2
@@ -598,7 +718,7 @@ class Pipeline:
         merged (the next tail the block's own pair, or, for an f32 block —
         K6's store under banks — the split of the last k_pad columns,
         `pipeline.py:796-805, 960-971`), or f32."""
-        kp, n = self._k_pad, self.n_casc
+        kp, n = self._k_pad, self._n_conv
         L = (x[0] if isinstance(x, tuple) else x).shape[-1]
         if self._i16_tail:
             raw = torch.cat([tail, x], dim=-1)
@@ -616,22 +736,72 @@ class Pipeline:
         return ext, (x[:, L - kp:].clone() if kp <= L
                      else torch.cat([tail[:, L:], x], dim=-1))
 
+    def _asrc(self, x: torch.Tensor, asrc):
+        """Compat ASRC (`afp_tpu/engine/pipeline.py:619-633`): the source-
+        rate block through the streaming resampler (or, in the stateless
+        submode, `resample_poly` alone), padded or trimmed to ``blocksize``
+        as the reference does (`stream_process_AGC.py:126-129`)."""
+        cfg = self.cfg
+        if asrc is not None:
+            asrc, x = asrc.process(x)
+        else:
+            x = resample_poly(x, cfg.samplerate, cfg.source_samplerate,
+                              quality=cfg.resample_quality)
+        n = x.shape[-1]
+        x = (torch.nn.functional.pad(x, (0, self.block - n)) if n < self.block
+             else x[..., :self.block])
+        return x.contiguous(), asrc
+
+    def _output_stage(self, y: torch.Tensor, state: StreamState):
+        """The unfused output stage ('fft' and the literal chain): clip, K2
+        under the state's key, and the int16 quantize under
+        ``emit='pcm16'`` (the reference's XLA epilogue after its dither)."""
+        cfg = self.cfg
+        if cfg.output_clip is not None:
+            y = torch.clamp(y, -cfg.output_clip, cfg.output_clip)
+        y = dither_cuda(y.contiguous(), (state.seed, state.step),
+                        cfg.dither_bits, cfg.dither_kind)
+        return quantize_pcm16(y) if self._emit16 else y
+
     def step(self, params: DeviceParams, state: StreamState, block):
-        """One block: [B, L] → (state, [B, L] out).  The state passed in is
-        left intact (the engine's degradation ladder keeps it to recover
-        from a failed step)."""
+        """One block: [B, L] → (state, [B, L'] out), L' = U·L under
+        upsampled output, else L.  The state passed in is left intact (the
+        engine's degradation ladder keeps it to recover from a failed
+        step)."""
         cfg = self.cfg
         x = self._block(block)
-        n, L = self.n_casc, self.block
+        n, L = self._n_conv, self.block
         tail, gain = state.conv_tail, state.agc_gain
+        asrc, up, down = state.asrc, state.up, state.down
         dkw = self._dither_kw(state, cfg.output_clip)
         per_stream = self._per_stream(params)
         banked = params.casc_bank is not None
+        if self._asrc_device:
+            x, asrc = self._asrc(x, asrc)
         if self._agc_on:
             x, gain = self._agc(params, x, gain, emit_split=(
                 self._pair_tail and not (per_stream or banked)))
-        nxt = (lambda new_tail: StreamState(new_tail, state.seed,
-                                            state.step + 1, gain))
+
+        def nxt(new_tail):
+            return StreamState(new_tail, state.seed, state.step + 1, gain,
+                               asrc, up, down)
+
+        if not self.fused:
+            # the literal chain (`afp_tpu/engine/pipeline.py:974-994`):
+            # upsample, overlap-save at the upsampled rate, then decimate,
+            # the down resampler, or neither for upsampled output
+            if up is not None:
+                up, x = up.process(x)
+            ext, new_tail = self._ext(tail, x)
+            H = params.combined_response(self.has_eq, premultiplied=False)
+            Y = torch.fft.rfft(ext, n=self.nfft) * H
+            y = torch.fft.irfft(Y, n=self.nfft)[:, n - 1: n - 1 + self.up_block]
+            if self.upf > 1 and not self.upsampled_out:
+                if cfg.downsample_mode == "decimate":
+                    y = decimate(y, self.upf)
+                else:
+                    down, y = down.process(y)
+            return nxt(new_tail), self._output_stage(y, state)
         if self._i16_tail and not per_stream:
             # K12 over a one-slot view of the block (banked K12 with a
             # bank): the serving ring's own loader (staged ≡ ring bit for
@@ -652,13 +822,8 @@ class Pipeline:
         if not self._use_td:
             H = params.combined_response(self.has_eq)
             Y = torch.fft.rfft(ext, n=self.nfft) * H
-            y = torch.fft.irfft(Y, n=self.nfft)[:, n - 1: n - 1 + L]
-            if cfg.output_clip is not None:
-                y = torch.clamp(y, -cfg.output_clip, cfg.output_clip)
-            y = dither_cuda(y.contiguous(), (state.seed, state.step),
-                            cfg.dither_bits, cfg.dither_kind)
-            if self._emit16:  # the reference's XLA epilogue after K2
-                y = quantize_pcm16(y)
+            y = self._output_stage(
+                torch.fft.irfft(Y, n=self.nfft)[:, n - 1: n - 1 + L], state)
         elif per_stream:
             y = fir_td_mxu_per_stream(ext, params.casc_bands, params.eq_gains,
                                       emit_i16=self._emit16,
@@ -673,9 +838,9 @@ class Pipeline:
         return nxt(new_tail), y
 
     def run(self, params: DeviceParams, state: StreamState, blocks):
-        """Step over [N, B, L] blocks → (state, [N, B, L]).  Under pair
-        ingest `blocks` may also be the ``(hi, lo)`` pair of [N, B, L]
-        halves."""
+        """Step over [N, B, L] blocks → (state, [N, B, L']), L' as
+        :meth:`step`.  Under pair ingest `blocks` may also be the
+        ``(hi, lo)`` pair of [N, B, L] halves."""
         if self._pair_ingest and isinstance(blocks, tuple):
             blocks = zip(*(bf16_tensor(a, self.device) for a in blocks))
         else:
@@ -685,14 +850,15 @@ class Pipeline:
             state, y = self.step(params, state, blk)
             outs.append(y)
         if not outs:
-            return state, torch.zeros((0, self.batch, self.block),
+            return state, torch.zeros((0, self.batch, self.out_block),
                                       dtype=self.out_dtype, device=self.device)
         return state, torch.stack(outs)
 
     def process_signal(self, params: DeviceParams, state: StreamState,
                        signal, fold="auto"):
         """Whole-signal convenience: [B, T] → (state, [B, T'']), T'' the
-        whole blocks of T (`afp_tpu/engine/pipeline.py:1499-1538`).
+        whole blocks of T (× U under upsampled output;
+        `afp_tpu/engine/pipeline.py:1499-1538`).
         ``fold=False`` streams block by block; ``True`` requires the
         offline fold (:meth:`process_signal_folded`), ``'prefer'`` folds
         when :attr:`supports_fold`, and ``'auto'`` folds only where the fold
@@ -707,17 +873,17 @@ class Pipeline:
         nb = T // L
         blocks = signal[:, : nb * L].reshape(B, nb, L).transpose(0, 1)
         state, outs = self.run(params, state, blocks)
-        return state, outs.transpose(0, 1).reshape(B, nb * L)
+        return state, outs.transpose(0, 1).reshape(B, nb * self.out_block)
 
     # ---------------- the offline fold ----------------
 
     @property
     def supports_fold(self) -> bool:
-        """True when the offline fold applies: no cross-block recurrence
-        (AGC), so each block's output depends only on the signal window
-        behind it (`pipeline.py:1603-1615`; device ASRC, the waterfall and
-        the unfused chain are outside the port's slice)."""
-        return not self._agc_on
+        """True when the offline fold applies: the fused chain with no
+        cross-block recurrence (AGC) and no streaming resampler (device
+        ASRC), so each block's output depends only on the signal window
+        behind it (`pipeline.py:1603-1615`)."""
+        return self.fused and not self._agc_on and not self._asrc_device
 
     def _fold_decision(self, fold, params: DeviceParams) -> bool:
         """Resolve `fold` ('auto', 'prefer', True, False) against this
@@ -734,7 +900,7 @@ class Pipeline:
             if not self.supports_fold:
                 raise ValueError(
                     "fold=True but this pipeline cannot fold (needs the "
-                    "fused single-rate chain without AGC)")
+                    "fused single-rate chain without AGC or device ASRC)")
             return True
         if fold == "prefer":
             return self.supports_fold
@@ -769,7 +935,8 @@ class Pipeline:
         last history columns, ``step`` advanced by the blocks).  The TPU's
         8-row padding is not needed: the kernels mask rows."""
         if not self.supports_fold:
-            raise ValueError("this pipeline cannot fold (it runs the AGC)")
+            raise ValueError("this pipeline cannot fold (it runs the AGC, "
+                             "device ASRC or the literal chain)")
         cfg = self.cfg
         signal = self._signal(signal)
         B, T = signal.shape
@@ -842,8 +1009,10 @@ class Pipeline:
         'td_mxu' conv (`pipeline.py:1055-1091`; not under HIGHEST): the conv
         ring over one f32 or int16 PCM input ring, the pair rings of pair
         ingest, or, with AGC, the fused AGC chain over one f32 or int16
-        input ring."""
-        return self._use_td and not self._highest
+        input ring.  Device ASRC, the 'parallel' AGC solver and the literal
+        chain have no ring form (`pipeline.py:1078, 1090-1091`)."""
+        return (self._use_td and not self._highest and not self._asrc_device
+                and not self._agc_parallel)
 
     def _taps(self, params: DeviceParams):
         """The conv's taps and bank keywords: the live shared taps, or the

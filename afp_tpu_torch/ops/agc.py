@@ -17,9 +17,9 @@ approximation.  The pipeline's hot path runs the same math in kernels K5
 the ops-level surface and the tests' reference: on every device they run
 as written here.  :func:`apply_agc` on a CUDA tensor runs the recurrence as
 kernel K9 (`ops/cuda/agc_scan.py:smooth_gain_scan`, bit-exact to
-:func:`smooth_gain_scan`); on the CPU it stays plain.  ``smooth_gain_parallel``
-(the associative-scan solver, a reference implementation only) is ROADMAP
-§1 item 6.
+:func:`smooth_gain_scan`); on the CPU it stays plain.  :func:`smooth_gain_parallel` is the
+branch-consistent associative-scan solver of ``agc_mode='parallel'``, the
+recurrence's consistency oracle (torch ops on every device).
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ import torch
 from .convolve import next_pow2
 
 __all__ = ["agc_alphas", "moving_rms", "desired_gain", "link_desired",
-           "smooth_gain_scan", "smooth_gain_blockwise", "apply_agc",
+           "smooth_gain_scan", "smooth_gain_parallel",
+           "smooth_gain_blockwise", "apply_agc",
            "AGCParams", "compound_alpha", "fma_f32"]
 
 
@@ -141,6 +142,87 @@ def smooth_gain_scan(desired, a_att, a_rel,
     if not gains:
         return d_t.movedim(0, -1).clone()
     return torch.stack(gains).movedim(0, -1)
+
+
+def _solve_linear_recurrence(alpha: torch.Tensor, d_t: torch.Tensor,
+                             g0: torch.Tensor) -> torch.Tensor:
+    """Solve g[t] = (1−α[t])·g[t−1] + α[t]·d[t] for t = 0..T−1 with
+    g[−1] = g0 (`afp_tpu/ops/agc.py:144-162`): an inclusive scan over the
+    composition of the affine maps g → A·g + B, in ⌈log₂T⌉ doubling steps
+    of whole-tensor ops (each position composes the map 2^k places back
+    with its own).  `alpha`, `d_t`: [T, ...]; `g0`: [...].  Returns
+    [T, ...]."""
+    A = 1.0 - alpha
+    B = alpha * d_t
+    # fold g0 into element 0 (the constant map g → g[0]), so the inclusive
+    # prefix composition is g[t] itself, with no carry-in
+    B = torch.cat([B[:1] + A[:1] * torch.broadcast_to(g0, d_t.shape[1:]),
+                   B[1:]])
+    A = torch.cat([torch.zeros_like(A[:1]), A[1:]])
+    k, T = 1, d_t.shape[0]
+    while k < T:
+        # (a_l, b_l) then (a_r, b_r) composes to (a_l·a_r, b_l·a_r + b_r)
+        B = torch.cat([B[:k], B[:-k] * A[k:] + B[k:]])
+        A = torch.cat([A[:k], A[:-k] * A[k:]])
+        k *= 2
+    return B
+
+
+def smooth_gain_parallel(desired, a_att, a_rel,
+                         init: Optional[torch.Tensor] = None,
+                         max_iters: int = 24) -> torch.Tensor:
+    """The exact attack/release recurrence by branch-consistent fixed-point
+    iteration (`afp_tpu/ops/agc.py:165-251`), ``agc_mode='parallel'``.
+
+    Given the branch pattern ``b[t] = desired[t] > g[t−1]`` the recurrence
+    is linear, and :func:`_solve_linear_recurrence` solves it in log depth.
+    So: guess b (attack wherever the desired gain rises), solve, recompute b
+    from the solved gains, and repeat until b is unchanged or `max_iters`
+    solves have run.  Each solve extends the correct prefix of decisions,
+    so the loop converges to the recurrence; it is the recurrence's
+    consistency oracle (−105 dB against :func:`smooth_gain_scan`), not a
+    performance mode.  Same signature as :func:`smooth_gain_scan`."""
+    return _smooth_gain_parallel(desired, a_att, a_rel, init, max_iters)[0]
+
+
+def _smooth_gain_parallel(desired, a_att, a_rel, init=None,
+                          max_iters: int = 24):
+    """:func:`smooth_gain_parallel` with its loop's record: returns
+    ``(gains, solves, flipping)``, ``flipping`` the decisions (shaped as
+    `desired`) that the last solve still changed, none if it converged."""
+    d_t = _f32(desired).movedim(-1, 0)  # [T, ...]
+    dev = d_t.device
+    if init is None:
+        g0, seq = d_t[0], d_t[1:]
+    else:
+        g0 = torch.broadcast_to(_f32(init).to(dev), d_t.shape[1:])
+        seq = d_t
+    it = 0
+    if seq.shape[0] == 0:
+        gains, flips = d_t.clone(), torch.zeros(d_t.shape, dtype=torch.bool,
+                                                device=dev)
+    else:
+        # [B]-vector α broadcast over the time-major [T, B] decisions
+        a_att, a_rel = _f32(a_att).to(dev), _f32(a_rel).to(dev)
+
+        def prev(g):
+            return torch.cat([g0[None], g[:-1]])
+
+        b = seq > prev(seq)
+        while True:
+            g = _solve_linear_recurrence(torch.where(b, a_att, a_rel), seq, g0)
+            b_new = seq > prev(g)
+            it += 1
+            flips = b_new != b
+            if it >= max_iters or not bool(flips.any()):
+                break
+            b = b_new
+        if init is None:
+            gains = torch.cat([g0[None], g])
+            flips = torch.cat([torch.zeros_like(flips[:1]), flips])
+        else:
+            gains = g
+    return gains.movedim(0, -1), it, flips.movedim(0, -1)
 
 
 def _int_pow(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -19,10 +19,12 @@ the native monotonic pacer — the authoritative latency-semantics harness
 (SURVEY.md §7 "latency semantics") — with fault-injection hooks
 (drop / late / corrupt) for failure-path tests.
 
-Not in this slice: lockstep streaming through the host ASRC frontend
-(`afp_tpu`'s ``drain_source_blocks`` branch of `SimulatedStream.run`),
-which needs ROADMAP.md §1 item 10 through item 5's frontend; the engine
-refuses such a configuration when it is built.
+In lockstep with exact-mode ASRC the source and engine block grids differ
+(a source block completes 0, 1 or 2 engine blocks), so `SimulatedStream`
+drives the engine synchronously through ``drain_source_blocks``, with no
+worker thread (`afp_tpu/runtime/dispatcher.py:227-236, 260-265`): an
+output is emitted exactly when a whole converted block exists, nothing
+fabricated, nothing lost.
 """
 from __future__ import annotations
 
@@ -230,7 +232,10 @@ class SimulatedStream:
         `stream_process_EQ_GUI.py:454-457`).
         """
         self._stop.clear()
-        self.dispatcher.start()
+        lockstep_asrc = (not self.realtime
+                         and self.engine._asrc_frontend is not None)
+        if not lockstep_asrc:
+            self.dispatcher.start()
         pacer = Pacer(self.block_seconds) if self.realtime else None
         warned_load = False
         try:
@@ -254,6 +259,12 @@ class SimulatedStream:
                 blk = self.source(i)
                 if self.faults is not None:
                     blk = self.faults.apply(blk)
+                if lockstep_asrc:
+                    if blk is not None:
+                        for out in self.engine.drain_source_blocks(blk):
+                            if self.sink is not None:
+                                self.sink(out)
+                    continue
                 if blk is not None:
                     self.dispatcher.submit(blk)
                 elif not self.realtime:

@@ -33,7 +33,7 @@ device staging (one landed block per dtype, one drained chunk) is allocated
 once and reused: the copies and gathers ride one stream in order.
 
 Not in this slice: the spectrum tap (``spectrum_every``, ROADMAP.md §1
-item 4).
+item 10b).
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ class RingServer:
                  spectrum_every: int = 0, spectrum_row: int = 0):
         if spectrum_every:
             raise _not_in_slice("RingServer(spectrum_every>0)",
-                                "4 (serving: the spectrum tap)")
+                                "10b (serving: the spectrum tap)")
         if not pipeline.supports_ring_step:
             raise ValueError(
                 "RingServer requires a ring-capable pipeline: the f32 conv "

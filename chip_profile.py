@@ -2,7 +2,8 @@
 """Where the device time goes, per cell, on one CUDA card (torch.profiler).
 
     python3 chip_profile.py
-    python3 chip_profile.py --walls   # the staged walls alone, no profiler
+    python3 chip_profile.py --walls      # the staged walls alone, no profiler
+    python3 chip_profile.py --multirate  # the multirate paths (smoke phase 9)
 
 For each cell of `chip_smoke.py` at its full size: a staged `Pipeline.run`
 over 8 blocks and, for the serving cells, one `RingServer` serve
@@ -16,8 +17,16 @@ limit come first.  With ``--walls`` it times each cell's staged run
 ``WALL_RUNS`` times on the host clock (ending in a synchronize), without
 the profiler, after two warm-up runs, and prints the median, least and
 most ms per block and every run: to compare two checkouts, copy this
-script into the other and run the two in turn, more than once.  Without a
-CUDA device it exits 1.
+script into the other and run the two in turn, more than once.  With
+``--multirate`` it profiles the multirate paths of the smoke's phase 9
+instead, each whole path beside its resampler alone on the same input, so
+the resampler's share of the device time reads off two lines: the literal
+chain at the C5 headline (4 blocks of [4096, 4096], 'fft', TPDF) beside
+its up `PolyResampler` and beside the fused K1 chain; the compat ASRC C8
+from 48 kHz (3 blocks of [64, 2048]) beside `resample_poly` on those
+blocks; and the CLI's exact ASRC, a 60 s stereo 48 kHz signal through
+`StreamEngine.process_signal` at the CLI's defaults, beside its
+frontend's push alone.  Without a CUDA device it exits 1.
 """
 from __future__ import annotations
 
@@ -149,6 +158,66 @@ def cells(torch, dev, sz):
     return out
 
 
+def multirate(torch, dev, sz) -> None:
+    """The ``--multirate`` lines (see the module docstring)."""
+    import numpy as np
+
+    from afp_tpu_torch.engine import (Pipeline, PipelineParams, StreamConfig,
+                                      StreamEngine)
+    from afp_tpu_torch.ops.resample import PolyResampler, resample_poly
+    from afp_tpu_torch.runtime import AsrcFrontend
+
+    def build(cfg):
+        pipe = Pipeline(cfg, dev)
+        return pipe, pipe.device_params(PipelineParams.design(pipe.cfg))
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    nb = sz.multi_blocks
+    blocks = torch.randn(nb, sz.batch, sz.block, generator=g, device=dev) * 0.3
+    for name, cfg in (("literal chain", cs.c5_config(sz, fuse_rate_conversion=False,
+                                                     conv_strategy="fft")),
+                      ("fused K1 chain", cs.c5_config(sz))):
+        pipe, params = build(cfg)
+        line = profiled(torch, lambda: pipe.run(params, pipe.init_state(), blocks), nb)
+        print(f"C5 {name} [{sz.batch}, {sz.block}]: {line}", flush=True)
+    up = PolyResampler.init(4, 1, block=sz.block, batch_shape=(sz.batch,),
+                            quality="vhq", device=dev)
+
+    def resample_all():
+        st = up
+        for b in blocks:
+            st, _ = st.process(b)
+
+    print(f"C5 literal chain's up PolyResampler alone: "
+          f"{profiled(torch, resample_all, nb)}", flush=True)
+    del blocks
+
+    cfg = cs.c8_config(sz, batch=sz.asrc_batch, source_samplerate=48000,
+                       asrc_mode="compat")
+    pipe, params = build(cfg)
+    x = torch.randn(3, cfg.batch, cfg.blocksize, generator=g, device=dev) * 0.1
+    line = profiled(torch, lambda: pipe.run(params, pipe.init_state(), x), 3)
+    print(f"compat ASRC C8 from 48 kHz [{cfg.batch}, {cfg.blocksize}]: {line}",
+          flush=True)
+    line = profiled(torch, lambda: [resample_poly(b, 44100, 48000,
+                                                  quality=cfg.resample_quality)
+                                    for b in x], 3)
+    print(f"compat ASRC's resample_poly alone: {line}", flush=True)
+
+    n = int(sz.cli_seconds * 48000)
+    sig = (np.random.default_rng(10).standard_normal((2, n)) * 0.3).astype(np.float32)
+    ecfg = StreamConfig(samplerate=44100, source_samplerate=48000, batch=2)
+    nblk = -(-n * 44100 // 48000) // ecfg.blocksize
+    line = profiled(torch, lambda: StreamEngine(ecfg, device=dev).process_signal(
+        sig, fold="prefer"), nblk)
+    print(f"CLI --samplerate 44100, {sz.cli_seconds:g} s stereo 48 kHz through "
+          f"StreamEngine.process_signal: {line}", flush=True)
+    line = profiled(torch, lambda: AsrcFrontend(
+        48000, 44100, batch=2, quality=ecfg.resample_quality, device=dev).push(sig),
+        nblk)
+    print(f"CLI --samplerate's frontend push alone: {line}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -161,6 +230,9 @@ def main() -> int:
     print(cs.gpu_line(), flush=True)
     from afp_tpu_torch.runtime import RingServer
 
+    if sys.argv[1:] == ["--multirate"]:
+        multirate(torch, dev, cs.Sizes())
+        return 0
     only_walls = sys.argv[1:] == ["--walls"]
     g = torch.Generator(device=dev).manual_seed(7)
     for name, pipe, params, B, T, serve, packing in cells(torch, dev, cs.Sizes()):

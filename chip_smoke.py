@@ -81,15 +81,35 @@ Phases, one output line each; any failure raises (exit code != 0):
    file, bit for bit, and its ×realtime; `stream --lockstep` with the
    linked AGC ≡ its `process`, and 646 blocks + ``--checkpoint-out`` then
    ``--resume --skip-blocks 646`` ≡ the uninterrupted stream, bit for bit,
-   dither on; a 10 s stream paced at the block rate (underruns, overruns,
+   dither on; a 5 s stream paced at the block rate (underruns, overruns,
    busy share); ``--fault-drop 50`` (counters as injected); `devices`
    lists the card.  Every run without a fault processed every block it
    was handed, with no replay and no design fallback (in lockstep no
    underrun and no silence either: the ladder swallows exceptions);
+9. multirate and ASRC: (a) the literal multirate chain at the C5 headline
+   filter (``fuse_rate_conversion=False``, 'fft', batch 4096 × 4 blocks of
+   4096, nfft 32 768) ≡ the fused K1 chain within −90 dB on every row,
+   < −90 dB against the float64 oracle on 2 rows, ``output_rate=
+   'upsampled'`` [4096, 16 384] per block whose decimation ≡ the base
+   output bit for bit, walls and peak memory; (b) compat ASRC: C8 from
+   48 kHz at batch 64 (stateless: resample_poly, K5 → K6 → K8) and C5
+   'td_mxu' from 88.2 kHz at batch 4096 (streaming, K1), each ≡ the port's
+   CPU run of 8 rows (≤ −100 dB); (c) the CLI: ``process --samplerate
+   44100`` of a 60 s 48 kHz stereo file (the exact frontend, 'fft', K2)
+   and with ``--agc --agc-link`` (K5 → K6), ceil(n·44100/48000) samples,
+   < −90 dB against the float64 oracle; ``process --output-rate
+   upsampled`` of a 60 s 44.1 kHz file (twice the samples at 88.2 kHz);
+   ``batch`` of 32 × 30 s 48 kHz files with ``--samplerate 44100``, 4 of
+   them, drawn from the seed, ≡ ``process`` of each, bit for bit; (d)
+   ``stream --lockstep --samplerate 44100`` ≡ its ``process``, and
+   checkpointed at half with the frontend holding data, then resumed ≡
+   uninterrupted, bit for bit, dither on, nothing fabricated; (e) ``agc_mode='parallel'`` on C8 at batch 4096 ≡
+   the exact mode within −105 dB, its solve count, the decisions still
+   flipping at its last solve, and its wall;
 7. every kernel (K1-K15) and every option (the bank option of K3, K4, K12;
    the vector option of K5, K6; the HIGHEST option of K1 and K11, K15)
-   launched during phases 4-6 and 8, and each transport, bank, last-slice
-   and CLI phase (and each CLI run) launched its own.
+   launched during phases 4-6, 8 and 9, and each transport, bank,
+   last-slice, CLI and multirate phase (and each CLI run) launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times (CUDA events over back-to-back calls;
@@ -179,15 +199,43 @@ class Sizes:
     #: phase 8 (the CLI): a stereo file of `cli_seconds` at 44.1 kHz, a
     #: batch of `batch_files` stereo files of `batch_seconds`, a paced
     #: stream of `paced_seconds`, the oracle over the first `oracle_blocks`
-    #: engine blocks of each output (the chain is causal)
+    #: engine blocks of each output (the chain is causal); phase 9c holds
+    #: `batch_checked` of its batch's files, drawn from the seed, against
+    #: `process` of each alone
     cli_seconds: float = 60.0
     batch_files: int = 32
     batch_seconds: float = 30.0
-    paced_seconds: float = 10.0
+    paced_seconds: float = 5.0
+    batch_checked: int = 4
     oracle_blocks: int = 43
+    #: phase 9 (multirate and ASRC): blocks of the literal chain at the C5
+    #: headline, the batch of the compat ASRC's C8 run, rows of the CPU
+    #: runs the card is held against
+    multi_blocks: int = 4
+    asrc_batch: int = 64
+    cpu_rows: int = 8
 
 
 def err_db(a, b) -> float:
+    """Max-abs relative error (dB) of `a` against `b`, in float64.  Large
+    arrays of one shape (the served runs hold 2^28 samples) are reduced on
+    the card in chunks: the same float64 maxima, without the host's
+    multi-GiB float64 temporaries."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape == b.shape and a.size >= 1 << 22:
+        import torch
+
+        if torch.cuda.is_available():
+            fa, fb = a.reshape(-1), b.reshape(-1)
+            # torch.maximum carries a NaN through, as np.max does
+            num = den = torch.zeros((), dtype=torch.float64, device="cuda")
+            for i in range(0, fa.size, 1 << 26):
+                ca = torch.from_numpy(np.ascontiguousarray(fa[i:i + (1 << 26)]))
+                cb = torch.from_numpy(np.ascontiguousarray(fb[i:i + (1 << 26)]))
+                ca, cb = ca.cuda().double(), cb.cuda().double()
+                num = torch.maximum(num, (ca - cb).abs().max())
+                den = torch.maximum(den, cb.abs().max())
+            return float(20 * np.log10(float(num) / (float(den) + 1e-300) + 1e-300))
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(20 * np.log10(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-300)
@@ -2166,7 +2214,9 @@ def cli_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
     ``agc_enabled`` first the AGC per block as `c8_oracle` writes it, its
     desired gain linked by the minimum over each ``agc_link_group`` rows;
     then upsample, the main FIR, the resampling downsampler
-    (``downsample_mode='resample'``), decimate, and the output clip."""
+    (``downsample_mode='resample'``), decimate, and the output clip; under
+    ``output_rate='upsampled'`` neither the downsampler nor the decimation
+    (the literal chain's high-rate output)."""
     import scipy.signal as sps
 
     from afp_tpu_torch.ops.agc import agc_alphas
@@ -2195,15 +2245,17 @@ def cli_oracle(x: np.ndarray, cfg, design) -> np.ndarray:
         x = gained
     upf = cfg.upsample_factor
     h_up = streaming_kernel(upf, 1, quality=cfg.resample_quality)
+    upsampled = cfg.output_rate == "upsampled"
     h_down = (streaming_kernel(1, upf, quality=cfg.resample_quality)
-              if cfg.downsample_mode == "resample" and upf > 1 else None)
+              if cfg.downsample_mode == "resample" and upf > 1
+              and not upsampled else None)
     out = []
     for r in x:
         y = sps.upfirdn(h_up, r, upf, 1)[: N * upf]
         y = np.convolve(y, design.main_taps.astype(np.float64))[: len(y)]
         if h_down is not None:
             y = np.convolve(y, h_down)[: len(y)]
-        out.append(y[::upf])
+        out.append(y if upsampled else y[::upf])
     y = np.stack(out)
     return y if cfg.output_clip is None else np.clip(y, -cfg.output_clip,
                                                      cfg.output_clip)
@@ -2434,6 +2486,362 @@ def phase_cli(torch, dev, sz: Sizes) -> None:
     shutil.rmtree(SMOKE_CLI, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 9
+
+#: phase 9's CLI files: 48 kHz sources for the ASRC (the everyday case of a
+#: 48 kHz recording into the 44.1 kHz engine), 44.1 kHz for upsampled output
+SOURCE_RATE = 48000
+SMOKE_MULTI = Path(__file__).resolve().parent / "build" / "smoke_multirate"
+
+
+def row_err_db(torch, a, b):
+    """Per-row max-abs relative error (dB) of two [B, N] tensors."""
+    a, b = a.double(), b.double()
+    return 20 * torch.log10((a - b).abs().amax(1) / b.abs().amax(1).clamp_min(1e-300)
+                            + 1e-300)
+
+
+def timed(torch, dev, fn):
+    """(fn's result, its wall in seconds on the host clock ending in a
+    synchronize, the peak device memory in GiB it allocated)."""
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+    return out, wall, peak
+
+
+def phase_multirate_chain(torch, dev, sz: Sizes) -> None:
+    """9a: the literal multirate chain at the C5 headline filter (4× 'vhq',
+    1001 taps at 11 kHz, decimate, ``fuse_rate_conversion=False``, 'fft'):
+    the up resampler, overlap-save at 176.4 kHz (up-block 16 384, nfft
+    32 768), decimate.  ≡ the fused K1 chain within −90 dB on every row,
+    < −90 dB against the float64 oracle on 2 rows; ``output_rate=
+    'upsampled'`` gives [B, 4·L] per block and its decimation ≡ the base
+    literal output bit for bit; walls, ×realtime and peak memory, the
+    upsampled run with TPDF dither (K2 over [B, 4·L])."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+
+    B, L, nb = sz.batch, sz.block, sz.multi_blocks
+    g = torch.Generator(device=dev).manual_seed(90)
+    x = torch.randn(B, nb * L, generator=g, device=dev) * 0.3
+    audio_s = B * nb * L / HEADLINE["samplerate"]
+
+    def build(**over):
+        pipe = Pipeline(c5_config(sz, **over), dev)
+        return pipe, pipe.device_params(PipelineParams.design(pipe.cfg))
+
+    def run(pipe, params, sig):
+        return pipe.process_signal(params, pipe.init_state(), sig, fold=False)[1]
+
+    lit_pipe, lit_params = build(fuse_rate_conversion=False, conv_strategy="fft",
+                                 dither_kind="off")
+    check(not lit_pipe.fused and lit_pipe.up_block == 4 * L
+          and lit_pipe.nfft == 1 << (4 * L + lit_pipe.n_fused - 2).bit_length(),
+          f"literal chain: nfft {lit_pipe.nfft}, up-block {lit_pipe.up_block}")
+    run(lit_pipe, lit_params, x[:, :L])  # warm-up: the cuFFT plans
+    lit, wall, peak = timed(torch, dev, lambda: run(lit_pipe, lit_params, x))
+    f_pipe, f_params = build(dither_kind="off")
+    fused = run(f_pipe, f_params, x)
+    rows = row_err_db(torch, lit, fused)
+    worst = float(rows.max())
+    check(lit.shape == x.shape and bool(torch.isfinite(lit).all()) and worst < ORACLE_DB,
+          f"literal chain vs fused K1 chain: worst row {worst:.1f} dB")
+    design = PipelineParams.design(lit_pipe.cfg)
+    x2 = x[:2].cpu().numpy()
+    e_or = err_db(lit[:2].cpu().numpy(), c5_oracle(x2, lit_pipe.cfg, design))
+    check(e_or < ORACLE_DB, f"literal chain oracle: {e_or:.1f} dB")
+    say(f"phase 9a literal chain (C5 filter, 4x vhq, fft, nfft {lit_pipe.nfft}) batch "
+        f"{B} x {nb} blocks of {L}: == fused K1 chain, worst row {worst:.1f} dB (< "
+        f"{ORACLE_DB}, dither off); {e_or:.1f} dB vs the float64 oracle on 2 rows; "
+        f"{wall * 1e3:.1f} ms wall ({wall * 1e3 / nb:.2f} ms/block, "
+        f"{audio_s / wall:.0f}x realtime, host clock), peak {peak:.2f} GiB")
+    del fused, f_pipe, f_params
+
+    up_pipe, up_params = build(output_rate="upsampled", conv_strategy="fft",
+                               dither_kind="off")
+    up = run(up_pipe, up_params, x)
+    check(up.shape == (B, 4 * nb * L) and up_pipe.out_block == 4 * L,
+          f"upsampled output shape {tuple(up.shape)}")
+    check(torch.equal(up[:, ::4], lit), "decimated upsampled output differs from "
+          "the base literal output")
+    del up, lit
+    up_pipe, up_params = build(output_rate="upsampled", conv_strategy="fft")
+    run(up_pipe, up_params, x[:, :L])
+    up, wall_u, peak_u = timed(torch, dev, lambda: run(up_pipe, up_params, x))
+    check(bool(torch.isfinite(up).all()), "upsampled output with dither: not finite")
+    say(f"phase 9a output_rate='upsampled': [{B}, {4 * L}] per block; decimate == "
+        f"the base literal output, bit for bit; with TPDF dither (K2 over [{B}, "
+        f"{4 * L}]) {wall_u * 1e3:.1f} ms wall ({wall_u * 1e3 / nb:.2f} ms/block, "
+        f"{audio_s / wall_u:.0f}x realtime), peak {peak_u:.2f} GiB")
+
+
+def phase_multirate_asrc(torch, dev, sz: Sizes) -> None:
+    """9b: compat ASRC on the card.  C8 (AGC 'exact', 'td_mxu', block 2048)
+    from 48 kHz sources at batch 64 (32 stereo streams), the stateless
+    submode: resample_poly per block, then K5 → K6 → K8; and C5 'td_mxu'
+    from 88.2 kHz at batch 4096, the streaming submode into K1.  Each ≡
+    the port's CPU run of its first rows (≤ −100 dB, dither off), [B, L]
+    out."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+
+    cpu = torch.device("cpu")
+    for name, cfg, nb, seed in (
+            ("C8 from 48 kHz", c8_config(sz, batch=sz.asrc_batch,
+                                         source_samplerate=48000,
+                                         asrc_mode="compat", dither_kind="off"), 3, 91),
+            ("C5 from 88.2 kHz", c5_config(sz, source_samplerate=88200,
+                                           asrc_mode="compat", dither_kind="off"), 2, 92)):
+        B, L = cfg.batch, cfg.blocksize
+        rng = np.random.default_rng(seed)
+        x = (rng.standard_normal((nb, B, L)) * 0.1).astype(np.float32)
+        pipe = Pipeline(cfg, dev)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        stateless = pipe._asrc_stateless
+        xd = torch.from_numpy(x).to(dev)
+        pipe.run(params, pipe.init_state(), xd[:1])
+        (_, out), wall, peak = timed(torch, dev,
+                                     lambda: pipe.run(params, pipe.init_state(), xd))
+        cp = Pipeline(replace(cfg, batch=sz.cpu_rows), cpu)
+        _, ref = cp.run(cp.device_params(PipelineParams.design(cp.cfg)),
+                        cp.init_state(), x[:, :sz.cpu_rows])
+        e = err_db(out[:, :sz.cpu_rows].cpu().numpy(), ref.numpy())
+        check(out.shape == (nb, B, L) and bool(torch.isfinite(out).all())
+              and e <= CHAIN_DB, f"compat ASRC {name}: {tuple(out.shape)}, {e:.1f} dB")
+        audio_s = nb * B * L / cfg.samplerate
+        say(f"phase 9b compat ASRC {name} ({'stateless' if stateless else 'streaming'}"
+            f" submode) batch {B} x {nb} blocks of {L}: [{B}, {L}] out, card vs the "
+            f"port's CPU run of {sz.cpu_rows} rows {e:.1f} dB (<= {CHAIN_DB}); "
+            f"{wall * 1e3:.1f} ms wall ({wall * 1e3 / nb:.2f} ms/block, "
+            f"{audio_s / wall:.0f}x realtime), peak {peak:.2f} GiB")
+
+
+def check_asrc_stream(what: str, engines, captured: int) -> None:
+    """A lockstep ASRC stream fabricates nothing: every engine block came
+    from converted audio (the capture is whole blocks), with no underrun,
+    silence, replay, drop or design fallback."""
+    for eng in engines:
+        m = eng.metrics
+        check(m.underruns == 0 and m.fallback_silence == 0 and m.fallback_replays == 0
+              and m.drops == 0 and m.design_fallbacks == 0,
+              f"{what}: ladder events {m.snapshot()}")
+    blocks = sum(e.metrics.blocks_processed for e in engines)
+    check(captured == blocks * CLI_BLOCK, f"{what}: {captured} samples captured for "
+          f"{blocks} blocks")
+
+
+def phase_multirate_cli(torch, dev, sz: Sizes) -> None:
+    """9c and 9d: the CLI and the stream with the multirate flags, on stereo
+    24-bit WAVs.  `process --samplerate 44100` of a 60 s 48 kHz file (the
+    exact frontend, 'fft', K2), again with ``--agc --agc-link`` (K5 → K6):
+    ceil(n·44100/48000) samples, < −90 dB against the float64 oracle (the
+    causal resampler in float64, then the chain); `process --output-rate
+    upsampled` of a 60 s 44.1 kHz file: twice the samples at 88.2 kHz,
+    against its oracle; `batch` of 32 × 30 s 48 kHz files with
+    ``--samplerate 44100`` ≡ `process` of a file alone, bit for bit, on
+    `batch_checked` files drawn from the seed (dither off: the fold keys its
+    noise by the folded row); `stream --lockstep -o --samplerate 44100`
+    (the linked AGC, dither on) ≡ its
+    `process`, and stopped at half with the frontend holding data, then
+    resumed ≡ uninterrupted, bit for bit."""
+    import scipy.signal as sps
+
+    from afp_tpu_torch.ops.resample import streaming_kernel
+    from afp_tpu_torch.utils import read_wav, write_wav
+
+    if dev.type == "cuda":
+        os.environ.pop("AFP_FORCE_CPU", None)
+    else:
+        os.environ["AFP_FORCE_CPU"] = "1"
+    shutil.rmtree(SMOKE_MULTI, ignore_errors=True)
+    SMOKE_MULTI.mkdir(parents=True)
+    d = SMOKE_MULTI
+    rng = np.random.default_rng(160)
+    n48 = int(sz.cli_seconds * SOURCE_RATE)
+    x48 = np.clip(0.3 * rng.standard_normal((2, n48)), -1, 1).astype(np.float32)
+    x48[:, n48 // 3: n48 // 2] *= 0.05  # a quiet passage for the AGC to lift
+    write_wav(str(d / "in48.wav"), x48, SOURCE_RATE, width=3)
+    x48 = read_wav(str(d / "in48.wav"))[0]
+    n44 = int(sz.cli_seconds * CLI_RATE)
+    x44 = np.clip(0.3 * rng.standard_normal((2, n44)), -1, 1).astype(np.float32)
+    write_wav(str(d / "in44.wav"), x44, CLI_RATE, width=3)
+    x44 = read_wav(str(d / "in44.wav"))[0]
+    sr = ["--samplerate", CLI_RATE]
+    agc = ["--agc", "--agc-link"]
+    n_out = -(-n48 * CLI_RATE // SOURCE_RATE)
+    n_or = min(n_out, sz.oracle_blocks * CLI_BLOCK)
+
+    # ---- process --samplerate 44100: the defaults and the linked AGC
+    outs = {}
+    for name, flags, want in (
+            ("samplerate", sr, ("dither_cuda",)),
+            ("samplerate-agc", [*sr, *agc], ("rms_desired", "smooth_gain_apply",
+                                             "dither_cuda"))):
+        dst = d / f"{name}.wav"
+        _, engines, wall, _ = run_cli(torch, dev, ["process", d / "in48.wav", dst,
+                                                   *flags], want)
+        eng = engines[0]
+        check_ladder(f"process {name}", engines, 1, lockstep=True)
+        y, rate = read_wav(str(dst))
+        # the oracle: the causal streaming resampler in float64 (the
+        # frontend's output from its first sample), then the chain
+        h = streaming_kernel(CLI_RATE, SOURCE_RATE, quality=eng.cfg.resample_quality)
+        n_src = (n_or + 64) * SOURCE_RATE // CLI_RATE + len(h)
+        z = np.stack([sps.upfirdn(h, r[:n_src].astype(np.float64), CLI_RATE // 300,
+                                  SOURCE_RATE // 300)[:n_or] for r in x48])
+        e = err_db(y[:, :n_or], np.clip(cli_oracle(z, eng.cfg, eng.design), -1.0, 1.0))
+        check(rate == CLI_RATE and y.shape == (2, n_out) and np.all(np.isfinite(y))
+              and e < ORACLE_DB, f"process {name}: {y.shape} at {rate} Hz, {e:.1f} dB")
+        outs[name] = y
+        say(f"phase 9c process {' '.join(map(str, flags))} of a {sz.cli_seconds:g} s "
+            f"stereo 48 kHz file: {n_out} samples at {rate} Hz (ceil(n*44100/48000)); "
+            f"{e:.1f} dB vs the float64 oracle over the first {n_or} samples; "
+            f"{wall:.2f} s wall (host clock, WAV I/O included), engine busy "
+            f"{eng.metrics.busy_seconds:.3f} s")
+
+    # ---- process --output-rate upsampled at the CLI defaults
+    dst = d / "upsampled.wav"
+    _, engines, wall, _ = run_cli(torch, dev, ["process", d / "in44.wav", dst,
+                                               "--output-rate", "upsampled"],
+                                  ("dither_cuda",))
+    eng = engines[0]
+    check_ladder("process --output-rate upsampled", engines, 1, lockstep=True)
+    y, rate = read_wav(str(dst))
+    n_up = min(n44, sz.oracle_blocks * CLI_BLOCK)
+    # no output clip at the defaults: the 24-bit WAV's range clips overshoot
+    gold = np.clip(cli_oracle(x44[:, :n_up], eng.cfg, eng.design), -1.0, 1.0)
+    e = err_db(y[:, :2 * n_up], gold)
+    check(rate == 2 * CLI_RATE and y.shape == (2, 2 * n44) and e < ORACLE_DB,
+          f"process --output-rate upsampled: {y.shape} at {rate} Hz, {e:.1f} dB")
+    say(f"phase 9c process --output-rate upsampled of a {sz.cli_seconds:g} s stereo "
+        f"44.1 kHz file: {y.shape[1]} samples at {rate} Hz; {e:.1f} dB vs the float64 "
+        f"oracle over the first {2 * n_up} samples; {wall:.2f} s wall, engine busy "
+        f"{eng.metrics.busy_seconds:.3f} s")
+
+    # ---- batch of 32 stereo 30 s 48 kHz files with --samplerate 44100
+    nbt = int(sz.batch_seconds * SOURCE_RATE)
+    srcs = []
+    for i in range(sz.batch_files):
+        xi = np.clip(0.2 * rng.standard_normal((2, nbt)), -1, 1).astype(np.float32)
+        srcs.append(d / f"b{i:02d}.wav")
+        write_wav(str(srcs[-1]), xi, SOURCE_RATE, width=3)
+    # dither off: the fold keys its noise by the row of the folded batch
+    bflags = [*sr, "--dither", "off"]
+    _, engines, wall, _ = run_cli(torch, dev, ["batch", *srcs, "-o", d / "batch_out",
+                                               *bflags], ())
+    check(len(engines) == 1, f"batch: {len(engines)} dispatches, not one")
+    check_ladder("batch --samplerate", engines, 1, lockstep=True)
+    busy = engines[0].metrics.busy_seconds
+    rows = 2 * sz.batch_files
+    n_b = -(-nbt * CLI_RATE // SOURCE_RATE)
+    picked = sorted(rng.choice(sz.batch_files, sz.batch_checked, replace=False))
+    for src in [srcs[i] for i in picked]:
+        one = d / "one.wav"
+        run_cli(torch, dev, ["process", src, one, *bflags])
+        got = read_wav(str(d / "batch_out" / src.name))[0]
+        check(got.shape == (2, n_b) and np.array_equal(got, read_wav(str(one))[0]),
+              f"batch --samplerate: {src.name} differs from process of the file alone")
+    audio = rows * sz.batch_seconds
+    say(f"phase 9c batch {sz.batch_files} stereo files x {sz.batch_seconds:g} s at "
+        f"48 kHz --samplerate 44100 ({rows} rows, one dispatch): files "
+        f"{[int(i) for i in picked]} == process of each alone, bit for bit (dither "
+        f"off); {wall:.2f} s wall, "
+        f"{audio / wall:.0f}x realtime (WAV I/O included), engine busy {busy:.3f} s "
+        f"({audio / busy:.0f}x)")
+
+    # ---- stream --lockstep with the ASRC ≡ process, and resumed
+    def stream(*argv):
+        return run_cli(torch, dev, ["stream", d / "in48.wav", *sr, *agc, "--lockstep",
+                                    *argv], ("rms_desired", "smooth_gain_apply"))
+
+    snap, engines, wall, _ = stream("-o", d / "stream.wav")
+    full = read_wav(str(d / "stream.wav"))[0]
+    check_asrc_stream("stream --lockstep --samplerate", engines, full.shape[1])
+    ref = outs["samplerate-agc"]
+    check(0 < full.shape[1] <= ref.shape[1]
+          and np.array_equal(full, ref[:, :full.shape[1]]),
+          "stream --lockstep --samplerate differs from process")
+    nb_src = -(-n48 // CLI_BLOCK)
+    say(f"phase 9d stream --lockstep --samplerate 44100 --agc --agc-link: {nb_src} "
+        f"source blocks -> {snap['blocks']} engine blocks == process bit for bit, "
+        f"dither on, nothing fabricated; {wall:.2f} s wall "
+        f"({n48 / SOURCE_RATE / wall:.0f}x realtime)")
+    half = nb_src // 2 + 1  # odd: the frontend holds a residual super-block
+    ck = d / "ck.npz"
+    _, e1, _, _ = stream("-o", d / "h1.wav", "--blocks", half, "--checkpoint-out", ck)
+    with np.load(ck) as z:
+        held = (z["asrc_in"].shape[1], z["asrc_out"].shape[1])
+    check(held[0] > 0 and held[1] > 0, f"checkpoint: the frontend holds {held}")
+    _, e2, _, _ = run_cli(torch, dev, ["stream", d / "in48.wav", "-o", d / "h2.wav",
+                                       "--skip-blocks", half, "--resume", ck,
+                                       "--lockstep"],
+                          ("rms_desired", "smooth_gain_apply"))
+    h1, h2 = read_wav(str(d / "h1.wav"))[0], read_wav(str(d / "h2.wav"))[0]
+    check_asrc_stream("stream, first half", e1, h1.shape[1])
+    check_asrc_stream("stream, resumed", e2, h2.shape[1])
+    joined = np.concatenate([h1, h2], axis=1)
+    check(np.array_equal(joined, full),
+          "checkpoint + resume under the ASRC differs from the uninterrupted stream")
+    say(f"phase 9d stream {half} source blocks + checkpoint (the frontend holding "
+        f"{held[0]} source and {held[1]} converted samples), then --resume "
+        f"--skip-blocks {half}: joined == uninterrupted, bit for bit, dither on")
+    shutil.rmtree(SMOKE_MULTI, ignore_errors=True)
+
+
+def phase_parallel_agc(torch, dev, sz: Sizes) -> None:
+    """9e: ``agc_mode='parallel'`` on C8 at batch 4096 × 2048: K5's
+    batch-major desired gain, the associative-scan solver (torch ops), the
+    apply and K1.  Its gained block ≡ the exact mode's (K5 → K6, f32 store)
+    within −105 dB, the reference's bar for the recurrence's consistency
+    oracle; the chain's output ≡ the exact chain's within the AGC chain's
+    −100 dB (the bf16×3 conv splits two slightly different inputs); dither
+    off; its solve count and wall."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.agc import _smooth_gain_parallel
+    from afp_tpu_torch.ops.cuda.agc_rms import rms_desired
+
+    g = torch.Generator(device=dev).manual_seed(93)
+    blocks = torch.randn(2, sz.c8_batch, sz.c8_block, generator=g, device=dev) * 0.1
+    blocks[:, ::7] *= 0.02  # quiet streams: the gain rises to its clip
+    outs, walls, gained = {}, {}, {}
+    ones = torch.ones(sz.c8_batch, device=dev)
+    for mode in ("parallel", "exact"):
+        pipe = Pipeline(c8_config(sz, agc_mode=mode, dither_kind="off"), dev)
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+        pipe.run(params, pipe.init_state(), blocks[:1])
+        (_, outs[mode]), walls[mode], _ = timed(
+            torch, dev, lambda: pipe.run(params, pipe.init_state(), blocks))
+        check(bool(torch.isfinite(outs[mode]).all()), f"C8 {mode}: not finite")
+        gained[mode] = pipe._agc(params, blocks[0], ones, emit_split=False)[0]
+        if mode == "parallel":
+            lp, rp = pipe._rms_pad
+            dd = rms_desired(blocks[0], pipe._rms_band, lp, rp, params.agc_target,
+                             params.agc_max_gain, exact_band=pipe._rms_exact)
+            gp, iters, flips = _smooth_gain_parallel(
+                dd, params.agc_a_att, params.agc_a_rel, init=ones)
+            gap = (dd - torch.cat([ones[:, None], gp[:, :-1]], 1))[flips].abs()
+            n_flip = int(flips.sum())
+            flip_rows = sorted(set(flips.nonzero()[:, 0].tolist()))
+            at_clip = bool((dd[flips] == params.agc_max_gain).all())
+    e_agc = err_db(gained["parallel"].cpu().numpy(), gained["exact"].cpu().numpy())
+    e_out = err_db(outs["parallel"].cpu().numpy(), outs["exact"].cpu().numpy())
+    check(e_agc < -105.0 and e_out <= CHAIN_DB,
+          f"parallel vs exact: gained block {e_agc:.1f} dB, chain {e_out:.1f} dB")
+    say(f"phase 9e C8 agc_mode='parallel' batch {sz.c8_batch} x 2 blocks of "
+        f"{sz.c8_block}: gained block {e_agc:.1f} dB vs exact mode (< -105), chain "
+        f"output {e_out:.1f} dB (<= {CHAIN_DB}), dither off; {iters} solves on block "
+        f"0, {n_flip} decisions still flipping at the last, in {len(flip_rows)} "
+        f"streams (all quiet ones, every 7th: "
+        f"{all(r % 7 == 0 for r in flip_rows)}), d there at max_gain: {at_clip}, "
+        f"|d - g[t-1]| <= {float(gap.max()) if n_flip else 0.0:.3g}; "
+        f"{walls['parallel'] * 1e3:.1f} ms wall for 2 blocks (exact "
+        f"{walls['exact'] * 1e3:.1f} ms)")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2508,6 +2916,12 @@ PHASE_LAUNCHES = {
     "phase_apply_agc": ("smooth_gain_scan",),
     "phase_cli": ("dither_cuda", "fir_td_mxu_pair", "rms_desired",
                   "smooth_gain_apply"),
+    "phase_multirate_chain": ("dither_cuda", "fir_td_mxu"),
+    "phase_multirate_asrc": ("rms_desired", "smooth_gain_apply", "fir_td_mxu_pair",
+                             "fir_td_mxu"),
+    "phase_multirate_cli": ("dither_cuda", "rms_desired", "smooth_gain_apply"),
+    "phase_parallel_agc": ("rms_desired", "smooth_gain_apply", "fir_td_mxu_pair",
+                           "fir_td_mxu"),
 }
 
 
@@ -2572,7 +2986,8 @@ def main() -> int:
                   phase_transport_serving, phase_bank_serving, phase_engine,
                   phase_c8_engine, phase_transport_engine, phase_bank_engine,
                   phase_highest_pipeline, phase_one_kernel, phase_fold,
-                  phase_apply_agc, phase_cli):
+                  phase_apply_agc, phase_cli, phase_multirate_chain,
+                  phase_multirate_asrc, phase_multirate_cli, phase_parallel_agc):
         t0 = time.perf_counter()
         before = counts(KERNELS)
         phase(torch, dev, sz)

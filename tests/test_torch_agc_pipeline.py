@@ -280,7 +280,8 @@ def test_engine_ladder_keeps_the_gain_carry():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(agc_mode="parallel"), "item 6"),
+    # 'parallel' (item 6) is ported: `tests/test_torch_agc_parallel.py`
+    (dict(waterfall_enabled=True), "item 10b"),
 ])
 def test_agc_outside_the_slice_raises(over, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -2,7 +2,10 @@
 for bit with dither on (the Philox key is the state's ``(seed, step)``),
 in every tail form; and `afp_tpu`'s v1/v2 ``.npz`` restore the conv tail
 (f32, the bf16 pair, raw int16), the AGC gain, the parameters and the
-framer residuals bit for bit.  The JAX PRNG key has no Philox
+framer residuals bit for bit; with the multirate slice also the ASRC
+frontend mid-buffer (its accumulators, resampler history and queued
+blocks) and the compat ASRC's and the literal chain's resampler
+histories, in both layouts.  The JAX PRNG key has no Philox
 counterpart, so a restore across packages re-keys the dither from the
 checkpoint's seed at step 0: after it the two packages are compared with
 dither off, within the conv class.  Each test states its bound and prints
@@ -184,7 +187,7 @@ def test_unknown_versions_refused(tmp_path):
     save_checkpoint(path, eng)
     with np.load(path) as z:
         arrays = dict(z)
-    for fmt, version in (("afp_tpu_torch", 2), (None, 3)):
+    for fmt, version in (("afp_tpu_torch", 3), (None, 3)):
         meta = json.loads(bytes(arrays["meta_json"]).decode())
         meta["version"] = version
         if fmt is None:
@@ -193,3 +196,119 @@ def test_unknown_versions_refused(tmp_path):
         np.savez(path, **arrays)
         with pytest.raises(ValueError, match="unsupported"):
             load_checkpoint(path, device="cpu")
+
+
+#: the multirate state: the exact frontend (48 → 44.1 kHz), the compat
+#: ASRC's streaming resampler (88.2 → 44.1 kHz) and the literal chain's
+#: up and down resamplers ('fft' strategy)
+MULTIRATE = {
+    "frontend": dict(samplerate=44100, source_samplerate=48000,
+                     conv_strategy="fft"),
+    "frontend-agc": dict(samplerate=44100, source_samplerate=48000,
+                         conv_strategy="fft", **AGC),
+    "compat": dict(samplerate=44100, source_samplerate=88200,
+                   asrc_mode="compat", conv_strategy="fft"),
+    "literal": dict(samplerate=44100, fuse_rate_conversion=False,
+                    downsample_mode="resample", conv_strategy="fft"),
+}
+
+
+def feed(eng, x, sizes):
+    """Push ragged source chunks through the engine's own surface: the
+    frontend under exact ASRC, else the framer."""
+    outs = []
+    for c in chunks(x, sizes):
+        if eng._asrc_frontend is not None:
+            outs += eng.drain_source_blocks(c)
+        else:
+            outs.append(eng.process_frames(c))
+    return np.concatenate(outs, 1) if outs else np.zeros((x.shape[0], 0))
+
+
+@pytest.mark.parametrize("case", list(MULTIRATE))
+def test_port_checkpoint_multirate_resumes_bit_for_bit(tmp_path, case):
+    """A checkpoint taken with the frontend holding data (a residual
+    super-block, converted samples short of a block, and queued blocks)
+    or with resampler histories in flight resumes ≡ the uninterrupted
+    stream, bit for bit, TPDF dither on."""
+    cfg = StreamConfig(**{**BASE, **MULTIRATE[case], "dither_kind": "tpdf"})
+    x = signal({}, 30 * 256, seed=11)
+    eng = StreamEngine(cfg, device="cpu", seed=5)
+    feed(eng, x[:, :5000], (1000, 4000))
+    if case.startswith("frontend"):
+        front = eng._asrc_frontend
+        assert front._in.shape[1] and front.available()
+        eng._asrc_outq.append(np.full((4, 256), 0.25, np.float32))
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, eng)
+    resumed = load_checkpoint(path, device="cpu")
+    st = resumed.state
+    for r in ("asrc", "up", "down"):
+        a, b = getattr(eng.state, r), getattr(st, r)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a.hist, b.hist))
+    if case.startswith("frontend"):
+        for k, v in eng._asrc_frontend.get_state().items():
+            np.testing.assert_array_equal(resumed._asrc_frontend.get_state()[k], v)
+        assert len(resumed._asrc_outq) == 1
+    want = feed(eng, x[:, 5000:], (7, 1500, 1100))
+    got = feed(resumed, x[:, 5000:], (7, 1500, 1100))
+    assert want.shape[1] > 0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", list(MULTIRATE))
+def test_reference_checkpoint_multirate_restores(tmp_path, case):
+    """`afp_tpu`'s checkpoint of the same multirate stream: the port
+    restores the conv tail, the AGC gain, the resampler histories (each
+    `PolyResampler` flattened to (hist, h)) and the frontend's arrays bit
+    for bit, and the two streams go on within the 'fft' and AGC chain
+    contract (dither off)."""
+    kw = {**BASE, **MULTIRATE[case], "dither_kind": "off"}
+    jeng = JEngine(JConfig(**kw), seed=3)
+    x = signal({}, 60 * 256, seed=12)
+    feed(jeng, x[:, :5000], (1000, 4000))
+    path = str(tmp_path / "ref.npz")
+    jsave(path, jeng)
+    eng = load_checkpoint(path, device="cpu")
+    st, jst = eng.state, jeng.state
+    n = np.asarray(jst.conv_tail).shape[1]
+    np.testing.assert_array_equal(st.conv_tail.numpy()[:, -n:],
+                                  np.asarray(jst.conv_tail))
+    for r in ("asrc", "up", "down"):
+        ours, ref = getattr(st, r), getattr(jst, r)
+        assert (ours is None) == (ref is None), r
+        if ours is not None:
+            np.testing.assert_array_equal(ours.hist.numpy(), np.asarray(ref.hist))
+            np.testing.assert_array_equal(ours.h.numpy(), np.asarray(ref.h))
+    if case.startswith("frontend"):
+        held = jeng._asrc_frontend.get_state()
+        assert held["asrc_in"].shape[1] and held["asrc_out"].shape[1]  # mid-buffer
+        for k, v in held.items():
+            np.testing.assert_array_equal(eng._asrc_frontend.get_state()[k], v)
+    if kw.get("agc_enabled"):
+        np.testing.assert_array_equal(st.agc_gain.numpy(), np.asarray(jst.agc_gain))
+    got = feed(eng, x[:, 5000:], (3000, 7360))
+    ref = np.asarray(feed(jeng, x[:, 5000:], (3000, 7360)))
+    db = err_db(got, ref)
+    print(f"{case}: resumed vs afp_tpu {db:.1f} dB (bound {AGC_DB})")
+    assert got.shape == ref.shape and db <= AGC_DB
+
+
+def test_version_1_port_checkpoint_loads(tmp_path):
+    """A file of the port's first layout (no resamplers, no frontend)
+    still loads."""
+    eng = StreamEngine(StreamConfig(**{**BASE, "dither_kind": "tpdf"}),
+                       device="cpu", seed=2)
+    x = signal({}, 4 * 256, seed=13)
+    eng.process_block(x[:, :256])
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, eng)
+    with np.load(path) as z:
+        arrays = dict(z)
+    meta = json.loads(bytes(arrays["meta_json"]).decode())
+    meta["version"] = 1
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(path, **arrays)
+    resumed = load_checkpoint(path, device="cpu")
+    np.testing.assert_array_equal(resumed.process_block(x[:, 256:512]),
+                                  eng.process_block(x[:, 256:512]))

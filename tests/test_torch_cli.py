@@ -4,13 +4,17 @@ WAVs through both packages, dither off; `batch` ≡ `process` and `stream
 --lockstep` ≡ `process` inside the port, bit for bit; stream checkpoints
 resumed bit for bit with dither on; presets written byte for byte as the
 reference writes them; the unported flags raise naming their ROADMAP.md
-item; and with no card and no switch the CLI exits non-zero.
+item; and with no card and no switch the CLI exits non-zero.  The
+multirate flags: ``--samplerate`` (the exact ASRC frontend) and
+``--output-rate upsampled`` (the literal chain) against `afp_tpu`, `batch`
+≡ `process` and the lockstep ASRC stream ≡ `process` inside the port.
 
 Bounds against `afp_tpu`: int16 output within 1 LSB (a conv difference of
 the bf16×3 class can flip a rounding tie); 24-bit output within the
 contract of its path, 'fft' ≤ −100 dB (two FFT libraries: a few 24-bit
-LSB) and the AGC chain ≤ −100 dB (`tests/test_torch_agc_pipeline.py`);
-each test prints the measured value."""
+LSB; through the ASRC's 2^20-point FFTs a few tens) and the AGC chain
+≤ −100 dB (`tests/test_torch_agc_pipeline.py`); each test prints the
+measured value."""
 import json
 import os
 import subprocess
@@ -191,12 +195,9 @@ def test_unported_flags_raise_naming_their_item(tmp_path):
     cases = [
         (["process", src, out, "--mesh", "2"], "item 11"),
         (["batch", src, "-o", str(tmp_path / "b"), "--mesh", "4"], "item 11"),
-        (["process", src, out, "--samplerate", "48000"], "item 10"),
-        (["stream", src, "--samplerate", "48000", "--lockstep"], "item 10"),
-        (["process", src, out, "--output-rate", "upsampled"], "item 10"),
-        (["process", src, out, "--spectrum-plot", "s.png"], "item 10"),
-        (["process", src, out, "--waterfall-plot", "w.png"], "item 10"),
-        (["stream", src, "--lockstep", "--spectrum-plot", "s.png"], "item 10"),
+        (["process", src, out, "--spectrum-plot", "s.png"], "item 10b"),
+        (["process", src, out, "--waterfall-plot", "w.png"], "item 10b"),
+        (["stream", src, "--lockstep", "--spectrum-plot", "s.png"], "item 10b"),
         (["design", "--plot", "r.png"], "item 12b"),
     ]
     for argv, item in cases:
@@ -264,3 +265,110 @@ def test_design_taps_equal_reference(tmp_path):
     assert main([*argv, "--taps-out", ours]) == 0
     assert jmain([*argv, "--taps-out", ref]) == 0
     assert Path(ours).read_bytes() == Path(ref).read_bytes()
+
+
+# ---------------------------------------------------------------- multirate
+
+#: the 48 kHz file into the 44.1 kHz engine (the everyday ASRC case)
+SR_FLAGS = ["--samplerate", "44100", *FLAGS]
+
+
+def wav48(path, n: int, seed: int, ch: int = 2) -> str:
+    rng = np.random.default_rng(seed)
+    write_wav(str(path), np.clip(0.3 * rng.standard_normal((ch, n)), -1, 1),
+              48000, width=3)
+    return str(path)
+
+
+@pytest.mark.parametrize("form", ["fft", "agc-link"])
+def test_process_samplerate_matches_reference(tmp_path, form):
+    """--samplerate 44100 of a 48 kHz file: the exact ASRC frontend, the
+    output ceil(n·44100/48000) samples at 44.1 kHz, ≡ `afp_tpu`'s within
+    the path's contract."""
+    n = 9000
+    src = wav48(tmp_path / "in.wav", n, seed=20)
+    a, b = str(tmp_path / "a.wav"), str(tmp_path / "b.wav")
+    flags = SR_FLAGS + FORMS[form]
+    assert main(["process", src, a] + flags) == 0
+    assert jmain(["process", src, b] + flags) == 0
+    got, rate = read_wav(a)
+    assert rate == 44100 and got.shape == (2, -(-n * 44100 // 48000))
+    compare(form, got, read_wav(b)[0], f"process --samplerate 44100 {form}")
+
+
+def test_process_output_rate_upsampled_matches_reference(tmp_path):
+    """--output-rate upsampled: twice the samples at 88.2 kHz, ≡ `afp_tpu`'s."""
+    src = wav(tmp_path / "in.wav", "fft", 3000, seed=21)
+    a, b = str(tmp_path / "a.wav"), str(tmp_path / "b.wav")
+    flags = FLAGS + ["--output-rate", "upsampled"]
+    assert main(["process", src, a] + flags) == 0
+    assert jmain(["process", src, b] + flags) == 0
+    got, rate = read_wav(a)
+    assert rate == 88200 and got.shape == (2, 6000)
+    compare("fft", got, read_wav(b)[0], "process --output-rate upsampled")
+
+
+def test_batch_samplerate_equals_process(tmp_path):
+    """batch --samplerate: each file ≡ process of it alone within one 24-bit
+    LSB: torch's CPU FFT rounds a 2^20-point row (the frontend's) in a
+    batch of 6 rows differently from one in a batch of 2 (the card's run
+    is held bit for bit by `chip_smoke.py` phase 9)."""
+    srcs = [wav48(tmp_path / f"f{i}.wav", 5000 + 700 * i, seed=30 + i)
+            for i in range(3)]
+    assert main(["batch", *srcs, "-o", str(tmp_path / "out")] + SR_FLAGS) == 0
+    for i, src in enumerate(srcs):
+        one = str(tmp_path / "one.wav")
+        assert main(["process", src, one] + SR_FLAGS) == 0
+        got, rate = read_wav(str(tmp_path / "out" / f"f{i}.wav"))
+        assert rate == 44100 and got.shape[1] == -(-(5000 + 700 * i) * 44100 // 48000)
+        lsb = np.abs(got.astype(np.float64) - read_wav(one)[0]).max() * 2 ** 23
+        print(f"batch --samplerate file {i}: {lsb:.0f} 24-bit LSB from process")
+        assert lsb <= 1
+
+
+def test_stream_lockstep_samplerate_equals_process(tmp_path, capsys):
+    """stream --lockstep with --samplerate: the synchronous drain emits a
+    block exactly when a whole converted block exists (no underrun, no
+    silence, no drop), and the capture ≡ the whole-block prefix of
+    `process` (the linked AGC: neither side folds), bit for bit."""
+    n = 16 * 512
+    src = wav48(tmp_path / "in.wav", n, seed=22)
+    cap, ref = str(tmp_path / "cap.wav"), str(tmp_path / "ref.wav")
+    flags = SR_FLAGS + FORMS["agc-link"]
+    assert main(["stream", src, "-o", cap, "--lockstep"] + flags) == 0
+    snap = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert snap["underruns"] == 0 and snap["fallback_silence"] == 0
+    assert snap["drops"] == 0 and snap["fallback_replays"] == 0
+    assert main(["process", src, ref] + flags) == 0
+    y, rate = read_wav(cap)
+    z = read_wav(ref)[0]
+    print(f"lockstep ASRC capture: {y.shape[1]} of {z.shape[1]} samples")
+    assert rate == 44100 and y.shape[1] % 512 == 0 and 0 < y.shape[1] < z.shape[1]
+    np.testing.assert_array_equal(y, z[:, :y.shape[1]])
+
+
+def test_stream_output_rate_upsampled_equals_process(tmp_path, capsys):
+    src = wav(tmp_path / "in.wav", "fft", 2500, seed=23)
+    cap, ref = str(tmp_path / "cap.wav"), str(tmp_path / "ref.wav")
+    flags = FLAGS + ["--output-rate", "upsampled"] + FORMS["agc-link"]
+    assert main(["stream", src, "-o", cap, "--lockstep"] + flags) == 0
+    snap = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert snap["blocks"] == 5 and snap["fallback_silence"] == 0
+    assert main(["process", src, ref] + flags) == 0
+    y, rate = read_wav(cap)
+    assert rate == 88200 and y.shape == (2, 5000)
+    np.testing.assert_array_equal(y, read_wav(ref)[0])
+
+
+def test_multirate_refusals(tmp_path):
+    """The reference's refusals: pcm16 with rate conversion or upsampled
+    output; --audio with upsampled output."""
+    src = wav(tmp_path / "in.wav", "pcm16-io", 2048, seed=24)
+    out = str(tmp_path / "o.wav")
+    for extra, msg in ((["--samplerate", "48000"], "rate conversion"),
+                       (["--output-rate", "upsampled"], "upsampled")):
+        with pytest.raises(SystemExit, match=msg):
+            main(["process", src, out, "--ingest", "pcm16"] + extra + FLAGS)
+    with pytest.raises(SystemExit, match="upsampled"):
+        main(["stream", "--audio", "--output-rate", "upsampled", "--blocks", "1"])
+    assert not os.path.exists(out)

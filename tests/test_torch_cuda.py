@@ -30,7 +30,12 @@ unaligned views (the 4-byte paths), a silent and a near-silent row, and
 the first step at, above and below the start value; and for the CLI
 slice, `process_frames` with pinned staging ≡ a Pipeline fed pageable
 blocks, the chunked upload ≡ one shot, a checkpoint round trip on the
-card, and `python -m afp_tpu_torch devices`.
+card, and `python -m afp_tpu_torch devices`; and for the multirate
+slice, `upfirdn`, `resample_poly` and `PolyResampler` on the card ≡ the
+CPU's (cuFFT against torch's CPU FFT, ≤ −100 dB) at every ratio, the
+literal chain and the compat ASRC on the card ≡ their CPU runs, the
+exact frontend on the card chunked ≡ one shot bit for bit, and the
+'parallel' AGC route on the card ≡ the exact route.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -1123,3 +1128,99 @@ def test_cli_devices_lists_the_card(dev):
     print(r.stdout, r.stderr[-2000:])
     assert r.returncode == 0
     assert torch.cuda.get_device_name(0) in r.stdout
+
+
+# ---------------------------------------------------------------- multirate
+
+MULTI_DB = -100.0  # cuFFT against torch's CPU FFT: two f32 FFT libraries
+
+
+@pytest.mark.parametrize("up,down", [(4, 1), (2, 1), (3, 2), (1, 2), (1, 4),
+                                     (160, 147), (147, 160)])
+def test_resampling_on_the_card_equals_cpu(dev, up, down):
+    """upfirdn, resample_poly and a blocked PolyResampler on the card ≡
+    their CPU runs (≤ −100 dB); blocked ≡ one-shot causal upfirdn."""
+    from afp_tpu_torch.ops import resample as T
+
+    dn = T._reduce_ratio(up, down)[1]
+    L = dn * -(-1024 // dn)  # a block of whole decimation periods
+    g = torch.Generator().manual_seed(up * 1000 + down)
+    x = torch.randn(3, 4 * L, generator=g) * 0.3
+    h = T.quality_kernel(up, down, "hq")
+    for fn in (lambda v: T.upfirdn(h, v, up, down),
+               lambda v: T.resample_poly(v, up, down, quality="hq")):
+        e = err_db(fn(x.to(dev)), fn(x))
+        print(f"{up}/{down}: card vs CPU {e:.1f} dB")
+        assert e <= MULTI_DB
+    st = T.PolyResampler.init(up, down, block=L, batch_shape=(3,), device=dev)
+    outs = []
+    for i in range(0, x.shape[1], L):
+        st, y = st.process(x[:, i:i + L].to(dev))
+        outs.append(y)
+    blocked = torch.cat(outs, -1)
+    causal = T.upfirdn(st.h.cpu(), x, st.up, st.down)[:, :blocked.shape[-1]]
+    assert blocked.is_cuda and err_db(blocked, causal) <= MULTI_DB
+
+
+@pytest.mark.parametrize("over", [
+    dict(fuse_rate_conversion=False, downsample_mode="resample"),
+    dict(fuse_rate_conversion=False, downsample_mode="decimate", upsample_factor=4),
+    dict(output_rate="upsampled", eq_enabled=True),
+    dict(source_samplerate=48000, asrc_mode="compat"),
+    dict(source_samplerate=88200, asrc_mode="compat", conv_strategy="td_mxu"),
+    dict(agc_enabled=True, agc_mode="parallel", agc_window_size=128,
+         conv_strategy="td_mxu"),
+])
+def test_multirate_pipeline_on_the_card_equals_cpu(dev, over):
+    """The literal chain, upsampled output, compat ASRC (both submodes)
+    and the parallel AGC on the card ≡ their CPU runs (≤ −100 dB, dither
+    off)."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+
+    cfg = StreamConfig(**{**dict(samplerate=44100, blocksize=512,
+                                 upsample_factor=2, numtaps=65, batch=6,
+                                 dither_kind="off"), **over})
+    x = torch.randn(6, 6 * 512, generator=torch.Generator().manual_seed(5)) * 0.3
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        p = Pipeline(cfg, d)
+        params = p.device_params(PipelineParams.design(p.cfg))
+        outs.append(p.process_signal(params, p.init_state(), x.to(d))[1])
+    e = err_db(*outs)
+    print(f"{over}: card vs CPU {e:.1f} dB")
+    assert outs[0].is_cuda and outs[0].shape == outs[1].shape and e <= MULTI_DB
+
+
+def test_frontend_on_the_card_chunked_equals_one_shot(dev):
+    """The exact frontend's resampler on the card: any chunking of the
+    pushes ≡ one push, bit for bit; ≡ the CPU frontend within −100 dB."""
+    from afp_tpu_torch.runtime import AsrcFrontend
+
+    x = (np.random.default_rng(6).standard_normal((2, 40000)) * 0.3).astype(np.float32)
+    outs = []
+    for d, sizes in ((dev, [40000]), (dev, [1, 4159, 1, 9000, 333]),
+                     ("cpu", [40000])):
+        front, i = AsrcFrontend(48000, 44100, batch=2, device=d), 0
+        for n in sizes:
+            front.push(x[:, i:i + n])
+            i += n
+        front.push(x[:, i:])
+        outs.append(front.flush())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    e = err_db(torch.from_numpy(outs[0]), torch.from_numpy(outs[2]))
+    print(f"frontend card vs CPU: {e:.1f} dB")
+    assert e <= MULTI_DB
+
+
+def test_parallel_agc_on_the_card_equals_exact(dev):
+    """smooth_gain_parallel on the card ≡ the exact recurrence within
+    −105 dB (the reference's bar), in at most 24 solves."""
+    d = A.desired_gain(A.moving_rms(
+        torch.randn(64, 2048, generator=torch.Generator().manual_seed(7)) * 0.3,
+        512), 0.1, 10.0)
+    a_att, a_rel = A.agc_alphas(512)
+    g, it, _ = A._smooth_gain_parallel(d.to(dev), a_att, a_rel,
+                                       init=torch.ones(64, device=dev))
+    e = err_db(g, A.smooth_gain_scan(d, a_att, a_rel, init=torch.ones(64)))
+    print(f"parallel on the card: {it} solves, {e:.1f} dB vs exact")
+    assert g.is_cuda and it <= 24 and e < -105

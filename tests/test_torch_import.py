@@ -1,7 +1,9 @@
 """The port imports no jax and nothing of `afp_tpu`: in a fresh interpreter
 whose import system refuses both, the package, its subpackages and every
-module of the CLI slice import, and a small pipeline, with and without
-AGC, and a short `stream` through the CLI run end to end on the CPU."""
+module of the CLI and multirate slices import, and a small pipeline, with
+and without AGC, a short `stream` through the CLI, and the multirate
+paths (the ASRC, the literal chain, the parallel AGC, ``--samplerate``)
+run end to end on the CPU."""
 import subprocess
 import sys
 from pathlib import Path
@@ -47,6 +49,34 @@ assert main(["stream", "--tone", "440", "--blocks", "3", "--lockstep",
              "--blocksize", "256", "--numtaps", "33", "--agc"]) == 0
 """
 
+#: the multirate slice: the exact ASRC frontend, compat ASRC, the literal
+#: chain with upsampled output, the parallel AGC, and the CLI's
+#: --samplerate
+_RUN_MULTIRATE = """
+import numpy as np
+from afp_tpu_torch.engine import StreamConfig, StreamEngine
+for over, n_out in ((dict(source_samplerate=48000), None),
+                    (dict(source_samplerate=88200, asrc_mode="compat"), 256),
+                    (dict(output_rate="upsampled"), 512),
+                    (dict(agc_enabled=True, agc_mode="parallel",
+                          agc_window_size=128), 256)):
+    eng = StreamEngine(StreamConfig(blocksize=256, batch=2, numtaps=31,
+                                    **over), device="cpu")
+    out = eng.process_signal(np.full((2, 8192), 0.1, np.float32))
+    assert out.shape[1] > 0 and eng.metrics.underruns == 0
+    if n_out:
+        assert out.shape[1] == 32 * n_out
+import os, tempfile
+os.environ["AFP_FORCE_CPU"] = "1"
+from afp_tpu_torch.cli import main
+from afp_tpu_torch.utils import read_wav, write_wav
+d = tempfile.mkdtemp()
+write_wav(d + "/in.wav", np.full((1, 4800), 0.1, np.float32), 48000)
+assert main(["process", d + "/in.wav", d + "/out.wav", "--samplerate",
+             "44100", "--blocksize", "256", "--numtaps", "33"]) == 0
+assert read_wav(d + "/out.wav")[0].shape == (1, 4410)
+"""
+
 
 def _probe(mods, extra=""):
     return subprocess.run(
@@ -64,8 +94,12 @@ def _probe(mods, extra=""):
       "afp_tpu_torch.engine.checkpoint", "afp_tpu_torch.runtime.devices",
       "afp_tpu_torch.runtime.framer", "afp_tpu_torch.runtime.host",
       "afp_tpu_torch.runtime.dispatcher", "afp_tpu_torch.runtime.audio",
-      "afp_tpu_torch.cli", "afp_tpu_torch.__main__"], ""),
-    (["afp_tpu_torch.engine"], _RUN)], ids=["import", "run"])
+      "afp_tpu_torch.cli", "afp_tpu_torch.__main__",
+      "afp_tpu_torch.ops.resample", "afp_tpu_torch.ops.convolve",
+      "afp_tpu_torch.runtime.asrc"], ""),
+    (["afp_tpu_torch.engine"], _RUN),
+    (["afp_tpu_torch.engine"], _RUN_MULTIRATE)],
+    ids=["import", "run", "multirate"])
 def test_imports_without_jax(mods, extra):
     r = _probe(mods, extra)
     print(r.stdout, r.stderr[-2000:])

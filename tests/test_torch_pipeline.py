@@ -240,14 +240,25 @@ def test_dither_seeded_and_bounded():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(agc_enabled=True, agc_mode="parallel"), "item 6"),
-    (dict(waterfall_enabled=True), "item 10"),
-    (dict(source_samplerate=48000), "item 5"),
-    (dict(fuse_rate_conversion=False), "item 10"),
-    (dict(output_rate="upsampled"), "item 10")])
+    (dict(waterfall_enabled=True), "item 10b")])
 def test_outside_the_slice_raises(over, item):
     with pytest.raises(NotImplementedError, match=item):
         Pipeline(StreamConfig(**over), "cpu")
+
+
+@pytest.mark.parametrize("over", [
+    dict(agc_enabled=True, agc_mode="parallel"),
+    dict(source_samplerate=48000, asrc_mode="compat"),
+    dict(fuse_rate_conversion=False),
+    dict(output_rate="upsampled")])
+def test_rule3_configs_build_and_step(over):
+    """The configurations that raised before the multirate slice build on
+    the CPU and step a block of the right shape (their numbers are held
+    to `afp_tpu` in `tests/test_torch_resample.py` and
+    `test_torch_asrc.py`)."""
+    p, params = port(StreamConfig(blocksize=256, numtaps=31, batch=2, **over))
+    _, y = p.step(params, p.init_state(), signal(2, 256))
+    assert y.shape == (2, p.out_block) and torch.isfinite(y).all()
 
 
 def test_fold_and_per_stream_raise():

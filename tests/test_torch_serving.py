@@ -146,7 +146,7 @@ def test_ring_server_serve_and_reconfig():
     (dict(max_inflight=0), ValueError, "max_inflight"),
     (dict(slots=8, chunk=4, max_inflight=2), ValueError, "undrained"),
     (dict(spectrum_row=9), ValueError, "spectrum_row"),
-    (dict(spectrum_every=4), NotImplementedError, "item 4"),
+    (dict(spectrum_every=4), NotImplementedError, "item 10b"),
     (dict(packing=object()), ValueError, "packing must be a StreamPacking")])
 def test_ring_server_validation(kw, err, match):
     p, params = port()
