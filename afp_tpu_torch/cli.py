@@ -29,10 +29,13 @@ whenever a whole converted block exists.  ``--output-rate upsampled``
 keeps the literal multirate chain's high-rate output and writes the WAV at
 ``samplerate·upsample``.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-§1 item, with no fallback: ``--mesh N > 1`` (item 11), ``--spectrum-plot``,
-``--waterfall-plot`` and ``design --plot`` (items 10b and 12b: the
-spectrum and `viz/`).
+``process --spectrum-plot`` and ``--waterfall-plot`` (and ``stream``'s,
+over the captured output) draw the output's spectra, taken on the
+command's device (:func:`viz_arrays`); ``design --plot`` draws the
+response.  The plots need matplotlib.
+
+Not ported yet: ``--mesh N > 1`` raises NotImplementedError naming ROADMAP.md
+§1 item 11, with no fallback.
 """
 from __future__ import annotations
 
@@ -42,35 +45,17 @@ import sys
 
 import numpy as np
 
-from .engine.pipeline import _not_in_slice
+from .runtime.devices import torch_device
 
-__all__ = ["main"]
-
-
-def _device() -> str:
-    """The torch device every command runs on: the card, or the CPU under
-    ``AFP_FORCE_CPU``.  No card and no switch is an error."""
-    if os.environ.get("AFP_FORCE_CPU"):
-        return "cpu"
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("afp_tpu_torch: no CUDA device (torch.cuda."
-                         "is_available() is False); set AFP_FORCE_CPU=1 to "
-                         "run on the CPU")
-    return "cuda"
+__all__ = ["main", "viz_arrays"]
 
 
 def _refuse_unported(args) -> None:
     """Raise for the flags whose path is not ported yet, before any work."""
     if getattr(args, "mesh", 1) > 1:
-        raise _not_in_slice(f"--mesh {args.mesh} (stream DP over several "
-                            "cards)", "11 (parallel)")
-    for flag in ("spectrum_plot", "waterfall_plot"):
-        if getattr(args, flag, None):
-            raise _not_in_slice(f"--{flag.replace('_', '-')} (the spectrum "
-                                "and its plots)", "10b (ops/spectrum.py) and "
-                                "12b (viz/)")
+        raise NotImplementedError(
+            f"--mesh {args.mesh} (stream DP over several cards) is not "
+            "ported yet: ROADMAP.md §1 item 11 (parallel)")
 
 
 def _add_config_args(ap: argparse.ArgumentParser) -> None:
@@ -264,6 +249,67 @@ def _write_out(path: str, out: np.ndarray, cfg) -> None:
         write_wav(path, out, rate, width=3)
 
 
+def viz_arrays(out: np.ndarray, cfg, device="cpu") -> dict:
+    """The arrays ``--spectrum-plot`` and ``--waterfall-plot`` draw, from the
+    processed output's first channel cut into engine blocks (blocksize·upf
+    samples at the upsampled rate under upsampled output), its spectra
+    taken on `device` (`afp_tpu/cli.py:298-351`):
+
+    * ``freqs`` [n_bins] Hz, ``block_seconds``;
+    * ``mean_db`` [n_bins]: the power mean over EVERY block (a dB mean
+      would bias toward quiet blocks);
+    * ``ring`` [50, n_bins]: the last ≤ 50 block spectra, newest last,
+      primed with −200 dB (the waterfall ring's layout).
+
+    int16 output is dequantized ``n/32768`` first."""
+    import torch
+
+    from .ops.spectrum import WATERFALL_DEPTH, spectrum_db, spectrum_freqs
+
+    y = np.asarray(out[0], dtype=np.float32)
+    if out.dtype == np.int16:
+        y = y / np.float32(32768.0)
+    L = (cfg.upsampled_block if cfg.output_rate == "upsampled"
+         else cfg.blocksize)
+    out_rate = _out_rate(cfg)
+    if y.shape[-1] < L:
+        y = np.pad(y, (0, L - y.shape[-1]))
+    nb = y.shape[-1] // L
+    db = spectrum_db(torch.as_tensor(y[: nb * L].reshape(nb, L),
+                                     device=device)).cpu().numpy()
+    ring = np.full((WATERFALL_DEPTH, db.shape[-1]), -200.0, np.float32)
+    tail = db[-WATERFALL_DEPTH:]
+    ring[WATERFALL_DEPTH - tail.shape[0]:] = tail
+    return {"freqs": spectrum_freqs(L, float(out_rate)),
+            "block_seconds": L / float(out_rate),
+            "mean_db": 10.0 * np.log10(np.mean(10.0 ** (db / 10.0), axis=0)
+                                       + 1e-30),
+            "ring": ring}
+
+
+def _viz_outputs(args, out: np.ndarray, cfg, taps) -> None:
+    """--spectrum-plot / --waterfall-plot: the reference GUIs' observation
+    surfaces (`stream_process_EQ_GUI.py:395-411` spectrum overlay,
+    `stream_process_GUI_Waterfall.py:312-339` 3-D history) rendered offline
+    from :func:`viz_arrays` over the main kernel's response `taps`."""
+    sp = getattr(args, "spectrum_plot", None)
+    wf = getattr(args, "waterfall_plot", None)
+    if not (sp or wf):
+        return
+    from .viz import plot_filter_response, plot_waterfall
+
+    a = viz_arrays(out, cfg, args.torch_device)
+    if sp:
+        plot_filter_response(taps, fs=cfg.upsampled_rate,
+                             filter_type=cfg.filter_type, save_path=sp,
+                             spectrum=(a["freqs"], a["mean_db"]))
+        print(f"spectrum plot: {sp}", file=sys.stderr)
+    if wf:
+        plot_waterfall(a["ring"], a["freqs"],
+                       block_seconds=a["block_seconds"], save_path=wf)
+        print(f"waterfall plot: {wf}", file=sys.stderr)
+
+
 def cmd_process(args) -> int:
     from .utils import read_wav, read_wav_pcm16
 
@@ -276,6 +322,7 @@ def cmd_process(args) -> int:
                      link_group=x.shape[0])
     out, engine = _process_rows(args, cfg, x, rate)
     _write_out(args.output, out, cfg)
+    _viz_outputs(args, out, cfg, engine.design.main_taps)
     print(f"{args.input} → {args.output}: {x.shape[0]} ch × {x.shape[1]} "
           f"samples, xRT(busy) {engine.metrics.xrt_busy(cfg.samplerate):,.0f}",
           file=sys.stderr)
@@ -563,7 +610,8 @@ def cmd_stream(args) -> int:
             late_seconds=args.fault_late_ms / 1000.0,
             corrupt_every=args.fault_corrupt or None)
 
-    captured = [] if args.output else None
+    captured = [] if (args.output or args.spectrum_plot
+                      or args.waterfall_plot) else None
     sink = captured.append if captured is not None else None
     stream = SimulatedStream(engine, source, sink=sink, faults=faults,
                              realtime=not args.lockstep)
@@ -577,9 +625,11 @@ def cmd_stream(args) -> int:
         if (nb_file is not None and not args.loop
                 and cfg.source_samplerate is None and n_blocks == nb_file):
             out = out[:, :_out_samples(cfg, n_in, rate)]
-        _write_out(args.output, out, cfg)
-        print(f"captured {out.shape[1]} samples × {out.shape[0]} ch "
-              f"→ {args.output}", file=sys.stderr)
+        if args.output:
+            _write_out(args.output, out, cfg)
+            print(f"captured {out.shape[1]} samples × {out.shape[0]} ch "
+                  f"→ {args.output}", file=sys.stderr)
+        _viz_outputs(args, out, cfg, engine.design.main_taps)
     if args.checkpoint_out:
         from .engine.checkpoint import save_checkpoint
 
@@ -633,9 +683,6 @@ def cmd_devices(args) -> int:
 def cmd_design(args) -> int:
     from .design import create_fir_filter
 
-    if args.plot:
-        raise _not_in_slice("design --plot (the response plot)",
-                            "12b (viz/), with item 10b's freqz")
     cutoff = (
         [args.cutoff, args.cutoff_high]
         if args.filter_type in ("bandpass", "bandstop")
@@ -646,6 +693,12 @@ def cmd_design(args) -> int:
         window_type=args.window, filter_type=args.filter_type,
         samplerate=(args.samplerate or 44100) * args.upsample,
     )
+    if args.plot:
+        from .viz import plot_filter_response
+
+        plot_filter_response(h, fs=(args.samplerate or 44100) * args.upsample,
+                             filter_type=args.filter_type, save_path=args.plot)
+        print(f"plot: {args.plot}", file=sys.stderr)
     np.savetxt(args.taps_out, h) if args.taps_out else print(h)
     return 0
 
@@ -666,9 +719,12 @@ def main(argv=None) -> int:
     p.add_argument("--preset-store", default="presets.json",
                    help="preset JSON file (default: ./presets.json)")
     p.add_argument("--spectrum-plot", default=None, metavar="PNG",
-                   help="response + output spectrum plot (not ported yet)")
+                   help="save the filter response with the processed "
+                        "output's spectrum overlaid (the GUI's observation "
+                        "surface, offline)")
     p.add_argument("--waterfall-plot", default=None, metavar="PNG",
-                   help="3-D waterfall of the output (not ported yet)")
+                   help="save the 3-D waterfall of the output's last 50 "
+                        "block spectra (the waterfall GUI, offline)")
     p.set_defaults(fn=cmd_process)
 
     b = sub.add_parser(
@@ -738,11 +794,9 @@ def main(argv=None) -> int:
     st.add_argument("--skip-blocks", type=int, default=0, metavar="K",
                     help="start the input WAV K engine blocks in")
     st.add_argument("--spectrum-plot", default=None, metavar="PNG",
-                    help="response + captured-output spectrum (not ported "
-                         "yet)")
+                    help="save the response + captured-output spectrum")
     st.add_argument("--waterfall-plot", default=None, metavar="PNG",
-                    help="the captured output's 3-D waterfall (not ported "
-                         "yet)")
+                    help="save the captured output's 3-D waterfall")
     st.set_defaults(fn=cmd_stream)
 
     pr = sub.add_parser(
@@ -759,13 +813,12 @@ def main(argv=None) -> int:
 
     g = sub.add_parser("design", help="design a filter, print/save taps")
     _add_config_args(g)
-    g.add_argument("--plot", default=None,
-                   help="save response plot PNG (not ported yet)")
+    g.add_argument("--plot", default=None, help="save response plot PNG")
     g.add_argument("--taps-out", default=None, help="save taps to a text file")
     g.set_defaults(fn=cmd_design)
 
     args = ap.parse_args(argv)
-    args.torch_device = _device()
+    args.torch_device = torch_device("afp_tpu_torch")
     return args.fn(args)
 
 

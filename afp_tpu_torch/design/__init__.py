@@ -7,7 +7,7 @@ Covers the reference's design stack: `fir_filter.py` → `filter_methods.py` →
 """
 from .api import create_fir_filter, design_fir_filter, get_window, to_minimum_phase
 from .firwin import FILTER_TYPES, design_windowed_sinc
-from .freqz import freqz
+from .freqz import freqz, freqz_torch
 from .minphase import is_symmetric, minimum_phase, normalize_peak
 from .remez import RemezError, remez
 from .windows import WINDOW_NAMES
@@ -21,6 +21,7 @@ __all__ = [
     "design_windowed_sinc",
     "FILTER_TYPES",
     "freqz",
+    "freqz_torch",
     "minimum_phase",
     "is_symmetric",
     "normalize_peak",

@@ -5,7 +5,8 @@ A snapshot of a streaming job, so it can stop and resume mid-stream bit for
 bit: the config, the parameter bank (every `DeviceParams` field: complex64
 spectra, taps, gains, AGC knobs and banks), the carried state (conv tail,
 dither ``(seed, step)``, AGC gain, the input histories of the compat ASRC
-and the literal chain's ``up``/``down`` resamplers), the framer residuals
+and the literal chain's ``up``/``down`` resamplers, the waterfall ring),
+the framer residuals
 of `StreamEngine.process_frames` and the exact ASRC frontend's host
 accumulators, resampler history and undelivered engine blocks.  One
 ``.npz`` with the meta as embedded JSON.
@@ -24,8 +25,8 @@ It also reads `afp_tpu`'s v1/v2 ``.npz`` (positional pytree leaves of its
 ``asrc_in``/``asrc_out``/``asrc_hist``/``asrc_outq``,
 `afp_tpu/engine/checkpoint.py:39-159`).  The conv tail is converted pair ↔
 f32 where the layouts differ, as `afp_tpu` does (`:129-147`); the tail, the
-AGC gain, the resampler histories, the parameters, the framer residuals and
-the frontend restore bit for bit.  The JAX PRNG ``key`` has no Philox
+AGC gain, the resampler histories, the waterfall ring, the parameters, the
+framer residuals and the frontend restore bit for bit.  The JAX PRNG ``key`` has no Philox
 counterpart, so such a restore re-keys the dither from the checkpoint's
 seed at step 0: the same distribution, other bits.
 """
@@ -87,6 +88,8 @@ def save_checkpoint(path: str, engine: StreamEngine) -> None:
         for r in _RESAMPLERS:
             if getattr(state, r) is not None:
                 arrays[f"rs_{r}"] = _to_numpy(getattr(state, r).hist)
+        if state.wf is not None:
+            arrays["wf"] = _to_numpy(state.wf)
         names = [n for n in params._fields if getattr(params, n) is not None]
         for n in names:
             arrays[f"param_{n}"] = _to_numpy(getattr(params, n))
@@ -187,7 +190,8 @@ def load_checkpoint(path: str, device="cuda") -> StreamEngine:
             state = pipe.state_from_numpy(
                 tail, meta["state_seed"], meta["state_step"],
                 z["agc_gain"] if "agc_gain" in z else None,
-                {r: z[f"rs_{r}"] for r in _RESAMPLERS if f"rs_{r}" in z})
+                {r: z[f"rs_{r}"] for r in _RESAMPLERS if f"rs_{r}" in z},
+                z["wf"] if "wf" in z else None)
             params = pipe.params_from_numpy(
                 {n: z[f"param_{n}"] for n in meta["params"]})
         else:
@@ -204,11 +208,12 @@ def load_checkpoint(path: str, device="cuda") -> StreamEngine:
             # the leaves in StreamState order: the compat ASRC's and the
             # up resampler's (hist, h), the conv tail (a pair in conv-pair
             # mode), the down resampler's (hist, h), the AGC gain when on,
-            # and the JAX key, which has no Philox counterpart (the
-            # waterfall is refused when the engine is built)
+            # the JAX key, which has no Philox counterpart, and the
+            # waterfall ring when on (`afp_tpu/engine/checkpoint.py:49`)
             carried = list(engine.pipeline._resamplers())
             n_tail = 2 if meta.get("conv_pair") else 1
-            if len(st) != 2 * len(carried) + n_tail + cfg.agc_enabled + 1:
+            if len(st) != (2 * len(carried) + n_tail + cfg.agc_enabled + 1
+                           + cfg.waterfall_enabled):
                 raise ValueError(f"unexpected state leaves for this config: "
                                  f"{[tuple(a.shape) for a in st]}")
             hist = {}
@@ -220,7 +225,7 @@ def load_checkpoint(path: str, device="cuda") -> StreamEngine:
                 hist["down"], st = st[0], st[2:]
             state = engine.pipeline.state_from_numpy(
                 tail, meta["seed"], 0, st[0] if cfg.agc_enabled else None,
-                hist)
+                hist, st[-1] if cfg.waterfall_enabled else None)
             params = engine.pipeline.params_from_numpy(_reference_params(
                 cfg, [z[f"param_{i}"] for i in range(meta["n_param_leaves"])]))
         if meta.get("has_framer"):

@@ -37,7 +37,10 @@ blocks; :meth:`StreamEngine.process_source_block` returns a block when one
 is ready, :meth:`StreamEngine.drain_source_blocks` every block a push
 completes, and a full output queue drops the incoming block and counts it.
 
-Not in this slice: `waterfall_ring` (ROADMAP.md §1 item 10b).
+Under ``waterfall_enabled`` the state carries the waterfall ring on the
+device and :meth:`StreamEngine.waterfall_ring` fetches it.  Like the rest
+of the state, the ring stays that of the last good block on a ladder
+event, survives a dynamic `apply_config` and restarts primed on a rebuild.
 """
 from __future__ import annotations
 
@@ -387,6 +390,14 @@ class StreamEngine:
             return self._scale_out(self._last_good[-1], 0.8)
         self.metrics.fallback_silence += 1
         return np.zeros(self._out_shape, dtype=self._out_dtype)
+
+    def waterfall_ring(self) -> np.ndarray:
+        """The carried spectrum ring on the host, [batch, 50, n_bins] dB,
+        newest last (`afp_tpu/engine/engine.py:394-399`); ``ValueError``
+        without ``waterfall_enabled``."""
+        if self.state.wf is None:
+            raise ValueError("waterfall_enabled=False: no on-device ring")
+        return self.state.wf.cpu().numpy()
 
     def process_signal(self, signal: np.ndarray, fold="auto") -> np.ndarray:
         """Whole-signal convenience: [batch, T] → [batch, T''] (whole

@@ -129,9 +129,14 @@ torch ops clip and apply the gain; the conv reads the f32 result (K1 on
 None of these has a ring form or folds (`supports_ring_step`,
 `supports_fold`, `pipeline.py:1078, 1090-1091, 1604-1615`).
 
-Not in this slice: the scan-carried waterfall raises NotImplementedError
-naming its ROADMAP.md §1 item (`_check_slice`).  Nothing falls back to
-another path.
+The carried waterfall (``waterfall_enabled``, `pipeline.py:530-535,
+1027-1039`): the state carries ``wf`` [B, 50, n_bins], the dB spectra of
+the last 50 output blocks, newest last, primed with −200 dB.  Each
+:meth:`Pipeline.step` pushes `spectrum_db` (cuFFT on the card) of the
+block's final output, after the clip, the dither and the int16 store
+(int16 output dequantized ``n/32768``).  The push copies the ring into a
+new tensor, so the state passed in stays intact.  Neither the rings nor
+the fold carry it (`supports_ring_step`, `supports_fold`).
 """
 from __future__ import annotations
 
@@ -141,6 +146,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..design.windows import hann
 from ..ops.agc import AGCParams, link_desired, smooth_gain_parallel
 from ..ops.convolve import next_pow2
 from ..ops.cuda.agc_fused import agc_rms_apply, fused_rms_supported
@@ -158,6 +164,7 @@ from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_banked,
                                split_bf16)
 from ..ops.resample import (PolyResampler, decimate, resample_poly,
                             streaming_kernel)
+from ..ops.spectrum import spectrum_db, waterfall_init, waterfall_push
 from .config import PipelineParams, StreamConfig
 
 __all__ = ["DeviceParams", "StreamState", "Pipeline"]
@@ -182,21 +189,6 @@ def bf16_tensor(a, device) -> torch.Tensor:
         raise ValueError(f"pair halves must be bfloat16, got {a.dtype}")
     return torch.from_numpy(np.array(a).view(np.int16)).view(
         torch.bfloat16).to(device)
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md §1 item {item}")
-
-
-def _check_slice(cfg: StreamConfig) -> None:
-    """Reject the one configuration outside the port: the scan-carried
-    waterfall.  `validate()` makes the block a power of two of at least 256
-    samples, so the AGC's block is always whole 128-sample lanes (the TPU's
-    K9 + XLA route for other lengths cannot arise)."""
-    if cfg.waterfall_enabled:
-        raise _not_in_slice("waterfall_enabled (the scan-carried spectrum)",
-                            "10b (the spectrum, the waterfall and the plots)")
 
 
 class DeviceParams(NamedTuple):
@@ -263,7 +255,8 @@ class StreamState(NamedTuple):
     input's history, the form K8/K7/K13 read; under pcm16 ingest without
     AGC it is the raw int16 history (K12).  The resamplers are None except
     where they run: ``asrc`` the streaming compat ASRC, ``up`` and
-    ``down`` the literal chain's."""
+    ``down`` the literal chain's.  ``wf`` is the waterfall ring under
+    ``waterfall_enabled``, else None."""
 
     conv_tail: "torch.Tensor | tuple[torch.Tensor, torch.Tensor]"  # [B, k_pad]
     seed: int
@@ -272,6 +265,8 @@ class StreamState(NamedTuple):
     asrc: Optional[PolyResampler] = None
     up: Optional[PolyResampler] = None
     down: Optional[PolyResampler] = None
+    #: [B, 50, n_bins] dB spectra of the last output blocks, newest last
+    wf: Optional[torch.Tensor] = None
 
 
 class Pipeline:
@@ -294,7 +289,6 @@ class Pipeline:
     def __init__(self, cfg: StreamConfig, device="cuda", td_precision="B3",
                  agc_one_kernel: bool = False):
         cfg = cfg.validate()
-        _check_slice(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -315,6 +309,12 @@ class Pipeline:
         self.fused = bool(cfg.fuse_rate_conversion) and not self.upsampled_out
         #: samples per output block: U·L for upsampled output, else L
         self.out_block = self.up_block if self.upsampled_out else self.block
+        #: the waterfall's analysis window over an output block, uploaded
+        #: once (`spectrum_db`'s default, `hann(out_block)` in float32)
+        self._wf_window = None
+        if cfg.waterfall_enabled:
+            self._wf_window = torch.as_tensor(
+                hann(self.out_block), dtype=torch.float32, device=self.device)
         if self.fused:
             # upsample(U) → filter → downsample(U) at base-rate output is
             # y[n] = Σ_p cascade[U·(n−p)]·x[p]: one base-rate FIR whose
@@ -553,7 +553,16 @@ class Pipeline:
         # the gain carry starts at unity (`afp_tpu/engine/pipeline.py:529`)
         gain = (torch.ones(B, dtype=torch.float32, device=dev)
                 if self._agc_on else None)
-        return StreamState(tail, int(seed), 0, gain, **self._resamplers())
+        return StreamState(tail, int(seed), 0, gain, **self._resamplers(),
+                           wf=self._wf_init())
+
+    def _wf_init(self) -> Optional[torch.Tensor]:
+        """The primed waterfall ring [B, 50, out_block//2 + 1] under
+        ``waterfall_enabled``, else None (`pipeline.py:530-535`)."""
+        if self._wf_window is None:
+            return None
+        return waterfall_init(self.out_block // 2 + 1,
+                              batch_shape=(self.batch,), device=self.device)
 
     def _padded(self, t: torch.Tensor) -> torch.Tensor:
         """[B, <= k_pad] → [B, k_pad], zero columns on the left."""
@@ -564,7 +573,8 @@ class Pipeline:
         return torch.nn.functional.pad(t, (pad, 0))
 
     def state_from_numpy(self, conv_tail, seed: int, step: int,
-                         agc_gain=None, resampler_hist=None) -> StreamState:
+                         agc_gain=None, resampler_hist=None,
+                         wf=None) -> StreamState:
         """A state from `afp_tpu`'s carried state as numpy arrays, each
         tail zero-padded on the left to k_pad.  The conv tail comes in any
         of `afp_tpu`'s forms: f32 [B, <= k_pad], the bf16 pair ``(hi, lo)``
@@ -575,7 +585,8 @@ class Pipeline:
         carry (unity when absent); `seed`/`step` key the dither;
         ``resampler_hist`` maps each resampler this pipeline carries
         (``'asrc'``, ``'up'``, ``'down'``) to its [B, hist_len] input
-        history (zero when absent)."""
+        history (zero when absent); ``wf`` is the waterfall ring (primed
+        when absent), which only a pipeline with the waterfall takes."""
         dev = self.device
         i16 = (not isinstance(conv_tail, (tuple, list))
                and np.asarray(conv_tail).dtype == np.int16)
@@ -610,7 +621,17 @@ class Pipeline:
                 raise ValueError(f"{name} history must be "
                                  f"{tuple(rs[name].hist.shape)}, got {tuple(h.shape)}")
             rs[name] = rs[name]._replace(hist=h)
-        return StreamState(tail, int(seed), int(step), gain, **rs)
+        ring = self._wf_init()
+        if wf is not None:
+            if ring is None:
+                raise ValueError("a waterfall ring was given, but this "
+                                 "pipeline runs without the waterfall")
+            wf = torch.as_tensor(np.array(wf, dtype=np.float32), device=dev)
+            if wf.shape != ring.shape:
+                raise ValueError(f"wf must be {tuple(ring.shape)}, got "
+                                 f"{tuple(wf.shape)}")
+            ring = wf
+        return StreamState(tail, int(seed), int(step), gain, **rs, wf=ring)
 
     # ---------------- the staged step ----------------
 
@@ -767,7 +788,17 @@ class Pipeline:
         """One block: [B, L] → (state, [B, L'] out), L' = U·L under
         upsampled output, else L.  The state passed in is left intact (the
         engine's degradation ladder keeps it to recover from a failed
-        step)."""
+        step).  Under ``waterfall_enabled`` the new state's ring holds the
+        output's spectrum as its newest row (`pipeline.py:1027-1039`)."""
+        new_state, y = self._step(params, state, block)
+        if state.wf is None:
+            return new_state, y
+        db = spectrum_db(pcm16_to_f32(y) if self._emit16 else y,
+                         self._wf_window)
+        return new_state._replace(wf=waterfall_push(state.wf, db)), y
+
+    def _step(self, params: DeviceParams, state: StreamState, block):
+        """:meth:`step` without the waterfall."""
         cfg = self.cfg
         x = self._block(block)
         n, L = self._n_conv, self.block
@@ -882,8 +913,9 @@ class Pipeline:
         """True when the offline fold applies: the fused chain with no
         cross-block recurrence (AGC) and no streaming resampler (device
         ASRC), so each block's output depends only on the signal window
-        behind it (`pipeline.py:1603-1615`)."""
-        return self.fused and not self._agc_on and not self._asrc_device
+        behind it (`pipeline.py:1603-1615`), and no waterfall to carry."""
+        return (self.fused and not self._agc_on and not self._asrc_device
+                and not self.cfg.waterfall_enabled)
 
     def _fold_decision(self, fold, params: DeviceParams) -> bool:
         """Resolve `fold` ('auto', 'prefer', True, False) against this
@@ -900,7 +932,8 @@ class Pipeline:
             if not self.supports_fold:
                 raise ValueError(
                     "fold=True but this pipeline cannot fold (needs the "
-                    "fused single-rate chain without AGC or device ASRC)")
+                    "fused single-rate chain without AGC, device ASRC or "
+                    "waterfall)")
             return True
         if fold == "prefer":
             return self.supports_fold
@@ -936,7 +969,8 @@ class Pipeline:
         8-row padding is not needed: the kernels mask rows."""
         if not self.supports_fold:
             raise ValueError("this pipeline cannot fold (it runs the AGC, "
-                             "device ASRC or the literal chain)")
+                             "device ASRC, the waterfall or the literal "
+                             "chain)")
         cfg = self.cfg
         signal = self._signal(signal)
         B, T = signal.shape
@@ -1009,10 +1043,11 @@ class Pipeline:
         'td_mxu' conv (`pipeline.py:1055-1091`; not under HIGHEST): the conv
         ring over one f32 or int16 PCM input ring, the pair rings of pair
         ingest, or, with AGC, the fused AGC chain over one f32 or int16
-        input ring.  Device ASRC, the 'parallel' AGC solver and the literal
-        chain have no ring form (`pipeline.py:1078, 1090-1091`)."""
+        input ring.  Device ASRC, the 'parallel' AGC solver, the literal
+        chain and the waterfall have no ring form (`pipeline.py:1078,
+        1090-1091`)."""
         return (self._use_td and not self._highest and not self._asrc_device
-                and not self._agc_parallel)
+                and not self._agc_parallel and not self.cfg.waterfall_enabled)
 
     def _taps(self, params: DeviceParams):
         """The conv's taps and bank keywords: the live shared taps, or the
@@ -1036,7 +1071,8 @@ class Pipeline:
         if not self.supports_ring_step:
             raise ValueError(
                 "ring_step requires a conv ring: conv_strategy='td_mxu' "
-                "with a bf16-class td_precision (see supports_ring_step)")
+                "with a bf16-class td_precision, waterfall disabled (see "
+                "supports_ring_step)")
         if (ring_lo is None) == self._pair_ingest:
             raise ValueError(
                 "ring form mismatch: pair-ingest pipelines take (hi, lo) "

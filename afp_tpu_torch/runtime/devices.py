@@ -9,11 +9,25 @@ to stay on the CPU.
 """
 from __future__ import annotations
 
+import os
 from typing import List
 
 import torch
 
-__all__ = ["list_devices", "format_devices"]
+__all__ = ["list_devices", "format_devices", "torch_device"]
+
+
+def torch_device(prog: str) -> str:
+    """The device an entry point (the CLI, an example) runs on: the card,
+    or the CPU under ``AFP_FORCE_CPU`` (the reference's switch).  No card
+    and no switch exits non-zero: nothing carries on on the CPU."""
+    if os.environ.get("AFP_FORCE_CPU"):
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{prog}: no CUDA device (torch.cuda."
+                         "is_available() is False); set AFP_FORCE_CPU=1 to "
+                         "run on the CPU")
+    return "cuda"
 
 
 def list_devices(platform: str = "cuda") -> List[dict]:

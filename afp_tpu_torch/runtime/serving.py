@@ -32,8 +32,10 @@ before the device→host copy, never a host gather of the block.  Their
 device staging (one landed block per dtype, one drained chunk) is allocated
 once and reused: the copies and gathers ride one stream in order.
 
-Not in this slice: the spectrum tap (``spectrum_every``, ROADMAP.md §1
-item 10b).
+The drain-side spectrum tap (``spectrum_every``,
+`afp_tpu/runtime/serving.py:98-123, 312-335`) observes every Nth drained
+block on the host, with numpy: the block is already host-resident, so the
+tap adds no device work and leaves the served outputs as they were.
 """
 from __future__ import annotations
 
@@ -47,10 +49,10 @@ import torch
 
 from ..engine.batch import StreamPacking
 from ..engine.config import PipelineParams, StreamConfig
-from ..engine.pipeline import (DeviceParams, Pipeline, StreamState,
-                               _not_in_slice, bf16_tensor)
+from ..engine.pipeline import DeviceParams, Pipeline, StreamState, bf16_tensor
 from ..ops.agc import AGCParams
 from ..ops.cuda.fir_td import split_bf16
+from ..ops.spectrum import WATERFALL_DEPTH, spectrum_db_np, spectrum_freqs
 from ..utils.log import get_logger
 
 logger = get_logger("serving")
@@ -69,8 +71,16 @@ class RingServer:
     block — same outputs, bit for bit), and `packing` (a `StreamPacking`:
     the caller sees its own stream order; an identity packing is None).
     The pipeline's options ride along: with ``agc_one_kernel`` its AGC ring
-    step is K14 → K7; a ``td_precision='HIGHEST'`` pipeline has no ring
-    form and is refused, as in `afp_tpu`.
+    step is K14 → K7; a ``td_precision='HIGHEST'`` pipeline, or one with
+    the waterfall, has no ring form and is refused, as in `afp_tpu`.
+
+    `spectrum_every` (the drain-side tap; 0 disables it, and it may be set
+    after construction): every Nth drained block, the host-FFT dB spectrum
+    (`spectrum_db_np`) of row `spectrum_row` is pushed into the server's
+    own depth-50 :attr:`waterfall_ring` (newest last) and read out as
+    :attr:`last_spectrum` and :attr:`spectrum_peak`; :attr:`spectrum_sink`,
+    when set, also receives the observed f32 [batch, L] block (int16
+    output dequantized ``n/32768``).
     """
 
     def __init__(self, pipeline: Pipeline,
@@ -79,14 +89,11 @@ class RingServer:
                  max_inflight: int = 2, seed: int = 0,
                  mega: bool = False, packing=None,
                  spectrum_every: int = 0, spectrum_row: int = 0):
-        if spectrum_every:
-            raise _not_in_slice("RingServer(spectrum_every>0)",
-                                "10b (serving: the spectrum tap)")
         if not pipeline.supports_ring_step:
             raise ValueError(
                 "RingServer requires a ring-capable pipeline: the f32 conv "
-                "ring, conv_strategy='td_mxu' with a bf16-class td_precision "
-                "(see Pipeline.supports_ring_step)")
+                "ring, conv_strategy='td_mxu' with a bf16-class td_precision, "
+                "waterfall disabled (see Pipeline.supports_ring_step)")
         if mega and pipeline.cfg.agc_enabled:
             raise ValueError("mega=True has no fused-AGC form: the AGC chain "
                              "serves through run_ring (mega=False)")
@@ -146,6 +153,13 @@ class RingServer:
         self.blocks_landed = 0
         #: land→drain wall latency per served block (host clock, recent window)
         self._latencies: deque = deque(maxlen=65536)
+        #: the drain-side spectrum tap (see the class docstring)
+        self.spectrum_every = int(spectrum_every)
+        self.spectrum_row = int(spectrum_row)
+        self.spectrum_sink: Optional[Callable[[np.ndarray], None]] = None
+        self.waterfall_ring: Optional[np.ndarray] = None  # [50, n_bins]
+        self.last_spectrum: Optional[np.ndarray] = None  # [n_bins] dB
+        self.spectrum_peak: Optional[tuple] = None  # (freq_hz, level_db)
 
     # -------------------------------------------------- live reconfiguration
 
@@ -196,6 +210,28 @@ class RingServer:
                                          agc=AGCParams.from_config(new_cfg))
         self.pipe.refresh_dynamic(new_cfg)
         self.swap_params(params)
+
+    # -------------------------------------------------- spectrum tap
+
+    def _tap_spectrum(self, block: np.ndarray) -> None:
+        """Observe one drained [batch, L] block: the host-FFT dB of the
+        chosen row into the depth-50 ring and the peak readout; the f32
+        block to `spectrum_sink` when set."""
+        if block.dtype == np.int16:  # emit='pcm16': dequantize (exact)
+            block = block.astype(np.float32) / np.float32(32768.0)
+        db = spectrum_db_np(block[self.spectrum_row])
+        if (self.waterfall_ring is None
+                or self.waterfall_ring.shape[-1] != db.shape[-1]):
+            self.waterfall_ring = np.full(
+                (WATERFALL_DEPTH, db.shape[-1]), -200.0, dtype=np.float32)
+        self.waterfall_ring = np.roll(self.waterfall_ring, -1, axis=0)
+        self.waterfall_ring[-1] = db
+        self.last_spectrum = db
+        freqs = spectrum_freqs(block.shape[-1], self.pipe.cfg.samplerate)
+        i = int(np.argmax(db))
+        self.spectrum_peak = (float(freqs[i]), float(db[i]))
+        if self.spectrum_sink is not None:
+            self.spectrum_sink(block)
 
     # -------------------------------------------------- core pump
 
@@ -319,8 +355,15 @@ class RingServer:
                 arr = host.numpy()
                 now = time.perf_counter()
                 self._latencies.extend(now - t for t in ts)
-                self.blocks_served += arr.shape[0]
-                yield from arr
+                if not self.spectrum_every:
+                    self.blocks_served += arr.shape[0]
+                    yield from arr
+                    continue
+                for blk in arr:  # per-block drain: the Nth-block tap
+                    if self.blocks_served % self.spectrum_every == 0:
+                        self._tap_spectrum(blk)
+                    self.blocks_served += 1
+                    yield blk
 
     def serve(self, source: Iterable,
               sink: Callable[[np.ndarray], None]) -> dict:

@@ -106,10 +106,29 @@ Phases, one output line each; any failure raises (exit code != 0):
    uninterrupted, bit for bit, dither on, nothing fabricated; (e) ``agc_mode='parallel'`` on C8 at batch 4096 ≡
    the exact mode within −105 dB, its solve count, the decisions still
    flipping at its last solve, and its wall;
+10. observation and control: (a) the carried waterfall at the C5 headline
+   (batch 4096, 8 blocks, ring [4096, 50, 2049]): each pushed row ≡
+   `spectrum_db` of the block emitted and the audio ≡ the chain without
+   the waterfall, bit for bit, dither on, f32 and ``emit='pcm16'``, the
+   42 oldest rows exactly −200, ms per block with and without it and the
+   peak memory; (b) `RingServer`'s drain-side tap at C8 every 8 blocks:
+   served ≡ untapped and the tap rows ≡ `spectrum_db_np` of the drained
+   row, bit for bit, and the tap's host ms; (c) `EqualizerController` at
+   the GUI defaults (`DEFAULT_CONFIG`, 'fft', batch 4096, a 1 kHz tone):
+   a lockstep `start_stream` with `set_gain` and `apply_changes`
+   mid-stream (glitch-free), the peak within one bin of the tone, then
+   `start_ring_stream` over a 'td_mxu' `RingServer` (K3); (d) the CLI's
+   `process --spectrum-plot --waterfall-plot` of a 60 s stereo file and
+   `design --plot`: the plotted arrays (`cli.viz_arrays`, on the card)
+   within −100 dB of a numpy recomputation from the written output, PNGs
+   where matplotlib imports (the line says which); (e) the examples
+   `waterfall_stream` and `ring_serving` in two subprocesses on the card,
+   each exiting 0 with jax blocked;
 7. every kernel (K1-K15) and every option (the bank option of K3, K4, K12;
    the vector option of K5, K6; the HIGHEST option of K1 and K11, K15)
-   launched during phases 4-6, 8 and 9, and each transport, bank,
-   last-slice, CLI and multirate phase (and each CLI run) launched its own.
+   launched during phases 4-6 and 8-10, and each transport, bank,
+   last-slice, CLI, multirate and observation phase (and each CLI run)
+   launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times (CUDA events over back-to-back calls;
@@ -2842,6 +2861,381 @@ def phase_parallel_agc(torch, dev, sz: Sizes) -> None:
         f"{walls['exact'] * 1e3:.1f} ms)")
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+SMOKE_OBSERVE = Path(__file__).resolve().parent / "build" / "smoke_observe"
+#: the controller's and the examples' tone (Hz), and the tap's cadence
+TONE_HZ, TAP_EVERY = 1000.0, 8
+#: spectra of one output through two FFT libraries (cuFFT on the card,
+#: numpy on the host), as magnitudes relative to the row maximum
+SPECTRUM_DB = -100.0
+
+
+def rel_mag_db(a_db, b_db) -> float:
+    """Worst row of max |10^(a/20) − 10^(b/20)| over the row's maximum
+    magnitude of `b`, in dB (spectra compared as magnitudes, never as raw
+    dB near the −200 floor)."""
+    ma = 10.0 ** (np.asarray(a_db, np.float64) / 20.0)
+    mb = 10.0 ** (np.asarray(b_db, np.float64) / 20.0)
+    err = np.abs(ma - mb).max(axis=-1) / mb.max(axis=-1)
+    return float(20 * np.log10(err.max() + 1e-300))
+
+
+def matplotlib_line() -> bool:
+    """Whether matplotlib imports here (the plots need it; every array they
+    draw is checked either way), said on a line of its own."""
+    from afp_tpu_torch.viz import matplotlib_available
+
+    ok = matplotlib_available()
+    say("phase 10 matplotlib: " + ("installed, PNGs rendered" if ok else
+                                   "not installed: no PNG rendered, the "
+                                   "plotted arrays still checked"))
+    return ok
+
+
+def phase_observe_waterfall(torch, dev, sz: Sizes) -> None:
+    """10a: the carried waterfall at the C5 headline, uncut ('td_mxu',
+    TPDF; K1): over `run_blocks` blocks each pushed row ≡ `spectrum_db` of
+    the block emitted, bit for bit, the rows never pushed exactly −200, and
+    the audio ≡ the chain without the waterfall, bit for bit, dither on;
+    the same under ``emit='pcm16'`` (the row of the dequantized block);
+    ms per block with and without the ring, and the peak memory; the
+    push's and the spectrum's device ms (CUDA events) beside the push's
+    bound (the ring read and written once at the card's memory rate)."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.spectrum import (WATERFALL_DEPTH, spectrum_db,
+                                            waterfall_push)
+
+    nb = sz.run_blocks
+    g = torch.Generator(device=dev).manual_seed(100)
+    blocks = torch.randn(nb, sz.batch, sz.block, generator=g, device=dev) * 0.3
+    walls = {}
+    for emit in ("f32", "pcm16"):
+        on = Pipeline(c5_config(sz, waterfall_enabled=True, emit=emit), dev)
+        off = Pipeline(c5_config(sz, emit=emit), dev)
+        params = on.device_params(PipelineParams.design(on.cfg))
+        st_on, st_off = on.init_state(seed=7), off.init_state(seed=7)
+        for i, blk in enumerate(blocks):
+            st_on, y = on.step(params, st_on, blk)
+            st_off, y_off = off.step(params, st_off, blk)
+            f = y.to(torch.float32) / 32768.0 if y.dtype == torch.int16 else y
+            check(torch.equal(y, y_off), f"10a {emit}: block {i} with the "
+                  "waterfall differs from the chain without it")
+            check(torch.equal(st_on.wf[:, -1], spectrum_db(f)),
+                  f"10a {emit}: row of block {i} is not spectrum_db of the output")
+        n_bins = sz.block // 2 + 1
+        check(st_on.wf.shape == (sz.batch, WATERFALL_DEPTH, n_bins)
+              and bool((st_on.wf[:, :WATERFALL_DEPTH - nb] == -200.0).all())
+              and bool(torch.isfinite(st_on.wf).all()),
+              f"10a {emit}: ring shape, priming or finiteness")
+        if emit == "f32":
+            ring, window = st_on.wf, on._wf_window
+            push_ms = time_ms(torch, lambda: waterfall_push(ring, f[:, :n_bins]), 10)
+            spec_ms = time_ms(torch, lambda: spectrum_db(f, window), 10)
+            del ring
+            for name, pipe in (("off", off), ("on", on)):
+                run_wall(torch, dev, pipe, params, blocks)  # warm the allocator
+                (_, wall), _, peak = timed(
+                    torch, dev, lambda: run_wall(torch, dev, pipe, params, blocks))
+                walls[name] = (wall, peak)
+        del st_on, st_off, y, y_off, f
+    ring_gb = sz.batch * WATERFALL_DEPTH * (sz.block // 2 + 1) * 4 / 1e9
+    push_bound = 2 * ring_gb * 1e9 / HBM_BYTES * 1e3
+    (w_off, p_off), (w_on, p_on) = walls["off"], walls["on"]
+    say(f"phase 10a waterfall at the C5 headline, batch {sz.batch} x {nb} blocks "
+        f"of {sz.block} (ring {ring_gb:.2f} GB): each row == spectrum_db of the "
+        f"block emitted and the audio == the chain without it, bit for bit, "
+        f"dither on, f32 and emit='pcm16'; {WATERFALL_DEPTH - nb} oldest rows "
+        f"exactly -200; {w_on * 1e3 / nb:.3f} ms/block with it, "
+        f"{w_off * 1e3 / nb:.3f} without (+{(w_on - w_off) * 1e3 / nb:.3f}; host "
+        f"clock); peak {p_on:.2f} GiB with it, {p_off:.2f} without; device ms "
+        f"(CUDA events): push {push_ms:.3f} (bound {push_bound:.3f}, bytes), "
+        f"spectrum_db {spec_ms:.3f}")
+
+
+def phase_observe_tap(torch, dev, sz: Sizes) -> None:
+    """10b: `RingServer`'s drain-side tap at the C8 point (K5 → K6 → K7),
+    every `TAP_EVERY` blocks: the served outputs ≡ a server without the
+    tap, bit for bit, dither on; the newest tap rows ≡ `spectrum_db_np` of
+    the drained row, bit for bit; the tap's host ms per tapped block."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.ops.spectrum import spectrum_db_np
+    from afp_tpu_torch.runtime import RingServer
+
+    pipe = Pipeline(c8_config(sz), dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    g = torch.Generator(device=dev).manual_seed(101)
+    src = (torch.randn(sz.serve_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                       device=dev) * 0.1).cpu().numpy()
+    kw = dict(slots=sz.slots, chunk=sz.chunk, max_inflight=2, seed=0)
+    gold, _ = serve_warm(pipe, params, src, sz)
+    row = sz.c8_batch // 2
+    srv = RingServer(pipe, params, **kw, spectrum_every=TAP_EVERY,
+                     spectrum_row=row)
+    tap, spent = srv._tap_spectrum, []
+
+    def timed_tap(block):
+        t0 = time.perf_counter()
+        tap(block)
+        spent.append(time.perf_counter() - t0)
+
+    srv._tap_spectrum = timed_tap
+    got = []
+    stats = srv.serve(iter(src), got.append)
+    got = np.stack(got)
+    check(stats["blocks"] == sz.serve_blocks and np.array_equal(got, gold),
+          "10b: the tapped server's outputs differ from the untapped server's")
+    tapped = list(range(0, sz.serve_blocks, TAP_EVERY))
+    want = np.stack([spectrum_db_np(got[i][row]) for i in tapped])
+    ring = srv.waterfall_ring
+    check(len(spent) == len(tapped)
+          and np.array_equal(ring[-len(tapped):], want)
+          and bool((ring[:-len(tapped)] == -200.0).all())
+          and np.array_equal(srv.last_spectrum, want[-1]),
+          "10b: the tap ring is not spectrum_db_np of the drained rows")
+    say(f"phase 10b RingServer tap at C8 (batch {sz.c8_batch}, block {sz.c8_block}, "
+        f"every {TAP_EVERY}): served == untapped server, bit for bit, dither on; "
+        f"{len(tapped)} tap rows == spectrum_db_np of drained row {row}, bit for "
+        f"bit; peak {srv.spectrum_peak[0]:.0f} Hz; tap "
+        f"{np.mean(spent) * 1e3:.3f} ms host per tapped block; served "
+        f"{stats['xrt']:.0f}x realtime (host clock)")
+
+
+def phase_observe_controller(torch, dev, sz: Sizes) -> None:
+    """10c: `EqualizerController` at the GUI defaults (`DEFAULT_CONFIG`:
+    'fft', 9-band EQ, TPDF; cuFFT and K2) at batch `c8_batch`, a tone in
+    every stream: a lockstep `start_stream` of 16 blocks with `set_gain`
+    and a cutoff change through `apply_changes` mid-stream (glitch-free,
+    True), the spectrum peak within one bin of the tone; then
+    `start_ring_stream` over a 'td_mxu' `RingServer` (K3)."""
+    from afp_tpu_torch.engine import Pipeline, StreamEngine
+    from afp_tpu_torch.runtime import RingServer
+    from afp_tpu_torch.ui import DEFAULT_CONFIG, EqualizerController
+
+    cfg = replace(DEFAULT_CONFIG, batch=sz.c8_batch)
+    check(cfg.conv_strategy == "fft" and cfg.eq_enabled
+          and len(cfg.eq_bands) == 9 and cfg.dither_kind == "tpdf",
+          f"DEFAULT_CONFIG is not the GUI's defaults: {cfg}")
+    L, rate, n = cfg.blocksize, cfg.samplerate, 16
+    tone = (0.3 * np.sin(2 * np.pi * TONE_HZ * np.arange(n * L) / rate)
+            ).astype(np.float32)
+
+    def block(i: int) -> np.ndarray:
+        """Block i of the tone (cycling over n), in every stream."""
+        j = i % n
+        return np.ascontiguousarray(
+            np.broadcast_to(tone[j * L:(j + 1) * L], (cfg.batch, L)))
+
+    bin_hz = rate / L
+    ctl = EqualizerController(StreamEngine(cfg, device=dev))
+    ctl.show_spectrum = True
+    eng = ctl.engine
+    feed, fed = ctl.update_spectrum, []
+
+    def timed_feed(out):
+        t0 = time.perf_counter()
+        feed(out)
+        fed.append(time.perf_counter() - t0)
+
+    ctl.update_spectrum = timed_feed  # the stream's sink, bound at start
+
+    def wait_for(blocks: int, what: str) -> None:
+        deadline = time.perf_counter() + 60
+        while (eng.metrics.blocks_processed < blocks
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        check(eng.metrics.blocks_processed >= blocks, f"10c: {what} stalled")
+
+    t0 = time.perf_counter()
+    ctl.start_stream(source=block)
+    wait_for(n // 2, "start_stream")
+    ctl.set_gain(8, 2.0)
+    ctl.set_field(cutoff=12000.0)
+    glitch_free = ctl.apply_changes()
+    wait_for(n, "start_stream")
+    ctl.stop_stream(timeout=30.0)
+    wall = time.perf_counter() - t0
+    m = eng.metrics
+    f_peak, lvl = ctl.spectrum_peak
+    check(glitch_free and eng.cfg.cutoff == 12000.0 and ctl.get_gains()[8] == 2.0,
+          "10c: apply_changes was not a glitch-free swap")
+    check(abs(f_peak - TONE_HZ) <= bin_hz and not ctl.streaming
+          and m.fallback_replays == m.fallback_silence == 0
+          and ctl.waterfall_ring is not None
+          and bool((ctl.waterfall_ring[-1] > -200.0).all()),
+          f"10c: peak {f_peak:.1f} Hz, metrics {m.snapshot()}")
+    say(f"phase 10c controller at DEFAULT_CONFIG (fft, 9-band EQ, TPDF) batch "
+        f"{cfg.batch}: lockstep start_stream of {m.blocks_processed} blocks with "
+        f"set_gain and apply_changes(cutoff 12000) mid-stream, glitch-free; peak "
+        f"{f_peak:.1f} Hz ({lvl:.1f} dB) within one bin ({bin_hz:.1f} Hz) of "
+        f"{TONE_HZ:.0f} Hz; {wall * 1e3 / max(m.blocks_processed, 1):.2f} ms per "
+        f"block in all, of it the engine {m.busy_seconds * 1e3 / m.blocks_processed:.2f} "
+        f"(up, step, down) and update_spectrum {np.mean(fed) * 1e3:.2f} (host clock)")
+
+    srv = RingServer(Pipeline(replace(cfg, conv_strategy="td_mxu"), dev),
+                     slots=sz.slots, chunk=sz.chunk)
+    ring_ctl = EqualizerController(eng)
+    got = []
+    ring_ctl.start_ring_stream(srv, (block(i) for i in range(n)),
+                               sink=got.append, spectrum_every=TAP_EVERY)
+    deadline = time.perf_counter() + 60
+    while len(got) < n and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    ring_ctl.stop_stream(timeout=30.0)
+    f_ring = ring_ctl.spectrum_peak[0] if ring_ctl.spectrum_peak else float("nan")
+    check(len(got) == n and srv.spectrum_every == TAP_EVERY
+          and abs(f_ring - TONE_HZ) <= bin_hz
+          and ring_ctl.waterfall_ring is not None,
+          f"10c ring stream: {len(got)} of {n} blocks, peak {f_ring}")
+    say(f"phase 10c start_ring_stream over a td_mxu RingServer (K3): {len(got)} "
+        f"blocks served, the tap every {TAP_EVERY} fed the controller, peak "
+        f"{f_ring:.1f} Hz")
+
+
+def phase_observe_cli(torch, dev, sz: Sizes) -> None:
+    """10d: `process` of a 60 s stereo file with ``--spectrum-plot`` and
+    ``--waterfall-plot``, and ``design --plot``: the arrays the plots draw
+    (`cli.viz_arrays`, on the card) against a CPU recomputation from the
+    written output (numpy, `spectrum_db_np`) within SPECTRUM_DB as
+    magnitudes; PNGs where matplotlib imports."""
+    import afp_tpu_torch.cli as cli
+    from afp_tpu_torch.design import create_fir_filter
+    from afp_tpu_torch.ops.spectrum import (WATERFALL_DEPTH, spectrum_db_np,
+                                            spectrum_freqs)
+    from afp_tpu_torch.utils import read_wav, write_wav
+    from afp_tpu_torch.viz import compute_response
+
+    if dev.type == "cuda":
+        os.environ.pop("AFP_FORCE_CPU", None)
+    else:
+        os.environ["AFP_FORCE_CPU"] = "1"
+    plots = matplotlib_line()
+    shutil.rmtree(SMOKE_OBSERVE, ignore_errors=True)
+    SMOKE_OBSERVE.mkdir(parents=True)
+    d = SMOKE_OBSERVE
+    n = int(sz.cli_seconds * CLI_RATE)
+    t = np.arange(n) / CLI_RATE
+    rng = np.random.default_rng(160)
+    x = np.clip(0.3 * np.sin(2 * np.pi * TONE_HZ * t)
+                + 0.05 * rng.standard_normal((2, n)), -1, 1).astype(np.float32)
+    write_wav(str(d / "in.wav"), x, CLI_RATE, width=3)
+    argv = ["process", d / "in.wav", d / "out.wav"]
+    seen = []
+    if plots:
+        argv += ["--spectrum-plot", d / "spectrum.png",
+                 "--waterfall-plot", d / "waterfall.png"]
+        draw = cli.viz_arrays
+        cli.viz_arrays = lambda *a, **k: seen.append(draw(*a, **k)) or seen[-1]
+    try:
+        _, engines, wall, _ = run_cli(torch, dev, argv, want=("dither_cuda",))
+    finally:
+        if plots:
+            cli.viz_arrays = draw
+    y = read_wav(str(d / "out.wav"))[0]
+    if not plots:
+        seen.append(cli.viz_arrays(y, engines[0].cfg, dev))
+    check(len(seen) == 1, f"10d: viz_arrays ran {len(seen)} times")
+    got = seen[0]
+    nb = y.shape[1] // CLI_BLOCK
+    db = spectrum_db_np(y[0, : nb * CLI_BLOCK].reshape(nb, CLI_BLOCK))
+    mean_db = 10.0 * np.log10(np.mean(10.0 ** (db.astype(np.float64) / 10.0),
+                                      axis=0) + 1e-30)
+    e_mean = rel_mag_db(got["mean_db"], mean_db)
+    filled = min(nb, WATERFALL_DEPTH)  # a file under 50 blocks leaves rows primed
+    e_ring = rel_mag_db(got["ring"][WATERFALL_DEPTH - filled:], db[-filled:])
+    f_peak = got["freqs"][np.argmax(got["mean_db"])]
+    check(np.array_equal(got["freqs"], spectrum_freqs(CLI_BLOCK, CLI_RATE))
+          and got["ring"].shape == (WATERFALL_DEPTH, CLI_BLOCK // 2 + 1)
+          and bool((got["ring"][:WATERFALL_DEPTH - filled] == -200.0).all())
+          and e_mean <= SPECTRUM_DB and e_ring <= SPECTRUM_DB
+          and abs(f_peak - TONE_HZ) <= CLI_RATE / CLI_BLOCK,
+          f"10d: plotted arrays vs the CPU: mean {e_mean:.1f} dB, ring "
+          f"{e_ring:.1f} dB, peak {f_peak:.1f} Hz")
+    taps = d / "taps.txt"
+    dargv = ["design", "--taps-out", taps]
+    if plots:
+        dargv += ["--plot", d / "response.png"]
+    run_cli(torch, dev, dargv)
+    h = np.loadtxt(taps)
+    want_h = create_fir_filter(method="window", cutoff=14000.0, numtaps=129,
+                               window_type="hamming", filter_type="lowpass",
+                               samplerate=2 * CLI_RATE)
+    resp = compute_response(h, 2 * CLI_RATE)
+    check(np.allclose(h, want_h, rtol=1e-15, atol=1e-18)
+          and abs(resp.magnitude_db[0]) < 0.1
+          and bool(np.isfinite(resp.phase_rad).all()),
+          "10d: design taps or their response")
+    pngs = sorted(p.name for p in d.glob("*.png") if p.stat().st_size > 1000)
+    check(pngs == (["response.png", "spectrum.png", "waterfall.png"] if plots
+                   else []), f"10d: PNGs {pngs}")
+    say(f"phase 10d CLI process of {sz.cli_seconds:.0f} s stereo "
+        f"{'with' if plots else 'without'} the plot flags ({nb} blocks): the plotted power-mean spectrum {e_mean:.1f} dB and "
+        f"the ring {e_ring:.1f} dB vs the CPU from the written output (<= "
+        f"{SPECTRUM_DB}), peak {f_peak:.1f} Hz; {wall:.2f} s wall; design "
+        f"--plot: DC {resp.magnitude_db[0]:.3f} dB; PNGs {pngs or 'none'}")
+    shutil.rmtree(SMOKE_OBSERVE, ignore_errors=True)
+
+
+#: run one example as ``python -m afp_tpu_torch.examples.<name>`` with jax
+#: and the JAX package blocked; a blocked import fails the run
+EXAMPLE_RUNNER = """
+import runpy, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "afp_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+name, sys.argv = sys.argv[1], [sys.argv[1]] + sys.argv[2:]
+runpy.run_module(f"afp_tpu_torch.examples.{name}", run_name="__main__")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "afp_tpu"))
+assert not bad, bad
+"""
+
+
+def phase_observe_examples(torch, dev, sz: Sizes) -> None:
+    """10e: the examples `waterfall_stream` and `ring_serving` (at its
+    defaults: 64 streams, 32 blocks of the C5 headline through the pair
+    rings) in two subprocesses at once, on the card (on the CPU under
+    ``AFP_FORCE_CPU`` in a rehearsal); each exits 0 with jax and the JAX
+    package blocked."""
+    env = dict(os.environ)
+    if dev.type == "cuda":
+        env.pop("AFP_FORCE_CPU", None)
+    else:
+        env["AFP_FORCE_CPU"] = "1"
+    out = SMOKE_OBSERVE / "examples"
+    out.mkdir(parents=True, exist_ok=True)
+    runs = {"waterfall_stream": ["--out-dir", str(out)],
+            "ring_serving": ([] if dev.type == "cuda"
+                             else ["--streams", "2", "--blocks", "4",
+                                   "--chunk", "2"])}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUNNER, name, *args],
+        cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, args in runs.items()}
+    lines = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=300)
+            check(p.returncode == 0, f"10e example {name}: exit "
+                  f"{p.returncode}\n{se[-2000:]}")
+            lines[name] = [ln for ln in so.splitlines() if ln.strip()]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    shutil.rmtree(SMOKE_OBSERVE, ignore_errors=True)
+    say(f"phase 10e examples waterfall_stream and ring_serving on {dev.type}: "
+        f"exit 0 with jax blocked, {time.perf_counter() - t0:.1f} s together; "
+        f"{lines['waterfall_stream'][-2]}; {lines['ring_serving'][-2]}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2922,6 +3316,11 @@ PHASE_LAUNCHES = {
     "phase_multirate_cli": ("dither_cuda", "rms_desired", "smooth_gain_apply"),
     "phase_parallel_agc": ("rms_desired", "smooth_gain_apply", "fir_td_mxu_pair",
                            "fir_td_mxu"),
+    "phase_observe_waterfall": ("fir_td_mxu",),
+    "phase_observe_tap": ("rms_desired", "smooth_gain_apply",
+                          "fir_td_mxu_pair_to_ring"),
+    "phase_observe_controller": ("dither_cuda", "fir_td_mxu_ring_f32"),
+    "phase_observe_cli": ("dither_cuda",),
 }
 
 
@@ -2987,7 +3386,10 @@ def main() -> int:
                   phase_c8_engine, phase_transport_engine, phase_bank_engine,
                   phase_highest_pipeline, phase_one_kernel, phase_fold,
                   phase_apply_agc, phase_cli, phase_multirate_chain,
-                  phase_multirate_asrc, phase_multirate_cli, phase_parallel_agc):
+                  phase_multirate_asrc, phase_multirate_cli, phase_parallel_agc,
+                  phase_observe_waterfall, phase_observe_tap,
+                  phase_observe_controller, phase_observe_cli,
+                  phase_observe_examples):
         t0 = time.perf_counter()
         before = counts(KERNELS)
         phase(torch, dev, sz)

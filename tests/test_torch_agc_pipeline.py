@@ -284,8 +284,24 @@ def test_engine_ladder_keeps_the_gain_carry():
     (dict(waterfall_enabled=True), "item 10b"),
 ])
 def test_agc_outside_the_slice_raises(over, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Pipeline(StreamConfig(**{**C8, **over}), "cpu")
+    """The AGC chain with the waterfall (refused before its item was
+    ported) runs: the same audio and gain carry as without it, bit for
+    bit, dither on, the ring's newest row ≡ the output's spectrum, and no
+    ring form."""
+    from afp_tpu_torch.ops.spectrum import spectrum_db
+
+    on = Pipeline(StreamConfig(**{**C8, **over}), "cpu")
+    off, params = port(C8)
+    assert not on.supports_ring_step
+    x = blocks(2)
+    st_on, st_off = on.init_state(seed=5), off.init_state(seed=5)
+    for b in x:
+        st_on, y_on = on.step(params, st_on, b)
+        st_off, y_off = off.step(params, st_off, b)
+        assert torch.equal(y_on, y_off)
+        assert torch.equal(st_on.agc_gain, st_off.agc_gain)
+        assert torch.equal(st_on.wf[:, -1], spectrum_db(y_on))
+    print(f"{item}: C8 with the waterfall ≡ without it over {len(x)} blocks")
 
 
 def test_per_stream_agc_vectors_raise():

@@ -3,8 +3,9 @@
 WAVs through both packages, dither off; `batch` ≡ `process` and `stream
 --lockstep` ≡ `process` inside the port, bit for bit; stream checkpoints
 resumed bit for bit with dither on; presets written byte for byte as the
-reference writes them; the unported flags raise naming their ROADMAP.md
-item; and with no card and no switch the CLI exits non-zero.  The
+reference writes them; the plot flags draw, their arrays held to
+`afp_tpu`'s; ``--mesh`` raises naming its ROADMAP.md item; and with no
+card and no switch the CLI exits non-zero.  The
 multirate flags: ``--samplerate`` (the exact ASRC frontend) and
 ``--output-rate upsampled`` (the literal chain) against `afp_tpu`, `batch`
 ≡ `process` and the lockstep ASRC stream ≡ `process` inside the port.
@@ -190,20 +191,64 @@ def test_stream_faults_and_paced(tmp_path, capsys):
 
 
 def test_unported_flags_raise_naming_their_item(tmp_path):
+    """``--mesh`` (item 11) still raises before any work; the plot flags,
+    which raised before items 10b and 12b, now write their PNGs."""
     src = wav(tmp_path / "in.wav", "fft", 2048, seed=6)
     out = str(tmp_path / "o.wav")
-    cases = [
-        (["process", src, out, "--mesh", "2"], "item 11"),
-        (["batch", src, "-o", str(tmp_path / "b"), "--mesh", "4"], "item 11"),
-        (["process", src, out, "--spectrum-plot", "s.png"], "item 10b"),
-        (["process", src, out, "--waterfall-plot", "w.png"], "item 10b"),
-        (["stream", src, "--lockstep", "--spectrum-plot", "s.png"], "item 10b"),
-        (["design", "--plot", "r.png"], "item 12b"),
-    ]
-    for argv, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    for argv in (["process", src, out, "--mesh", "2"],
+                 ["batch", src, "-o", str(tmp_path / "b"), "--mesh", "4"]):
+        with pytest.raises(NotImplementedError, match="item 11"):
             main(argv + FLAGS)
     assert not os.path.exists(out)
+    png = {k: str(tmp_path / f"{k}.png") for k in "swcr"}
+    for argv in (["process", src, out, "--spectrum-plot", png["s"],
+                  "--waterfall-plot", png["w"]],
+                 ["stream", src, "--lockstep", "--spectrum-plot", png["c"]],
+                 ["design", "--plot", png["r"], "--taps-out",
+                  str(tmp_path / "h.txt")]):
+        assert main(argv + FLAGS) == 0
+    assert os.path.exists(out)
+    for k, p in png.items():
+        assert os.path.getsize(p) > 1000, k
+
+
+@pytest.mark.parametrize("form", ["fft", "pcm16-io"])
+def test_plot_arrays_against_afp_tpu(tmp_path, monkeypatch, form):
+    """The arrays `--spectrum-plot` and `--waterfall-plot` draw, caught at
+    the plot calls of both CLIs on the same file: the bin frequencies and
+    the response taps equal, the power-mean spectrum and the ring's rows
+    within ROW_DB as magnitudes relative to the row maximum, the −200 dB
+    priming exact (a 20-block file fills 20 of the 50 rows)."""
+    import afp_tpu.viz as jviz
+    import afp_tpu_torch.viz as tviz
+
+    ROW_DB = -95.0
+    src = wav(tmp_path / "in.wav", form, 20 * 512, seed=11)
+    got = {}
+    for name, mod, fn in (("ref", jviz, jmain), ("port", tviz, main)):
+        seen = got.setdefault(name, {})
+        monkeypatch.setattr(mod, "plot_filter_response",
+                            lambda taps, spectrum, **k: seen.update(
+                                taps=taps, freqs=spectrum[0],
+                                mean_db=spectrum[1]))
+        monkeypatch.setattr(mod, "plot_waterfall",
+                            lambda ring, freqs, **k: seen.update(
+                                ring=ring, wf_freqs=freqs, **k))
+        assert fn(["process", src, str(tmp_path / f"{name}.wav"),
+                   "--spectrum-plot", "s.png", "--waterfall-plot", "w.png",
+                   *FORMS[form], *FLAGS]) == 0
+    ref, port = got["ref"], got["port"]
+    for k in ("taps", "freqs", "wf_freqs"):
+        assert np.array_equal(np.asarray(port[k]), np.asarray(ref[k])), k
+    assert port["block_seconds"] == ref["block_seconds"]
+    assert np.all(port["ring"][:30] == -200.0) and np.all(ref["ring"][:30] == -200.0)
+    for k, a, b in (("mean_db", port["mean_db"], ref["mean_db"]),
+                    ("ring", port["ring"][30:], ref["ring"][30:])):
+        ma = 10.0 ** (np.asarray(a, np.float64) / 20)
+        mb = 10.0 ** (np.asarray(b, np.float64) / 20)
+        e = 20 * np.log10((np.abs(ma - mb).max(-1) / mb.max(-1)).max())
+        print(f"{form} {k}: {e:.1f} dB (bound {ROW_DB})")
+        assert e <= ROW_DB
 
 
 def test_no_card_and_no_switch_exits(monkeypatch, capsys):

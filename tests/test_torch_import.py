@@ -1,9 +1,12 @@
 """The port imports no jax and nothing of `afp_tpu`: in a fresh interpreter
 whose import system refuses both, the package, its subpackages and every
-module of the CLI and multirate slices import, and a small pipeline, with
-and without AGC, a short `stream` through the CLI, and the multirate
-paths (the ASRC, the literal chain, the parallel AGC, ``--samplerate``)
-run end to end on the CPU."""
+module of the CLI, multirate and observation slices (the spectrum, the
+plots, the controller, the GUI, the examples) import, and a small
+pipeline, with and without AGC, a short `stream` through the CLI, the
+multirate paths (the ASRC, the literal chain, the parallel AGC,
+``--samplerate``) and the observation paths (the carried waterfall, the
+serving tap, the controller, the CLI's plots) run end to end on the
+CPU."""
 import subprocess
 import sys
 from pathlib import Path
@@ -78,6 +81,42 @@ assert read_wav(d + "/out.wav")[0].shape == (1, 4410)
 """
 
 
+#: the observation slice: the carried waterfall, the serving tap, the
+#: controller and the CLI's plots
+_RUN_OBSERVE = """
+import numpy as np
+from afp_tpu_torch.engine import Pipeline, StreamConfig, StreamEngine
+from afp_tpu_torch.runtime import RingServer
+from afp_tpu_torch.ui import EqualizerController
+eng = StreamEngine(StreamConfig(blocksize=256, batch=2, numtaps=31,
+                                waterfall_enabled=True), device="cpu")
+eng.process_signal(np.full((2, 1024), 0.1, np.float32))
+assert eng.waterfall_ring().shape == (2, 50, 129)
+srv = RingServer(Pipeline(StreamConfig(blocksize=256, batch=2, numtaps=31,
+                                       conv_strategy="td_mxu"), "cpu"),
+                 slots=8, chunk=2, spectrum_every=1)
+list(srv.stream(iter(np.full((4, 2, 256), 0.1, np.float32))))
+assert srv.waterfall_ring.shape == (50, 129)
+ctl = EqualizerController(StreamEngine(StreamConfig(blocksize=256, numtaps=31),
+                                       device="cpu"))
+ctl.show_spectrum = True
+ctl.update_spectrum(np.full((1, 256), 0.1, np.float32))
+assert ctl.spectrum_peak is not None
+import os, tempfile
+os.environ["AFP_FORCE_CPU"] = "1"
+from afp_tpu_torch.cli import main
+from afp_tpu_torch.utils import write_wav
+d = tempfile.mkdtemp()
+write_wav(d + "/in.wav", np.full((1, 2048), 0.1, np.float32), 44100)
+assert main(["process", d + "/in.wav", d + "/out.wav", "--blocksize", "256",
+             "--numtaps", "33", "--spectrum-plot", d + "/s.png",
+             "--waterfall-plot", d + "/w.png"]) == 0
+assert main(["design", "--numtaps", "33", "--plot", d + "/r.png",
+             "--taps-out", d + "/h.txt"]) == 0
+assert all(os.path.getsize(d + f) > 1000 for f in ("/s.png", "/w.png", "/r.png"))
+"""
+
+
 def _probe(mods, extra=""):
     return subprocess.run(
         [sys.executable, "-c",
@@ -98,8 +137,16 @@ def _probe(mods, extra=""):
       "afp_tpu_torch.ops.resample", "afp_tpu_torch.ops.convolve",
       "afp_tpu_torch.runtime.asrc"], ""),
     (["afp_tpu_torch.engine"], _RUN),
-    (["afp_tpu_torch.engine"], _RUN_MULTIRATE)],
-    ids=["import", "run", "multirate"])
+    (["afp_tpu_torch.engine"], _RUN_MULTIRATE),
+    (["afp_tpu_torch.ops.spectrum", "afp_tpu_torch.viz",
+      "afp_tpu_torch.viz.plot_filter", "afp_tpu_torch.viz.waterfall",
+      "afp_tpu_torch.ui", "afp_tpu_torch.ui.controller",
+      "afp_tpu_torch.ui.gui", "afp_tpu_torch.examples",
+      *(f"afp_tpu_torch.examples.{m}" for m in (
+          "agc_stream", "baseline_stream", "eq_stream", "live_audio",
+          "per_stream_banks", "presets_stream", "ring_serving",
+          "waterfall_stream"))], _RUN_OBSERVE)],
+    ids=["import", "run", "multirate", "observe"])
 def test_imports_without_jax(mods, extra):
     r = _probe(mods, extra)
     print(r.stdout, r.stderr[-2000:])

@@ -242,8 +242,17 @@ def test_dither_seeded_and_bounded():
 @pytest.mark.parametrize("over,item", [
     (dict(waterfall_enabled=True), "item 10b")])
 def test_outside_the_slice_raises(over, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Pipeline(StreamConfig(**over), "cpu")
+    """The configuration that raised before its ROADMAP item was ported now
+    builds and steps: the waterfall ring starts primed and takes the
+    block's spectrum (its numbers are held to `afp_tpu` in
+    `tests/test_torch_waterfall.py`)."""
+    p, params = port(StreamConfig(blocksize=256, numtaps=31, batch=2, **over))
+    st = p.init_state()
+    assert st.wf.shape == (2, 50, 129) and torch.all(st.wf == -200.0)
+    st, y = p.step(params, st, signal(2, 256))
+    print(f"{item}: newest row max {st.wf[:, -1].max().item():.1f} dB")
+    assert y.shape == (2, 256) and torch.all(st.wf[:, -1] > -200.0)
+    assert torch.all(st.wf[:, :-1] == -200.0)
 
 
 @pytest.mark.parametrize("over", [
