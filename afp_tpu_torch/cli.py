@@ -18,8 +18,12 @@ card and no switch the CLI exits non-zero: it never carries on on the CPU.
 
 ``batch`` packs every file's channels into one [Σ channels, max_len] array
 and runs the set through one offline-fold dispatch per sample-rate group
-(stream DP on one card).  Presets carry the *sound* (gains + filter
-settings), never the deployment shape (samplerate/blocksize/ingest/emit).
+(stream DP on one card).  ``process --mesh N`` and ``batch --mesh N``
+shard the rows over N cards (`parallel.ShardedPipeline`, the per-shard
+offline fold); with fewer cards they exit non-zero, and under
+``AFP_FORCE_CPU`` they run N CPU shards.  Presets carry the *sound*
+(gains + filter settings), never the deployment shape
+(samplerate/blocksize/ingest/emit).
 
 A ``--samplerate`` other than the input file's converts it on the way in
 with the exact ASRC frontend (`runtime/asrc.py`): ``process`` and ``batch``
@@ -33,9 +37,6 @@ keeps the literal multirate chain's high-rate output and writes the WAV at
 over the captured output) draw the output's spectra, taken on the
 command's device (:func:`viz_arrays`); ``design --plot`` draws the
 response.  The plots need matplotlib.
-
-Not ported yet: ``--mesh N > 1`` raises NotImplementedError naming ROADMAP.md
-§1 item 11, with no fallback.
 """
 from __future__ import annotations
 
@@ -48,14 +49,6 @@ import numpy as np
 from .runtime.devices import torch_device
 
 __all__ = ["main", "viz_arrays"]
-
-
-def _refuse_unported(args) -> None:
-    """Raise for the flags whose path is not ported yet, before any work."""
-    if getattr(args, "mesh", 1) > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} (stream DP over several cards) is not "
-            "ported yet: ROADMAP.md §1 item 11 (parallel)")
 
 
 def _add_config_args(ap: argparse.ArgumentParser) -> None:
@@ -96,8 +89,8 @@ def _add_config_args(ap: argparse.ArgumentParser) -> None:
                          "to int16 PCM in the conv store and the WAV is "
                          "written from the raw samples (16-bit output file)")
     ap.add_argument("--mesh", type=int, default=1, metavar="N",
-                    help="shard the batch over the first N cards (not "
-                         "ported yet: ROADMAP.md §1 item 11); 1 = one card")
+                    help="shard the batch over the first N cards (N CPU "
+                         "shards under AFP_FORCE_CPU); 1 = one card")
 
 
 def _eq_gains_into(args, cfg):
@@ -238,6 +231,61 @@ def _process_rows(args, cfg, x: np.ndarray, rate: int):
     return out[:, :_out_samples(cfg, n_in, rate)], engine
 
 
+def _mesh(args, n_dev: int):
+    """The mesh ``--mesh N`` runs on: the one :func:`main` was handed, else
+    the first N cards, or N CPU shards under ``AFP_FORCE_CPU`` (the
+    reference's virtual CPU devices).  Fewer cards than N exits non-zero
+    with the reference's message (`afp_tpu/cli.py:261-263`)."""
+    from .parallel import make_mesh
+
+    mesh = getattr(args, "mesh_devices", None)
+    if mesh is not None:
+        if mesh.shape.get("streams") != n_dev:
+            raise SystemExit(f"--mesh {n_dev}: the mesh given has "
+                             f"{mesh.shape.get('streams')} 'streams' shards")
+        return mesh
+    if args.torch_device == "cpu":
+        return make_mesh(n_dev, devices=["cpu"] * n_dev)
+    import torch
+
+    have = torch.cuda.device_count()
+    if have < n_dev:
+        raise SystemExit(f"--mesh {n_dev}: only {have} devices available")
+    return make_mesh(n_dev)
+
+
+def _process_rows_sharded(args, cfg, x: np.ndarray, n_dev: int):
+    """[rows, n] sharded over `n_dev` shards (stream DP,
+    `ShardedPipeline.process_signal`, the per-shard offline fold;
+    `afp_tpu/cli.py:247-289`).  Rows pad with silent streams to whole
+    ``n_dev × link group`` units and the time to whole blocks; the shards
+    never mix rows, so padding never reaches the real output.  Returns
+    the output trimmed back to the caller's rows and length, and the
+    design."""
+    import dataclasses
+
+    from .engine.config import PipelineParams
+    from .parallel import ShardedPipeline
+
+    mesh = _mesh(args, n_dev)
+    rows, n_in = x.shape
+    unit = n_dev * (cfg.agc_link_group if cfg.agc_enabled else 1)
+    if -rows % unit:
+        x = np.concatenate([x, np.zeros((-rows % unit, n_in), x.dtype)], axis=0)
+    cfg = dataclasses.replace(cfg, batch=x.shape[0])
+    if n_in % cfg.blocksize:
+        rem = cfg.blocksize - n_in % cfg.blocksize
+        x = np.concatenate([x, np.zeros((x.shape[0], rem), x.dtype)], axis=1)
+    sp = ShardedPipeline(cfg, mesh)
+    design = PipelineParams.design(sp.cfg)
+    _, out = sp.process_signal(sp.device_params(design), sp.init_state(seed=0),
+                               x, fold="prefer")
+    # no ASRC under --mesh (`_configure` refuses it): the file's rate is
+    # the engine's, and the trim honors upsampled output
+    out = out[:rows].cpu().numpy()
+    return out[:, :_out_samples(cfg, n_in, cfg.samplerate)], design
+
+
 def _write_out(path: str, out: np.ndarray, cfg) -> None:
     from .utils import write_wav, write_wav_pcm16
 
@@ -313,20 +361,29 @@ def _viz_outputs(args, out: np.ndarray, cfg, taps) -> None:
 def cmd_process(args) -> int:
     from .utils import read_wav, read_wav_pcm16
 
-    _refuse_unported(args)
     # raw int16 path: the WAV's PCM samples ride untouched to the device,
     # which converts exactly (n/32768)
     reader = read_wav_pcm16 if args.ingest == "pcm16" else read_wav
     x, rate = reader(args.input)
     cfg = _configure(args, rate, batch_rows=x.shape[0],
                      link_group=x.shape[0])
-    out, engine = _process_rows(args, cfg, x, rate)
+    out, design, tail = _run_rows(args, cfg, x, rate)
     _write_out(args.output, out, cfg)
-    _viz_outputs(args, out, cfg, engine.design.main_taps)
+    _viz_outputs(args, out, cfg, design.main_taps)
     print(f"{args.input} → {args.output}: {x.shape[0]} ch × {x.shape[1]} "
-          f"samples, xRT(busy) {engine.metrics.xrt_busy(cfg.samplerate):,.0f}",
-          file=sys.stderr)
+          f"samples, {tail}", file=sys.stderr)
     return 0
+
+
+def _run_rows(args, cfg, x: np.ndarray, rate: int):
+    """[rows, n] through the sharded row path under ``--mesh N > 1``, else
+    the engine's: (output, design, the summary line's tail)."""
+    if args.mesh > 1:
+        out, design = _process_rows_sharded(args, cfg, x, args.mesh)
+        return out, design, f"sharded over {args.mesh} devices"
+    out, engine = _process_rows(args, cfg, x, rate)
+    return (out, engine.design,
+            f"xRT(busy) {engine.metrics.xrt_busy(cfg.samplerate):,.0f}")
 
 
 def cmd_batch(args) -> int:
@@ -344,7 +401,6 @@ def cmd_batch(args) -> int:
 
     from .utils import read_wav, read_wav_pcm16
 
-    _refuse_unported(args)
     pcm16 = args.ingest == "pcm16"
     paths = []
     for pat in args.inputs:
@@ -388,7 +444,7 @@ def cmd_batch(args) -> int:
         for _, x in members:
             packed[row0:row0 + x.shape[0], : x.shape[1]] = x
             row0 += x.shape[0]
-        out, engine = _process_rows(args, cfg, packed, rate)
+        out, _, tail = _run_rows(args, cfg, packed, rate)
         row0 = 0
         for p, x in members:
             # per-file trim, on the output grid (the ASRC's ceiling, ×U
@@ -399,9 +455,7 @@ def cmd_batch(args) -> int:
             row0 += x.shape[0]
             wrote += 1
         print(f"{rate} Hz group: {len(members)} files as {rows} rows × "
-              f"{n_max} samples in one dispatch, xRT(busy) "
-              f"{engine.metrics.xrt_busy(cfg.samplerate):,.0f}",
-              file=sys.stderr)
+              f"{n_max} samples in one dispatch, {tail}", file=sys.stderr)
     print(f"{wrote} files → {args.out_dir}", file=sys.stderr)
     return 0
 
@@ -478,8 +532,6 @@ def cmd_stream(args) -> int:
     else:
         raise SystemExit("stream needs a source: an input WAV, --tone HZ, "
                          "or --audio")
-    _refuse_unported(args)
-
     if args.resume:
         # restore the checkpointed engine VERBATIM (bit-exact mid-stream
         # resume): the checkpoint's config governs; design/deployment flags
@@ -703,7 +755,10 @@ def cmd_design(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, mesh=None) -> int:
+    """Run one command.  `mesh` is the :class:`~afp_tpu_torch.parallel.Mesh`
+    that ``--mesh N`` shards over (its 'streams' axis N long; default: the
+    first N cards, or N CPU shards under ``AFP_FORCE_CPU``)."""
     ap = argparse.ArgumentParser(prog="afp_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -819,6 +874,7 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     args.torch_device = torch_device("afp_tpu_torch")
+    args.mesh_devices = mesh
     return args.fn(args)
 
 

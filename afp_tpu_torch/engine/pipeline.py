@@ -235,13 +235,19 @@ class DeviceParams(NamedTuple):
         return self.H_main
 
     def combined_cascade(self, eq_enabled: bool) -> torch.Tensor:
-        """The live fused taps [n_casc] ('td_mxu'): the gain combination is
-        linear in the taps, as in frequency.  Per-stream gains have no
-        shared taps (K11 mixes the bands per stream)."""
+        """The live fused taps, [n_casc] or per-stream [B, n_casc]
+        ('td_mxu'): the gain combination is linear in the taps, as in
+        frequency.  For [B, n_bands] gains the band sum is written out, as
+        in :meth:`combined_response` (the streaming path never asks for
+        it: K11 mixes the bands per stream in the kernel)."""
         if eq_enabled and self.casc_bands is not None and self.casc_bands.shape[0] > 0:
-            if self.eq_gains.ndim != 1:
-                raise ValueError("per-stream EQ gains have no shared cascade")
-            return (self.eq_gains[:, None] * self.casc_bands).sum(0)
+            g = self.eq_gains
+            if g.ndim == 1:
+                return (g[:, None] * self.casc_bands).sum(0)
+            k = g[:, :1] * self.casc_bands[0]
+            for i in range(1, g.shape[1]):
+                k = k + g[:, i:i + 1] * self.casc_bands[i]
+            return k
         return self.casc_main
 
 

@@ -9,6 +9,7 @@ under ``AFP_FORCE_CPU=1``; with neither they exit non-zero:
 * `waterfall_stream`: a swept tone's spectra in the depth-50 ring;
 * `per_stream_banks`: a filter design per stream, and per-stream AGC;
 * `ring_serving`: the C5 headline served through the device rings;
+* `long_kernel_parallel`: a 50 000-tap FIR sharded over 8 mesh shards;
 * `live_audio`: the sound card (prints the devices without PortAudio).
 
 Files they write (plots, presets, checkpoints) go to ``--out-dir``

@@ -32,6 +32,15 @@ before the device→host copy, never a host gather of the block.  Their
 device staging (one landed block per dtype, one drained chunk) is allocated
 once and reused: the copies and gathers ride one stream in order.
 
+A :class:`~afp_tpu_torch.parallel.ShardedPipeline` is served as is
+(`afp_tpu/runtime/serving.py:69-71, 162-166`): the rings follow its
+published ``ring_layout``, one [slots, B/n, blocksize] ring per shard,
+contiguous on its shard's device, so each shard's ring kernels read and
+write their own ring in place.  A block lands as one host→device copy per
+shard (its rows), and a chunk drains as one device→host copy per shard and
+slot into one pinned host buffer.  Packing needs the one-device rings (its
+gathers span the whole batch) and is refused there.
+
 The drain-side spectrum tap (``spectrum_every``,
 `afp_tpu/runtime/serving.py:98-123, 312-335`) observes every Nth drained
 block on the host, with numpy: the block is already host-resident, so the
@@ -73,6 +82,9 @@ class RingServer:
     The pipeline's options ride along: with ``agc_one_kernel`` its AGC ring
     step is K14 → K7; a ``td_precision='HIGHEST'`` pipeline, or one with
     the waterfall, has no ring form and is refused, as in `afp_tpu`.
+
+    `pipeline` may also be a `ShardedPipeline` (no `packing`): the rings
+    then follow its ``ring_layout``.
 
     `spectrum_every` (the drain-side tap; 0 disables it, and it may be set
     after construction): every Nth drained block, the host-FFT dB spectrum
@@ -123,6 +135,13 @@ class RingServer:
                     f"streams, got {packing!r}")
             if not packing.identity:
                 self.packing = packing
+        #: a sharded pipeline's per-shard ring placement, or None
+        self._layout = getattr(pipeline, "ring_layout", None)
+        if self._layout is not None and self.packing is not None:
+            raise ValueError(
+                "packing is not supported over a sharded pipeline (its "
+                "gathers span the whole batch): pack the streams before "
+                "they reach the server")
         #: reconfig (control thread) vs dispatch (serving thread): a swap
         #: takes effect at the next chunk boundary, never mid-chunk
         self._swap_lock = threading.Lock()
@@ -136,6 +155,8 @@ class RingServer:
         self._cuda = dev.type == "cuda"
 
         def ring(dtype):
+            if self._layout is not None:
+                return self._layout.zeros(slots, T, dtype)
             return torch.zeros((slots, B, T), dtype=dtype, device=dev)
 
         #: the rings by form (`afp_tpu/runtime/serving.py:170-192`)
@@ -256,11 +277,24 @@ class RingServer:
         int16 PCM under pcm16 ingest (floats are refused, never silently
         quantized); under pair ingest a ``(hi, lo)`` pair as given, or an
         f32 block split on the device; else f32.  With a packing the block
-        is gathered into device order on the device."""
+        is gathered into device order on the device; over a sharded
+        pipeline each shard's rows land in its own ring."""
+        pair = self.pipe._pair_ingest and isinstance(block, (tuple, list))
+        if self._layout is None:
+            self._land_rows(self._ring, self._ring_lo, slot, block, pair)
+            return
+        if not pair and not isinstance(block, torch.Tensor):
+            block = np.asarray(block)
+        for i, (r0, r1) in enumerate(self._layout.rows):
+            rows = tuple(h[r0:r1] for h in block) if pair else block[r0:r1]
+            lo = None if self._ring_lo is None else self._ring_lo[i]
+            self._land_rows(self._ring[i], lo, slot, rows, pair)
+
+    def _land_rows(self, ring, ring_lo, slot: int, block, pair: bool) -> None:
+        """:meth:`_land` into the ring `ring` (and `ring_lo`)."""
         pipe = self.pipe
-        if pipe._pair_ingest and isinstance(block, (tuple, list)):
-            for dst, half in zip((self._ring[slot], self._ring_lo[slot]),
-                                 block):
+        if pair:
+            for dst, half in zip((ring[slot], ring_lo[slot]), block):
                 self._put(dst, bf16_tensor(half, "cpu"))
             return
         if pipe._i16_ingest:
@@ -271,14 +305,14 @@ class RingServer:
         else:
             src = torch.as_tensor(np.asarray(block, dtype=np.float32))
         if not pipe._pair_ingest:
-            self._put(self._ring[slot], src)
+            self._put(ring[slot], src)
             return
-        x = torch.empty(self._ring.shape[1:], dtype=torch.float32,
-                        device=pipe.device)
+        x = torch.empty(ring.shape[1:], dtype=torch.float32,
+                        device=ring.device)
         self._put(x, src)
         hi, lo = split_bf16(x)
-        self._ring[slot].copy_(hi)
-        self._ring_lo[slot].copy_(lo)
+        ring[slot].copy_(hi)
+        ring_lo[slot].copy_(lo)
 
     def _put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         """Land the host block `src` in the device tensor `dst`, gathered
@@ -298,19 +332,42 @@ class RingServer:
 
     def _fetch(self, slot: int, n: int):
         """Queue the copy of output slots [slot, slot+n) to the host; returns
-        (host tensor, event marking its completion or None)."""
+        (host tensor, the events marking its completion: one per card, none
+        on the CPU)."""
+        if self._layout is not None:
+            return self._fetch_shards(slot, n)
         view = self._out[slot:slot + n]
         if self.packing is not None:  # restore caller stream order
             view = torch.index_select(
                 view, 1, self.packing.index("inv", view.device),
                 out=None if self._stage_out is None else self._stage_out[:n])
         if not self._cuda:
-            return view.clone(), None  # later dispatches rewrite these slots
+            return view.clone(), []  # later dispatches rewrite these slots
         host = torch.empty(view.shape, dtype=view.dtype, pin_memory=True)
         host.copy_(view, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
-        return host, ev
+        return host, [ev]
+
+    def _fetch_shards(self, slot: int, n: int):
+        """:meth:`_fetch` over per-shard rings: each shard's rows of each
+        slot in one copy.  A shard's rows of n slots are strided in the
+        [n, B, T] host buffer, and torch stages a strided device→host copy
+        through a pageable temporary and a host copy, so each copy is one
+        contiguous [b, T] slab, landing where the drain reads it."""
+        out = self._out
+        host = torch.empty((n, self.pipe.batch, out[0].shape[-1]),
+                           dtype=out[0].dtype, pin_memory=self._cuda)
+        for ring, (r0, r1) in zip(out, self._layout.rows):
+            for j in range(n):
+                host[j, r0:r1].copy_(ring[slot + j], non_blocking=self._cuda)
+        evs = []
+        if self._cuda:
+            for d in dict.fromkeys(self._layout.devices):
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                evs.append(ev)
+        return host, evs
 
     def stream(self, source: Iterable) -> Iterator[np.ndarray]:
         """Pump `source` (an iterable of [batch, blocksize] f32 blocks, int16
@@ -349,8 +406,8 @@ class RingServer:
                 pending = 0
             limit = 0 if exhausted else self.max_inflight
             while len(inflight) > limit:
-                host, ev, ts = inflight.pop(0)
-                if ev is not None:
+                host, evs, ts = inflight.pop(0)
+                for ev in evs:
                     ev.synchronize()
                 arr = host.numpy()
                 now = time.perf_counter()

@@ -124,11 +124,30 @@ Phases, one output line each; any failure raises (exit code != 0):
    where matplotlib imports (the line says which); (e) the examples
    `waterfall_stream` and `ring_serving` in two subprocesses on the card,
    each exiting 0 with jax blocked;
+11. the parallel layer, every mesh's shards on the one card: (a) stream DP
+   at the C5 headline over 4 shards: sharded step, run (8 blocks), the
+   fold and C5-bank ≡ the unsharded pipeline bit for bit (dither off),
+   `RingServer` over the per-shard f32 rings
+   (per step and mega) ≡ sharded run with dither on, decorrelated shards,
+   run ≡ chained steps, ms per block sharded and unsharded, the peak
+   memory; (b) C8 linked in pairs over 4 shards: staged and run_ring ≡
+   unsharded; (c) `filter_long_signal` of 8 streams × ≈60 s through C5
+   (4-way 'time' and 2×2 'streams'×'time' meshes), ≤ −100 dB against the
+   streaming pipeline, and C8 with the AGC carry, ≤ −110 dB against the
+   streaming pipeline at ``td_precision='HIGHEST'``, < −90 dB against the
+   oracle on the first blocks; the shard hand-off (C8, 8 blocks over 4
+   shards, the gain clipped at 0.1 in loud shards) < −90 dB against the
+   oracle over the whole signal; K2 under ``dither_seed``; (d)
+   `KernelParallelConv` of 50 000 taps over 8 shards ≤ −100 dB against
+   `OverlapSave`, with a `with_kernel` swap; (e) ``--mesh 2`` on one card
+   refused with the reference's message, ``process``/``batch --mesh 4``
+   on 4 shards of the card ≡ ``--mesh 1`` bit for bit, and the example
+   `long_kernel_parallel` in a subprocess;
 7. every kernel (K1-K15) and every option (the bank option of K3, K4, K12;
    the vector option of K5, K6; the HIGHEST option of K1 and K11, K15)
-   launched during phases 4-6 and 8-10, and each transport, bank,
-   last-slice, CLI, multirate and observation phase (and each CLI run)
-   launched its own.
+   launched during phases 4-6 and 8-11, and each transport, bank,
+   last-slice, CLI, multirate, observation and parallel phase (and each
+   CLI run) launched its own.
 
 Then, as its last three lines: the nvidia-smi line, one JSON object with
 each kernel's launches, error, times (CUDA events over back-to-back calls;
@@ -233,6 +252,15 @@ class Sizes:
     multi_blocks: int = 4
     asrc_batch: int = 64
     cpu_rows: int = 8
+    #: phase 11 (the parallel layer): shards of the stream-DP meshes, the
+    #: long signal's streams and seconds, the kernel-parallel FIR's taps,
+    #: shards and batch
+    shards: int = 4
+    long_streams: int = 8
+    long_seconds: float = 60.0
+    kp_taps: int = 50000
+    kp_shards: int = 8
+    kp_batch: int = 16
 
 
 def err_db(a, b) -> float:
@@ -3236,6 +3264,397 @@ def phase_observe_examples(torch, dev, sz: Sizes) -> None:
         f"{lines['waterfall_stream'][-2]}; {lines['ring_serving'][-2]}")
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+SMOKE_PARALLEL = Path(__file__).resolve().parent / "build" / "smoke_parallel"
+#: 11c: the long signal's T is whole 4 × C5 blocks (the 4-way time mesh's
+#: chunks hold whole engine blocks of C5 and of C8)
+LONG_DB = -100.0  # the long signal's FFT conv against the bf16×3 stream
+LONG_F32_DB = -110.0  # C8's long signal against the HIGHEST (fp32) stream
+
+
+def shard_mesh(dev, n: int, axes=("streams",), shape=None):
+    """A mesh of `n` shards, all on `dev` (the one card)."""
+    from afp_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, axes, shape=shape, devices=[dev] * n)
+
+
+def walled(torch, dev, fn):
+    """(fn's result, its wall in seconds on the host clock ending in a
+    synchronize), leaving the peak-memory counter alone."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def median_walls(torch, dev, fns: dict, reps: int = 5) -> tuple:
+    """Each of `fns` (name → thunk) run `reps` times in turn after one
+    warm-up: (the last result of each, the median wall of each)."""
+    out, walls = {}, {k: [] for k in fns}
+    for k, fn in fns.items():
+        fn()  # warm the allocator's pools and cuFFT's plans
+    for _ in range(reps):
+        for k, fn in fns.items():
+            out[k], w = walled(torch, dev, fn)
+            walls[k].append(w)
+    return out, {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def phase_sharded_c5(torch, dev, sz: Sizes) -> None:
+    """11a: stream DP at the C5 headline over a 4-shard mesh of the card.
+    Dither off: sharded step, run (8 blocks) and process_signal (the fold)
+    ≡ the one-shard Pipeline bit for bit; C5-bank (four cutoffs in batch/4 groups) ≡ unsharded.  Dither on:
+    `RingServer` over the per-shard f32 rings, per step and mega (16 slots,
+    chunk 4), ≡ sharded run; shards' noise decorrelated; run ≡ chained
+    steps.  ms per block sharded and unsharded, and the peak memory."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.parallel import ShardedPipeline
+    from afp_tpu_torch.runtime import RingServer
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = shard_mesh(dev, sz.shards)
+    g = torch.Generator(device=dev).manual_seed(160)
+    blocks = torch.randn(sz.run_blocks, sz.batch, sz.block, generator=g,
+                         device=dev) * 0.3
+    cfg = c5_config(sz, dither_kind="off")
+    design = PipelineParams.design(cfg.validate())
+    pipe = Pipeline(cfg, dev)
+    params = pipe.device_params(design)
+    fns = {}
+    for name, run in (("unsharded", pipe), ("sharded", ShardedPipeline(cfg, mesh))):
+        p = params if run is pipe else run.device_params(design)
+        fns[name] = (lambda run=run, p=p:
+                     run.run(p, run.init_state(), blocks)[1])
+    outs, walls = median_walls(torch, dev, fns)
+    check(torch.equal(outs["sharded"], outs["unsharded"]),
+          "11a: sharded run differs from the unsharded pipeline (dither off)")
+    sp = ShardedPipeline(cfg, mesh)
+    sparams = sp.device_params(design)
+    _, y = sp.step(sparams, sp.init_state(), blocks[0])
+    check(torch.equal(y, outs["unsharded"][0]), "11a: sharded step differs")
+    sig = blocks.transpose(0, 1).reshape(sz.batch, -1)
+    del outs
+    (_, yf), wall_fold = walled(torch, dev, lambda: sp.process_signal(
+        sparams, sp.init_state(), sig, fold="prefer"))
+    _, uf = pipe.process_signal(params, pipe.init_state(), sig, fold=True)
+    check(torch.equal(yf, uf), "11a: the sharded fold differs from the unsharded")
+    del sig, yf, uf
+    bank = c5_bank(pipe)
+    check(torch.equal(sp.run(bank, sp.init_state(), blocks[:2])[1],
+                      pipe.run(bank, pipe.init_state(), blocks[:2])[1]),
+          "11a: sharded C5-bank differs from the unsharded bank")
+    ms = {k: v * 1e3 / sz.run_blocks for k, v in walls.items()}
+    say(f"phase 11a C5 batch {sz.batch} over {sz.shards} shards of one card "
+        f"(dither off): step, run ({sz.run_blocks} blocks), the fold and C5-bank "
+        f"(2 blocks) == the unsharded pipeline bit for bit; ms/block (host "
+        f"clock, median of 5 runs in turn): unsharded {ms['unsharded']:.3f}, "
+        f"sharded {ms['sharded']:.3f}; the sharded fold of "
+        f"{sz.run_blocks} blocks {wall_fold * 1e3:.1f} ms")
+
+    dcfg = c5_config(sz)  # TPDF dither on
+    sd = ShardedPipeline(dcfg, mesh)
+    dparams = sd.device_params(design)
+    st, outs = sd.init_state(seed=0), []
+    for blk in blocks[:2]:
+        st, yb = sd.step(dparams, st, blk)
+        outs.append(yb)
+    _, yr = sd.run(dparams, sd.init_state(seed=0), blocks[:2])
+    check(torch.equal(torch.stack(outs), yr), "11a: dithered run != chained steps")
+    _, z = sd.step(dparams, sd.init_state(seed=0), torch.zeros_like(blocks[0]))
+    b = sz.batch // sz.shards
+    parts = [z[i * b:(i + 1) * b] for i in range(sz.shards)]
+    check(bool(z.abs().max() > 0) and all(
+        not torch.equal(parts[i], parts[j]) for i in range(sz.shards)
+        for j in range(i)), "11a: shards' dither is not decorrelated")
+    del outs, yr, z, parts
+    src = (torch.randn(sz.serve_blocks, sz.batch, sz.block, generator=g,
+                       device=dev) * 0.3)
+    _, gold = sd.run(dparams, sd.init_state(seed=0), src)
+    gold, src = gold.cpu().numpy(), src.cpu().numpy()
+    served = {}
+    for mega in (False, True):
+        srv = RingServer(sd, dparams, slots=sz.slots, chunk=sz.chunk,
+                         max_inflight=2, seed=0, mega=mega)
+        check(isinstance(srv._out, tuple) and len(srv._out) == sz.shards,
+              "11a: RingServer did not take the per-shard ring layout")
+        got = []
+        stats = srv.serve(iter(src), got.append)
+        check(np.array_equal(np.stack(got), gold),
+              f"11a: RingServer mega={mega} over shards != sharded run")
+        served[mega] = stats
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+    say(f"phase 11a RingServer over {sz.shards} per-shard f32 rings ({sz.slots} "
+        f"slots, chunk {sz.chunk}, {sz.serve_blocks} blocks, dither on): per step "
+        f"and mega == sharded run bit for bit ({served[False]['xrt']:.0f}x and "
+        f"{served[True]['xrt']:.0f}x realtime, host clock); run == chained "
+        f"steps, shards' noise decorrelated; peak memory {peak:.2f} GiB")
+
+
+def phase_sharded_c8(torch, dev, sz: Sizes) -> None:
+    """11b: stream DP at C8 (batch 4096, block 2048, W 512, linked in pairs)
+    over 4 shards, dither off: sharded staged run and sharded run_ring over
+    per-shard rings ≡ the unsharded pipeline, bit for bit."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.parallel import ShardedPipeline
+
+    cfg = c8_config(sz, agc_link_group=2, dither_kind="off")
+    design = PipelineParams.design(cfg.validate())
+    pipe = Pipeline(cfg, dev)
+    sp = ShardedPipeline(cfg, shard_mesh(dev, sz.shards))
+    params, sparams = pipe.device_params(design), sp.device_params(design)
+    g = torch.Generator(device=dev).manual_seed(170)
+    blocks = torch.randn(sz.run_blocks, sz.c8_batch, sz.c8_block, generator=g,
+                         device=dev) * 0.1
+    blocks[:, ::5] *= 0.05  # quiet streams: the gain rises
+    res, walls = median_walls(torch, dev, {
+        "unsharded": lambda: pipe.run(params, pipe.init_state(), blocks),
+        "sharded": lambda: sp.run(sparams, sp.init_state(), blocks)})
+    (ust, gold), (st, y) = res["unsharded"], res["sharded"]
+    lay = sp.ring_layout
+    rings = lay.split(blocks)
+    out = lay.zeros(sz.run_blocks, sz.c8_block, torch.float32)
+    st2, out = sp.run_ring(sparams, sp.init_state(), rings, None, out, sz.run_blocks)
+    check(torch.equal(y, gold) and torch.equal(lay.gather(out), gold)
+          and torch.equal(st.gather("agc_gain"), ust.agc_gain)
+          and torch.equal(st2.gather("agc_gain"), ust.agc_gain),
+          "11b: sharded C8 staged or ring differs from the unsharded pipeline")
+    say(f"phase 11b C8 batch {sz.c8_batch} x {sz.run_blocks} blocks of "
+        f"{sz.c8_block}, link 2, over {sz.shards} shards (dither off): staged "
+        f"run and run_ring == the unsharded pipeline bit for bit (outputs and "
+        f"gain carry); ms/block (host clock, median of 5 runs in turn): "
+        f"sharded {walls['sharded'] * 1e3 / sz.run_blocks:.3f}, unsharded "
+        f"{walls['unsharded'] * 1e3 / sz.run_blocks:.3f}")
+
+
+def phase_long_signal(torch, dev, sz: Sizes) -> None:
+    """11c: `filter_long_signal` of 8 streams × ≈60 s at 44.1 kHz through
+    the C5 cascade over a 4-way 'time' mesh and a 2×2 'streams'×'time'
+    mesh, and through C8 with the AGC carry (K5 per shard, K9 in shard
+    order); C5 against the port's streaming `Pipeline` (dither off,
+    ≤ −100 dB: the FFT conv against the bf16×3 stream), C8 against the
+    streaming pipeline at ``td_precision='HIGHEST'`` (≤ −110 dB: the bf16
+    pair the bf16×3 stream reads keeps 16 bits of the gained signal, so
+    that stream sits at −100 dB against either), the first blocks against
+    the float64 oracle (< −90 dB).  The shard hand-off: C8 over 8 blocks
+    on the 4-way mesh (2 blocks a shard, 3 boundaries; a quiet row, and
+    rows loud enough to clip the gain at 0.1 in some shards and normal in
+    the next, so the carried gain is the clipped one) against the float64
+    oracle over the whole signal.  K2 under ``dither_seed``."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    from afp_tpu_torch.parallel import filter_long_signal
+
+    unit = 4 * sz.block
+    T = int(sz.long_seconds * 44100) // unit * unit
+    B = sz.long_streams
+    gen = torch.Generator(device=dev).manual_seed(180)
+    x = torch.randn(B, T, generator=gen, device=dev) * 0.1
+    x[1::2] *= 0.05  # quiet rows: the AGC lifts them
+    meshes = {"4-way time": shard_mesh(dev, 4, ("time",)),
+              "2x2 streams x time": shard_mesh(dev, 4, ("streams", "time"),
+                                               shape=(2, 2))}
+    res = []
+    n_or = 4 * sz.block
+    for name, cfg, oracle, precision, limit in (
+            ("C5", c5_config(sz, batch=B, dither_kind="off"), c5_oracle,
+             "B3", LONG_DB),
+            ("C8 AGC carry", c8_config(sz, batch=B, dither_kind="off"),
+             c8_oracle, "HIGHEST", LONG_F32_DB)):
+        design = PipelineParams.design(cfg.validate())
+        pipe = Pipeline(cfg, dev)
+        params = pipe.device_params(design)
+        ref = Pipeline(cfg, dev, td_precision=precision)
+        (_, streamed), swall, _ = timed(torch, dev, lambda: ref.process_signal(
+            ref.device_params(design), ref.init_state(), x, fold=False))
+        for mname, mesh in meshes.items():
+            if name != "C5" and mname != "4-way time":
+                continue
+            y, wall, peak = timed(torch, dev, lambda: filter_long_signal(
+                pipe, params, x, mesh))
+            e = err_db(y.cpu().numpy(), streamed.cpu().numpy())
+            eo = err_db(y[:2, :n_or].cpu().numpy(),
+                        oracle(x[:2, :n_or].cpu().numpy(), cfg, design))
+            check(y.shape == x.shape and bool(torch.isfinite(y).all())
+                  and e <= limit and eo < ORACLE_DB,
+                  f"11c {name} on the {mname} mesh: {e:.1f} dB vs streaming "
+                  f"({precision}), {eo:.1f} dB vs the oracle")
+            res.append(f"{name}, {mname}: {e:.1f} dB vs streaming {precision} "
+                       f"(<= {limit}), {eo:.1f} dB vs the oracle; "
+                       f"{wall * 1e3:.1f} ms (streaming {swall * 1e3:.1f} ms), "
+                       f"peak {peak:.2f} GiB")
+        del streamed
+    # the hand-off: 4 rows × 8 C8 blocks, 2 a shard
+    L8 = sz.c8_block
+    xs = torch.randn(4, 8 * L8, generator=gen, device=dev) * 0.1
+    xs[1] *= 0.05  # quiet: the gain rises across every boundary
+    for r, shards in ((2, (0,)), (3, (0, 2))):  # loud: gain clipped at 0.1
+        for i in shards:
+            xs[r, 2 * i * L8:2 * (i + 1) * L8] *= 30.0
+    cfg = c8_config(sz, batch=4, dither_kind="off")
+    design = PipelineParams.design(cfg.validate())
+    pipe = Pipeline(cfg, dev)
+    ys = filter_long_signal(pipe, pipe.device_params(design), xs,
+                            meshes["4-way time"])
+    eh = err_db(ys.cpu().numpy(), c8_oracle(xs.cpu().numpy(), cfg, design))
+    check(eh < ORACLE_DB, f"11c C8 hand-off: {eh:.1f} dB vs the oracle")
+    cfg = c5_config(sz, batch=B)  # TPDF dither on
+    pipe = Pipeline(cfg, dev)
+    params = pipe.device_params(PipelineParams.design(cfg.validate()))
+    quiet = filter_long_signal(pipe, params, x, meshes["4-way time"])
+    noisy = filter_long_signal(pipe, params, x, meshes["4-way time"], dither_seed=1)
+    lsb = float((noisy - quiet).abs().max()) * 2 ** 23
+    check(0 < lsb <= 2.0, f"11c: dither_seed's noise is {lsb} 24-bit LSB")
+    say(f"phase 11c long signal {B} streams x {T} samples "
+        f"({T / 44100:.1f} s): " + "; ".join(res)
+        + f"; C8 shard hand-off, 4 streams x 8 blocks over 4 shards (3 "
+        f"boundaries, gain clipped at 0.1 in loud shards): {eh:.1f} dB vs the "
+        f"float64 oracle over the whole signal (< {ORACLE_DB}); with "
+        f"dither_seed the noise peaks at {lsb:.2f} 24-bit LSB (K2)")
+
+
+def phase_kernel_parallel(torch, dev, sz: Sizes) -> None:
+    """11d: `KernelParallelConv` of a 50 000-tap FIR, block 4096, batch 16,
+    over an 8-way 'kernel' mesh of the card, 8 blocks: ≤ −100 dB against
+    the full-kernel `OverlapSave`; a `with_kernel` swap from a fresh state
+    ≡ the new kernel's OverlapSave; the FFT sizes and ms per block."""
+    from afp_tpu_torch.ops.convolve import OverlapSave, next_pow2
+    from afp_tpu_torch.parallel import KernelParallelConv
+
+    rng = np.random.default_rng(190)
+    h = (rng.standard_normal(sz.kp_taps) / np.sqrt(sz.kp_taps)).astype(np.float32)
+    h2 = (rng.standard_normal(sz.kp_taps) / np.sqrt(sz.kp_taps)).astype(np.float32)
+    mesh = shard_mesh(dev, sz.kp_shards, ("kernel",))
+    x = torch.as_tensor((rng.standard_normal((sz.run_blocks, sz.kp_batch, sz.block))
+                         * 0.3).astype(np.float32), device=dev)
+    errs, walls = {}, {}
+    for name, taps in (("kernel", h), ("swapped", h2)):
+        kp = KernelParallelConv(h, block=sz.block, mesh=mesh, batch=sz.kp_batch)
+        if name == "swapped":
+            kp = kp.with_kernel(taps)
+        ref = OverlapSave.init(taps, block=sz.block, batch_shape=(sz.kp_batch,),
+                               device=dev)
+        kp.step(kp.init_state(), x[0])  # warm cuFFT's plans
+        ref.process(x[0])
+        st, e, w = kp.init_state(), -1e9, [0.0, 0.0]
+        for blk in x:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            st, y = kp.step(st, blk)
+            sync(torch, dev)
+            t1 = time.perf_counter()
+            ref, gold = ref.process(blk)
+            sync(torch, dev)
+            w[0] += t1 - t0
+            w[1] += time.perf_counter() - t1
+            e = max(e, err_db(y.cpu().numpy(), gold.cpu().numpy()))
+        errs[name], walls[name] = e, w
+    check(all(e <= -100.0 for e in errs.values()),
+          f"11d: kernel-parallel vs OverlapSave {errs}")
+    full = next_pow2(sz.block + sz.kp_taps - 1)
+    n = sz.run_blocks
+    say(f"phase 11d KernelParallelConv {sz.kp_taps} taps over {sz.kp_shards} "
+        f"shards of one card, block {sz.block}, batch {sz.kp_batch}, {n} blocks: "
+        f"{errs['kernel']:.1f} dB vs the full-kernel OverlapSave (<= -100), "
+        f"with_kernel swap {errs['swapped']:.1f} dB vs the new kernel's; per-shard "
+        f"FFT {kp.nfft} vs full {full}; {walls['kernel'][0] * 1e3 / n:.3f} ms/block "
+        f"sharded vs {walls['kernel'][1] * 1e3 / n:.3f} OverlapSave (host clock)")
+
+
+def phase_sharded_cli(torch, dev, sz: Sizes) -> None:
+    """11e: the CLI's ``--mesh``.  On a one-card machine ``process --mesh 2``
+    exits non-zero with the reference's message; the sharded row path on a
+    4-shard mesh of the card (`main(..., mesh=)`) ≡ ``--mesh 1``, bit for
+    bit, dither off, on a 60 s stereo file (phase 8's size, the CLI
+    defaults) and on a `batch` set of phase 8's size (32 stereo 30 s 16-bit
+    files, the C5 filter, int16 in and out); the example
+    `long_kernel_parallel` runs in a subprocess and exits 0."""
+    from afp_tpu_torch.cli import main
+    from afp_tpu_torch.utils import read_wav, read_wav_pcm16, write_wav, write_wav_pcm16
+
+    env = dict(os.environ)
+    if dev.type == "cuda":
+        os.environ.pop("AFP_FORCE_CPU", None)
+        env.pop("AFP_FORCE_CPU", None)
+    else:
+        os.environ["AFP_FORCE_CPU"] = env["AFP_FORCE_CPU"] = "1"
+    example = subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUNNER, "long_kernel_parallel",
+         *([] if dev.type == "cuda" else ["--taps", "3000", "--block", "1024"])],
+        cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        shutil.rmtree(SMOKE_PARALLEL, ignore_errors=True)
+        SMOKE_PARALLEL.mkdir(parents=True)
+        d = SMOKE_PARALLEL
+        rng = np.random.default_rng(200)
+        n = int(sz.cli_seconds * CLI_RATE)
+        write_wav(str(d / "in24.wav"),
+                  np.clip(0.3 * rng.standard_normal((2, n)), -1, 1), CLI_RATE, width=3)
+        msg = ""
+        if dev.type == "cuda":
+            over = torch.cuda.device_count() + 1
+            try:
+                main(["process", str(d / "in24.wav"), str(d / "x.wav"), "--mesh",
+                      str(over)])
+            except SystemExit as e:
+                msg = str(e)
+            check(msg == f"--mesh {over}: only {over - 1} devices available",
+                  f"11e: --mesh {over} on {over - 1} card(s) said {msg!r}")
+        mesh = shard_mesh(dev, 4)
+        off = ["--dither", "off"]
+        walls = {}
+        for tag, argv in (("1", []), ("4", ["--mesh", "4"])):
+            t0 = time.perf_counter()
+            rc = main(["process", str(d / "in24.wav"), str(d / f"p{tag}.wav"), *off,
+                       *argv], mesh=mesh if argv else None)
+            sync(torch, dev)
+            walls["process", tag] = time.perf_counter() - t0
+            check(rc == 0, f"11e: process --mesh {tag} exit {rc}")
+        check(np.array_equal(read_wav(str(d / "p4.wav"))[0],
+                             read_wav(str(d / "p1.wav"))[0]),
+              "11e: process --mesh 4 differs from --mesh 1")
+        nbt = int(sz.batch_seconds * CLI_RATE)
+        srcs = []
+        for i in range(sz.batch_files):
+            srcs.append(str(d / f"b{i:02d}.wav"))
+            write_wav_pcm16(srcs[-1], np.clip(np.round(rng.standard_normal(
+                (2, nbt)) * 0.2 * 32768), -32768, 32767).astype(np.int16), CLI_RATE)
+        c5 = ["--upsample", "4", "--numtaps", "1001", "--cutoff", "11000",
+              "--ingest", "pcm16", "--emit", "pcm16", *off]
+        for tag, argv in (("1", []), ("4", ["--mesh", "4"])):
+            t0 = time.perf_counter()
+            rc = main(["batch", *srcs, "-o", str(d / f"b{tag}"), *c5, *argv],
+                      mesh=mesh if argv else None)
+            sync(torch, dev)
+            walls["batch", tag] = time.perf_counter() - t0
+            check(rc == 0, f"11e: batch --mesh {tag} exit {rc}")
+        check(all(np.array_equal(read_wav_pcm16(str(d / "b4" / Path(s).name))[0],
+                                 read_wav_pcm16(str(d / "b1" / Path(s).name))[0])
+                  for s in srcs), "11e: batch --mesh 4 differs from --mesh 1")
+        so, se = example.communicate(timeout=300)
+        check(example.returncode == 0,
+              f"11e example long_kernel_parallel: exit {example.returncode}\n"
+              f"{se[-2000:]}")
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.wait()
+        shutil.rmtree(SMOKE_PARALLEL, ignore_errors=True)
+    lines = [ln for ln in so.splitlines() if ln.strip()]
+    say(f"phase 11e CLI: {msg or '--mesh on CPU shards here'}; process of a "
+        f"{sz.cli_seconds:g} s stereo file --mesh 4 (4 shards of one card) == "
+        f"--mesh 1 bit for bit ({walls['process', '4']:.2f} s vs "
+        f"{walls['process', '1']:.2f} s wall, WAV I/O included); batch of "
+        f"{sz.batch_files} stereo {sz.batch_seconds:g} s files, C5 int16 in and "
+        f"out, --mesh 4 == --mesh 1 bit for bit ({walls['batch', '4']:.2f} s vs "
+        f"{walls['batch', '1']:.2f} s); example long_kernel_parallel exit 0 with "
+        f"jax blocked: {lines[-1] if lines else ''}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3321,6 +3740,13 @@ PHASE_LAUNCHES = {
                           "fir_td_mxu_pair_to_ring"),
     "phase_observe_controller": ("dither_cuda", "fir_td_mxu_ring_f32"),
     "phase_observe_cli": ("dither_cuda",),
+    # phase 11, the parallel layer: K1-K10 between them
+    "phase_sharded_c5": ("fir_td_mxu", "fir_td_mxu_ring_f32",
+                         "fir_td_mxu_ring_mega_f32", "fir_td_mxu_banked"),
+    "phase_sharded_c8": ("rms_desired", "smooth_gain_apply",
+                         "fir_td_mxu_pair_to_ring", "fir_td_mxu_pair"),
+    "phase_long_signal": ("rms_desired", "smooth_gain_scan", "dither_cuda"),
+    "phase_sharded_cli": ("fir_td_mxu_pair",),
 }
 
 
@@ -3389,7 +3815,8 @@ def main() -> int:
                   phase_multirate_asrc, phase_multirate_cli, phase_parallel_agc,
                   phase_observe_waterfall, phase_observe_tap,
                   phase_observe_controller, phase_observe_cli,
-                  phase_observe_examples):
+                  phase_observe_examples, phase_sharded_c5, phase_sharded_c8,
+                  phase_long_signal, phase_kernel_parallel, phase_sharded_cli):
         t0 = time.perf_counter()
         before = counts(KERNELS)
         phase(torch, dev, sz)

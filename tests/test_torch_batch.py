@@ -571,8 +571,14 @@ def test_per_stream_gains_rings_refused():
         p.ring_step(params, p.init_state(), ring, None, 0, torch.zeros_like(ring))
     with pytest.raises(ValueError, match="run_ring_mega does not support per-stream"):
         p.run_ring_mega(params, p.init_state(), ring, None, torch.zeros_like(ring), 2)
-    with pytest.raises(ValueError, match="no shared cascade"):
-        params.combined_cascade(True)
+    # no shared taps: one cascade per stream, its own gains' band sum
+    k = params.combined_cascade(True)
+    g, bands = params.eq_gains.double(), params.casc_bands.double()
+    want = (g[:, :, None] * bands[None]).sum(1)
+    assert k.shape == want.shape == (p.batch, bands.shape[1])
+    e = float((k.double() - want).abs().max() / want.abs().max())
+    print(f"per-stream cascade vs float64: {20 * np.log10(e + 1e-300):.1f} dB")
+    assert 20 * np.log10(e + 1e-300) <= -130
 
 
 def _policies(p):

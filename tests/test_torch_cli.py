@@ -4,8 +4,9 @@ WAVs through both packages, dither off; `batch` ≡ `process` and `stream
 --lockstep` ≡ `process` inside the port, bit for bit; stream checkpoints
 resumed bit for bit with dither on; presets written byte for byte as the
 reference writes them; the plot flags draw, their arrays held to
-`afp_tpu`'s; ``--mesh`` raises naming its ROADMAP.md item; and with no
-card and no switch the CLI exits non-zero.  The
+`afp_tpu`'s; ``--mesh`` on CPU shards ≡ `afp_tpu`'s ``--mesh`` and the
+port's ``--mesh 1``; and with no card and no switch the CLI exits
+non-zero.  The
 multirate flags: ``--samplerate`` (the exact ASRC frontend) and
 ``--output-rate upsampled`` (the literal chain) against `afp_tpu`, `batch`
 ≡ `process` and the lockstep ASRC stream ≡ `process` inside the port.
@@ -191,15 +192,43 @@ def test_stream_faults_and_paced(tmp_path, capsys):
 
 
 def test_unported_flags_raise_naming_their_item(tmp_path):
-    """``--mesh`` (item 11) still raises before any work; the plot flags,
-    which raised before items 10b and 12b, now write their PNGs."""
-    src = wav(tmp_path / "in.wav", "fft", 2048, seed=6)
+    """The flags that once raised naming their ROADMAP.md items now run:
+    ``--mesh`` (item 11) shards the rows over CPU shards under
+    ``AFP_FORCE_CPU``, and ``process --mesh 2`` and ``batch --mesh 4``
+    match `afp_tpu`'s ``--mesh`` (its virtual CPU devices) and the port's
+    ``--mesh 1`` (bit for bit); ``--mesh`` with rate conversion and on
+    ``stream`` is refused as in `afp_tpu`; the plot flags, which raised
+    before items 10b and 12b, write their PNGs."""
+    src = wav(tmp_path / "in.wav", "fft", 2048 + 77, seed=6)
+    srcs = [src, wav(tmp_path / "m.wav", "fft", 3000, seed=7, ch=1)]
     out = str(tmp_path / "o.wav")
-    for argv in (["process", src, out, "--mesh", "2"],
-                 ["batch", src, "-o", str(tmp_path / "b"), "--mesh", "4"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            main(argv + FLAGS)
-    assert not os.path.exists(out)
+    for flags in ([], ["--agc", "--agc-link"]):
+        argv = ["process", src, out, "--mesh", "2", *flags, *FLAGS]
+        assert main(argv) == 0
+        assert jmain(argv[:2] + [str(tmp_path / "ref.wav")] + argv[3:]) == 0
+        assert main(["process", src, str(tmp_path / "one.wav"), *flags,
+                     *FLAGS]) == 0
+        got = read(out, "fft")
+        np.testing.assert_array_equal(got, read(str(tmp_path / "one.wav"), "fft"))
+        compare("agc-link" if flags else "fft", got,
+                read(str(tmp_path / "ref.wav"), "fft"),
+                f"process --mesh 2 {' '.join(flags)}")
+    for d, cli in (("ours", main), ("ref", jmain)):
+        assert cli(["batch", *srcs, "-o", str(tmp_path / d), "--mesh", "4",
+                    *FLAGS]) == 0
+    assert main(["batch", *srcs, "-o", str(tmp_path / "one"), *FLAGS]) == 0
+    for p in srcs:
+        name = os.path.basename(p)
+        got = read(str(tmp_path / "ours" / name), "fft")
+        np.testing.assert_array_equal(got, read(str(tmp_path / "one" / name),
+                                                "fft"))
+        compare("fft", got, read(str(tmp_path / "ref" / name), "fft"),
+                f"batch --mesh 4 {name}")
+    with pytest.raises(SystemExit, match="rate conversion"):
+        main(["process", src, out, "--mesh", "2", "--samplerate", "48000",
+              *FLAGS])
+    with pytest.raises(SystemExit, match="process/batch"):
+        main(["stream", src, "--lockstep", "--mesh", "2", *FLAGS])
     png = {k: str(tmp_path / f"{k}.png") for k in "swcr"}
     for argv in (["process", src, out, "--spectrum-plot", png["s"],
                   "--waterfall-plot", png["w"]],

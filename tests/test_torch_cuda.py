@@ -1224,3 +1224,35 @@ def test_parallel_agc_on_the_card_equals_exact(dev):
     e = err_db(g, A.smooth_gain_scan(d, a_att, a_rel, init=torch.ones(64)))
     print(f"parallel on the card: {it} solves, {e:.1f} dB vs exact")
     assert g.is_cuda and it <= 24 and e < -105
+
+
+@pytest.mark.parametrize("form", ["td", "agc"])
+def test_sharded_step_equals_unsharded(dev, form):
+    """The parallel slice: a 2-shard mesh of the one card (C5's conv, or
+    the C8 chain linked in pairs) ≡ the unsharded pipeline bit for bit,
+    dither off, over 3 chained steps and a run, carried state included."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+    from afp_tpu_torch.parallel import ShardedPipeline, make_mesh
+
+    over = (dict(upsample_factor=4, numtaps=1001, eq_enabled=False)
+            if form == "td" else dict(agc_enabled=True, agc_window_size=256,
+                                      agc_link_group=2, output_clip=0.99))
+    cfg = StreamConfig(samplerate=44100, blocksize=1024, batch=64,
+                       conv_strategy="td_mxu", dither_kind="off", **over)
+    pipe = Pipeline(cfg, dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    x = randn(dev, 3, 64, 1024, seed=8) * 0.2
+    ust, gold = pipe.run(params, pipe.init_state(), x)
+    sp = ShardedPipeline(cfg, make_mesh(2, devices=[dev] * 2))
+    st, outs = sp.init_state(), []
+    for blk in x:
+        st, y = sp.step(params, st, blk)
+        outs.append(y)
+    _, yr = sp.run(params, sp.init_state(), x)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(outs), gold) and torch.equal(yr, gold)
+    tail, utail = st.gather("conv_tail"), ust.conv_tail
+    for a, b in (zip(tail, utail) if isinstance(tail, tuple)
+                 else [(tail, utail)]):
+        assert torch.equal(a, b)
+    print(f"{form}: 2 shards of the card == unsharded")

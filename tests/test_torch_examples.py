@@ -39,6 +39,7 @@ EXAMPLES = [
     ["per_stream_banks", "--streams", "4", "--blocks", "4"],
     ["live_audio"],  # no PortAudio here: prints the devices, exits 0
     ["ring_serving", "--streams", "2", "--blocks", "6", "--chunk", "2"],
+    ["long_kernel_parallel", "--taps", "3000", "--block", "1024"],
 ]
 
 #: the examples that write files take --out-dir
@@ -61,6 +62,11 @@ def test_example_runs(argv, tmp_path):
         assert (tmp_path / "waterfall.png").stat().st_size > 1000
     if argv[0] == "presets_stream":
         assert "resume max diff: 0.0" in r.stdout
+    if argv[0] == "long_kernel_parallel":
+        err = float(r.stdout.split("worst rel err")[1].split("dB")[0])
+        print(f"long_kernel_parallel: {err} dB (bound -100)")
+        assert "per-device FFT 2048 vs single-device 4096" in r.stdout
+        assert err <= -100.0
 
 
 def test_examples_refuse_without_a_card_or_the_switch(tmp_path):

@@ -6,7 +6,10 @@ pipeline, with and without AGC, a short `stream` through the CLI, the
 multirate paths (the ASRC, the literal chain, the parallel AGC,
 ``--samplerate``) and the observation paths (the carried waterfall, the
 serving tap, the controller, the CLI's plots) run end to end on the
-CPU."""
+CPU, and so does the parallel layer (a sharded pipeline and its server,
+the halo exchange, a long signal, the kernel-parallel FIR, ``--mesh``).
+`afp_tpu.parallel`'s names are all there but ``P`` and ``NamedSharding``
+(jax's sharding types: the port's shard layout is structural)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -117,6 +120,40 @@ assert all(os.path.getsize(d + f) > 1000 for f in ("/s.png", "/w.png", "/r.png")
 """
 
 
+#: the parallel slice on 4 CPU shards
+_RUN_PARALLEL = """
+import numpy as np
+from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+from afp_tpu_torch.parallel import (KernelParallelConv, ShardedPipeline,
+                                    filter_long_signal, halo_convolve,
+                                    make_mesh)
+from afp_tpu_torch.runtime import RingServer
+cfg = StreamConfig(blocksize=256, batch=4, numtaps=31, conv_strategy="td_mxu")
+sp = ShardedPipeline(cfg, make_mesh(4, devices=["cpu"] * 4))
+params = sp.device_params(PipelineParams.design(sp.cfg))
+st, y = sp.run(params, sp.init_state(), np.full((2, 4, 256), 0.1, np.float32))
+assert y.shape == (2, 4, 256)
+srv = RingServer(sp, params, slots=4, chunk=2, max_inflight=1)
+assert len(list(srv.stream(iter(np.full((4, 4, 256), 0.1, np.float32))))) == 4
+t = make_mesh(4, ("time",), devices=["cpu"] * 4)
+assert halo_convolve(np.ones(1024, np.float32), np.ones(9, np.float32), t).shape == (1024,)
+pipe = Pipeline(StreamConfig(blocksize=256, batch=1, numtaps=31), "cpu")
+y = filter_long_signal(pipe, pipe.device_params(PipelineParams.design(pipe.cfg)),
+                       np.full((1, 4096), 0.1, np.float32), t)
+assert y.shape == (1, 4096)
+kp = KernelParallelConv(np.ones(100), 256, make_mesh(4, ("kernel",), devices=["cpu"] * 4))
+assert kp.step(kp.init_state(), np.ones((1, 256), np.float32))[1].shape == (1, 256)
+import os, tempfile
+os.environ["AFP_FORCE_CPU"] = "1"
+from afp_tpu_torch.cli import main
+from afp_tpu_torch.utils import write_wav
+d = tempfile.mkdtemp()
+write_wav(d + "/in.wav", np.full((2, 1024), 0.1, np.float32), 44100)
+assert main(["process", d + "/in.wav", d + "/out.wav", "--blocksize", "256",
+             "--numtaps", "33", "--mesh", "2"]) == 0
+"""
+
+
 def _probe(mods, extra=""):
     return subprocess.run(
         [sys.executable, "-c",
@@ -145,8 +182,13 @@ def _probe(mods, extra=""):
       *(f"afp_tpu_torch.examples.{m}" for m in (
           "agc_stream", "baseline_stream", "eq_stream", "live_audio",
           "per_stream_banks", "presets_stream", "ring_serving",
-          "waterfall_stream"))], _RUN_OBSERVE)],
-    ids=["import", "run", "multirate", "observe"])
+          "waterfall_stream"))], _RUN_OBSERVE),
+    (["afp_tpu_torch.parallel", "afp_tpu_torch.parallel.mesh",
+      "afp_tpu_torch.parallel.collectives", "afp_tpu_torch.parallel.dp",
+      "afp_tpu_torch.parallel.halo", "afp_tpu_torch.parallel.long",
+      "afp_tpu_torch.parallel.kp",
+      "afp_tpu_torch.examples.long_kernel_parallel"], _RUN_PARALLEL)],
+    ids=["import", "run", "multirate", "observe", "parallel"])
 def test_imports_without_jax(mods, extra):
     r = _probe(mods, extra)
     print(r.stdout, r.stderr[-2000:])
@@ -160,3 +202,13 @@ def test_the_blocker_blocks(mod, blocked):
     something)."""
     r = _probe([mod])
     assert r.returncode != 0 and f"blocked: {blocked}" in r.stderr
+
+
+def test_parallel_names_match_afp_tpu():
+    """`afp_tpu_torch.parallel` exports `afp_tpu.parallel`'s names, less
+    jax's sharding types ``P`` and ``NamedSharding``."""
+    import afp_tpu.parallel as ref
+    import afp_tpu_torch.parallel as port
+
+    assert set(ref.__all__) - set(port.__all__) == {"P", "NamedSharding"}
+    assert all(hasattr(port, n) for n in port.__all__)
