@@ -22,10 +22,10 @@ under ``emit='pcm16'`` (the ladder's silence and the underrun blend stay
 int16; the blend requantizes).
 
 On a card, `process_block` stages its copies through pinned memory (the
-`RingServer` idiom, `runtime/serving.py:_copy_in`), and `process_signal`
-can upload a long signal in chunks on a copy stream behind the compute
-(``AFP_STAGE_CHUNK_MB``); both give the same bits as the pageable one-shot
-copy.  :meth:`StreamEngine.process_frames` regroups chunks of any length
+helper `RingServer` lands blocks with, `utils/staging.py:to_device`), and
+`process_signal` can upload a long signal in chunks on a copy stream
+behind the compute (``AFP_STAGE_CHUNK_MB``); both give the same bits as
+the pageable one-shot copy.  :meth:`StreamEngine.process_frames` regroups chunks of any length
 through the residual framers (`runtime/framer.py`), whose residuals
 checkpoints carry (`engine/checkpoint.py`); under upsampled output it
 emits ``upsample_factor`` samples per input sample.
@@ -55,7 +55,9 @@ import numpy as np
 import torch
 
 from ..ops.agc import AGCParams
+from ..utils import trace
 from ..utils.log import RateLimited, get_logger
+from ..utils.staging import to_device
 from .config import PipelineParams, StreamConfig
 from .metrics import EngineMetrics
 from .pipeline import DeviceParams, Pipeline, StreamState
@@ -319,15 +321,12 @@ class StreamEngine:
 
     def _upload(self, block: np.ndarray):
         """A host block on the engine's device: on a card through pinned
-        memory of the block's own dtype, so the copy queues behind the
-        stream (the host allocator keeps the staging buffer until it has
-        run); on the CPU the array itself."""
+        memory (:func:`~afp_tpu_torch.utils.staging.to_device`); on the
+        CPU the array itself."""
         if self.device.type != "cuda":
             return block
-        src = torch.from_numpy(np.ascontiguousarray(block))
-        staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        staged.copy_(src)
-        return staged.to(self.device, non_blocking=True)
+        return to_device(torch.from_numpy(np.ascontiguousarray(block)),
+                         device=self.device)
 
     def _download(self, out: torch.Tensor) -> np.ndarray:
         """A device output as numpy: on a card through pinned memory, waited
@@ -336,10 +335,15 @@ class StreamEngine:
             return out.cpu().numpy()
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        with trace.span("afp.engine.download.wait"):
+            torch.cuda.current_stream(self.device).synchronize()
         return host.numpy()
 
     def _process_engine_block(self, block: np.ndarray) -> np.ndarray:
+        """One engine block through the ladder, traced as
+        ``afp.engine.block`` around ``afp.engine.upload``, ``.step``,
+        ``.download`` and ``.check``."""
+        k = self.metrics.blocks_processed
         expected = (self.cfg.batch, self.cfg.blocksize)
         if block.shape != expected:
             # pad/trim rung (`stream_process_EQ.py:110-117`)
@@ -349,29 +353,40 @@ class StreamEngine:
             fixed[:b, :t] = block[:b, :t]
             block = fixed
         t0 = time.monotonic()
-        try:
-            with self._swap_lock:
-                pipeline, params, state_in = self.pipeline, self.params, self.state
-            state, out = pipeline.step(params, state_in, self._upload(block))
-            out_np = self._download(out)  # waits for the device
-            # int16 output is finite by construction: the rung guards floats
-            if out_np.dtype != np.int16 and not np.all(np.isfinite(out_np)):
-                raise FloatingPointError("non-finite output")
-            with self._swap_lock:
-                if self.pipeline is pipeline:  # drop state if rebuilt mid-block
-                    self.state = state
-            self._last_good.append(out_np)
-            busy = time.monotonic() - t0
-            self.metrics.record_block(self.cfg.blocksize, busy, self._block_seconds)
-            return out_np
-        except Exception as e:  # replay / silence rungs
-            _rate.warn("proc_err", "Processing error: %s", e)
-            self.metrics.underruns += 1
-            if self._last_good:
-                self.metrics.fallback_replays += 1
-                return self._last_good[-1]
-            self.metrics.fallback_silence += 1
-            return np.zeros(self._out_shape, dtype=self._out_dtype)
+        with trace.span("afp.engine.block", block=k, blocks=1):
+            try:
+                with self._swap_lock:
+                    pipeline, params, state_in = (self.pipeline, self.params,
+                                                  self.state)
+                with trace.span("afp.engine.upload", block=k, blocks=1):
+                    x = self._upload(block)
+                with trace.span("afp.engine.step", block=k, blocks=1):
+                    state, out = pipeline.step(params, state_in, x)
+                with trace.span("afp.engine.download", block=k, blocks=1):
+                    out_np = self._download(out)  # waits for the device
+                # int16 output is finite by construction: the rung guards
+                # floats
+                if out_np.dtype != np.int16:
+                    with trace.span("afp.engine.check", block=k, blocks=1):
+                        finite = np.all(np.isfinite(out_np))
+                    if not finite:
+                        raise FloatingPointError("non-finite output")
+                with self._swap_lock:
+                    if self.pipeline is pipeline:  # drop state if rebuilt
+                        self.state = state
+                self._last_good.append(out_np)
+                busy = time.monotonic() - t0
+                self.metrics.record_block(self.cfg.blocksize, busy,
+                                          self._block_seconds)
+                return out_np
+            except Exception as e:  # replay / silence rungs
+                _rate.warn("proc_err", "Processing error: %s", e)
+                self.metrics.underruns += 1
+                if self._last_good:
+                    self.metrics.fallback_replays += 1
+                    return self._last_good[-1]
+                self.metrics.fallback_silence += 1
+                return np.zeros(self._out_shape, dtype=self._out_dtype)
 
     def _scale_out(self, block: np.ndarray, factor: float) -> np.ndarray:
         """Scale an output block in the output dtype: f32 directly, int16

@@ -4,13 +4,14 @@
 Structured counters replacing the reference's print-based monitoring:
 overruns (`stream_process_EQ_GUI.py:107-111`), queue drops
 (`stream_process_AGC.py:198-199`), underruns/fallbacks
-(`stream_process.py:115-120`), and the aggregate real-time factor (xRT =
-audio-seconds-processed / wall-seconds), the benchmark headline metric.
+(`stream_process.py:115-120`), and the aggregate real-time factor over
+the time spent processing (:meth:`EngineMetrics.xrt_busy`).  The
+reference's wall-clock xRT is not copied: its wall starts at construction,
+set-up included, and nothing reads it; the benchmark takes its own clock.
 """
 from __future__ import annotations
 
-import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 __all__ = ["EngineMetrics"]
 
@@ -26,7 +27,6 @@ class EngineMetrics:
     fallback_replays: int = 0  # last-good block replayed
     fallback_silence: int = 0  # silence emitted
     design_fallbacks: int = 0  # moving-average kernel substituted
-    wall_start: float = field(default_factory=time.monotonic)
     busy_seconds: float = 0.0
 
     def record_block(self, nsamples: int, busy: float, block_seconds: float) -> None:
@@ -35,13 +35,6 @@ class EngineMetrics:
         self.busy_seconds += busy
         if busy > block_seconds:
             self.overruns += 1
-
-    def xrt(self, samplerate: float) -> float:
-        """Aggregate real-time factor across all streams (wall-clock based)."""
-        wall = time.monotonic() - self.wall_start
-        if wall <= 0:
-            return 0.0
-        return self.streams * self.samples_processed / samplerate / wall
 
     def xrt_busy(self, samplerate: float) -> float:
         """xRT counting only device-busy time (the benchmark's measure)."""

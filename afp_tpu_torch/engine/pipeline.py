@@ -149,6 +149,7 @@ import torch
 from ..design.windows import hann
 from ..ops.agc import AGCParams, link_desired, smooth_gain_parallel
 from ..ops.convolve import next_pow2
+from ..ops.cuda import device_launches
 from ..ops.cuda.agc_fused import agc_rms_apply, fused_rms_supported
 from ..ops.cuda.agc_rms import band_is_exact_bf16, rms_desired
 from ..ops.cuda.agc_scan import smooth_gain_apply
@@ -165,6 +166,7 @@ from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_banked,
 from ..ops.resample import (PolyResampler, decimate, resample_poly,
                             streaming_kernel)
 from ..ops.spectrum import spectrum_db, waterfall_init, waterfall_push
+from ..utils import trace
 from .config import PipelineParams, StreamConfig
 
 __all__ = ["DeviceParams", "StreamState", "Pipeline"]
@@ -243,6 +245,8 @@ class DeviceParams(NamedTuple):
         if eq_enabled and self.casc_bands is not None and self.casc_bands.shape[0] > 0:
             g = self.eq_gains
             if g.ndim == 1:
+                if self.casc_bands.is_cuda:  # the product and the band sum
+                    trace.add(ops=2)
                 return (g[:, None] * self.casc_bands).sum(0)
             k = g[:, :1] * self.casc_bands[0]
             for i in range(1, g.shape[1]):
@@ -1136,11 +1140,14 @@ class Pipeline:
                  n_steps: int, start: int = 0):
         """`n_steps` ring steps over slots ``(start+i) mod S`` (one K3, K12
         or K13 launch each; with AGC, K5, K6 and K7 each); `out_ring` is
-        written in place."""
+        written in place.  Traced as ``afp.pipe.run_ring``."""
         S = ring_hi.shape[0]
-        for i in range(int(n_steps)):
-            state, out_ring = self.ring_step(params, state, ring_hi, ring_lo,
-                                             (start + i) % S, out_ring)
+        with trace.span("afp.pipe.run_ring", block=state.step,
+                        blocks=int(n_steps), counter=device_launches):
+            for i in range(int(n_steps)):
+                state, out_ring = self.ring_step(params, state, ring_hi,
+                                                 ring_lo, (start + i) % S,
+                                                 out_ring)
         return state, out_ring
 
     def run_ring_mega(self, params: DeviceParams, state: StreamState,
@@ -1149,22 +1156,25 @@ class Pipeline:
         """:meth:`run_ring` as ONE kernel launch (K4; K12 for pcm16, K13 for
         pair rings; banked K4/K12 under a filter bank): same slots, outputs,
         tail and dither as the chained steps.  The AGC chain has no such form
-        (`afp_tpu/engine/pipeline.py:1358-1467`)."""
+        (`afp_tpu/engine/pipeline.py:1358-1467`).  Traced as
+        ``afp.pipe.run_ring_mega``."""
         if self._agc_on:
             raise ValueError(
                 "run_ring_mega requires a conv ring without AGC: the AGC "
                 "chain serves through run_ring")
-        h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring,
-                                 form="run_ring_mega")
-        dkw = self._dither_kw(state, self.cfg.output_clip)
-        if self._pair_ingest:
-            out_ring, th, tl = fir_td_mxu_ring_mega(
-                ring_hi, ring_lo, start, *state.conv_tail, h, out_ring,
-                n_steps, **dkw)
-            tail = (th, tl)
-        else:
-            mega = (fir_td_mxu_ring_mega_pcm16 if self._i16_ingest
-                    else fir_td_mxu_ring_mega_f32)
-            out_ring, tail = mega(ring_hi, start, state.conv_tail, h,
-                                  out_ring, n_steps, **dkw, **bkw)
+        with trace.span("afp.pipe.run_ring_mega", block=state.step,
+                        blocks=int(n_steps), counter=device_launches):
+            h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring,
+                                     form="run_ring_mega")
+            dkw = self._dither_kw(state, self.cfg.output_clip)
+            if self._pair_ingest:
+                out_ring, th, tl = fir_td_mxu_ring_mega(
+                    ring_hi, ring_lo, start, *state.conv_tail, h, out_ring,
+                    n_steps, **dkw)
+                tail = (th, tl)
+            else:
+                mega = (fir_td_mxu_ring_mega_pcm16 if self._i16_ingest
+                        else fir_td_mxu_ring_mega_f32)
+                out_ring, tail = mega(ring_hi, start, state.conv_tail, h,
+                                      out_ring, n_steps, **dkw, **bkw)
         return StreamState(tail, state.seed, state.step + int(n_steps)), out_ring

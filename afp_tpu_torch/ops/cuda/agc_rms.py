@@ -287,4 +287,5 @@ def rms_desired(x: torch.Tensor, band: torch.Tensor, lp: int, rp: int,
 
 
 rms_desired.launches = 0
+rms_desired.kernels = 1
 rms_desired.vector_launches = 0

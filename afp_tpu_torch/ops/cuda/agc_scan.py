@@ -186,6 +186,7 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
 
 
 smooth_gain_apply.launches = 0
+smooth_gain_apply.kernels = 1
 smooth_gain_apply.vector_launches = 0
 
 
@@ -252,3 +253,4 @@ def smooth_gain_scan(desired: torch.Tensor, a_att, a_rel, init=None,
 
 
 smooth_gain_scan.launches = 0
+smooth_gain_scan.kernels = 1

@@ -86,7 +86,9 @@ Each wrapper dispatches on the device of its input: a CPU tensor takes the
 plain version beside it (``*_plain``: the three split products as fp32
 matmuls against :func:`band_matrix` — bf16 values multiply exactly in fp32),
 a CUDA tensor launches the kernel or raises.  ``<wrapper>.launches`` counts
-kernel launches (``.banked_launches`` those with the bank option).  Noise
+its calls on a card (``.banked_launches`` those with the bank option), and
+``<wrapper>.kernels`` is the kernels each call launches (the ring and pair
+forms launch ``ring_tail_kernel`` after the conv).  Noise
 is keyed by ``dither_key = (seed, block counter)`` (see
 `afp_tpu_torch/ops/dither.py`); a ring dispatch of n steps uses block
 counters ``counter … counter+n−1``.
@@ -99,6 +101,7 @@ import functools
 
 import torch
 
+from ...utils import trace
 from ..dither import lsb_for_bits, noise
 from . import _build
 
@@ -496,6 +499,7 @@ def fir_td_mxu(x_ext: torch.Tensor, h: torch.Tensor, out_clip=None,
 
 
 fir_td_mxu.launches = 0
+fir_td_mxu.kernels = 1
 fir_td_mxu.highest_launches = 0
 
 
@@ -562,6 +566,7 @@ def fir_td_mxu_banked(x_ext: torch.Tensor, bank: torch.Tensor, assign,
 
 
 fir_td_mxu_banked.launches = 0
+fir_td_mxu_banked.kernels = 1
 
 
 # ---------------------------------------------------------------- K11
@@ -655,6 +660,7 @@ def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
 
 
 fir_td_mxu_per_stream.launches = 0
+fir_td_mxu_per_stream.kernels = 1
 fir_td_mxu_per_stream.highest_launches = 0
 
 # ---------------------------------------------------------------- ring forms
@@ -685,6 +691,8 @@ def _ring_args(ring, tail, h, out_ring, dtype, assign=None):
                          f"{tuple(tail.shape)}")
     if tail.shape[1] < k_pad:
         tail = torch.nn.functional.pad(tail, (k_pad - tail.shape[1], 0))
+        if tail.is_cuda:  # the pad's fill and copy
+            trace.add(ops=2)
     return h, tail.contiguous(), k_pad, emit, assign, bt
 
 
@@ -783,6 +791,7 @@ def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
 
 
 fir_td_mxu_ring_f32.launches = 0
+fir_td_mxu_ring_f32.kernels = 2
 fir_td_mxu_ring_f32.banked_launches = 0
 
 
@@ -831,6 +840,7 @@ def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
 
 
 fir_td_mxu_ring_mega_f32.launches = 0
+fir_td_mxu_ring_mega_f32.kernels = 2
 fir_td_mxu_ring_mega_f32.banked_launches = 0
 
 
@@ -872,6 +882,7 @@ def fir_td_mxu_ring_pcm16(ring: torch.Tensor, idx: int, tail: torch.Tensor,
 
 
 fir_td_mxu_ring_pcm16.launches = 0
+fir_td_mxu_ring_pcm16.kernels = 2
 fir_td_mxu_ring_pcm16.banked_launches = 0
 
 
@@ -911,6 +922,7 @@ def fir_td_mxu_ring_mega_pcm16(ring: torch.Tensor, start: int,
 
 
 fir_td_mxu_ring_mega_pcm16.launches = 0
+fir_td_mxu_ring_mega_pcm16.kernels = 2
 fir_td_mxu_ring_mega_pcm16.banked_launches = 0
 
 
@@ -936,6 +948,8 @@ def _pair_tail_args(B, tail_hi, tail_lo, h, ref):
     if pad:
         tail_hi = torch.nn.functional.pad(tail_hi, (pad, 0))
         tail_lo = torch.nn.functional.pad(tail_lo, (pad, 0))
+        if tail_hi.is_cuda:  # each pad's fill and copy
+            trace.add(ops=4)
     return h, tail_hi.contiguous(), tail_lo.contiguous(), k_pad
 
 
@@ -1022,6 +1036,7 @@ def fir_td_mxu_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
 
 
 fir_td_mxu_pair.launches = 0
+fir_td_mxu_pair.kernels = 2
 
 
 def fir_td_mxu_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo, h, idx,
@@ -1067,6 +1082,7 @@ def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
 
 
 fir_td_mxu_pair_to_ring.launches = 0
+fir_td_mxu_pair_to_ring.kernels = 2
 
 
 # ---------------------------------------------------------------- K13
@@ -1128,6 +1144,7 @@ def fir_td_mxu_ring(ring_hi: torch.Tensor, ring_lo: torch.Tensor, idx: int,
 
 
 fir_td_mxu_ring.launches = 0
+fir_td_mxu_ring.kernels = 2
 
 
 def fir_td_mxu_ring_mega_plain(ring_hi, ring_lo, start, tail_hi, tail_lo, h,
@@ -1172,3 +1189,4 @@ def fir_td_mxu_ring_mega(ring_hi: torch.Tensor, ring_lo: torch.Tensor,
 
 
 fir_td_mxu_ring_mega.launches = 0
+fir_td_mxu_ring_mega.kernels = 2

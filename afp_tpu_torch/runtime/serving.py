@@ -62,7 +62,9 @@ from ..engine.pipeline import DeviceParams, Pipeline, StreamState, bf16_tensor
 from ..ops.agc import AGCParams
 from ..ops.cuda.fir_td import split_bf16
 from ..ops.spectrum import WATERFALL_DEPTH, spectrum_db_np, spectrum_freqs
+from ..utils import trace
 from ..utils.log import get_logger
+from ..utils.staging import to_device
 
 logger = get_logger("serving")
 
@@ -172,7 +174,8 @@ class RingServer:
         self.blocks_served = 0
         #: blocks landed into input slots so far
         self.blocks_landed = 0
-        #: land→drain wall latency per served block (host clock, recent window)
+        #: source→drain wall latency per served block (host clock, recent
+        #: window)
         self._latencies: deque = deque(maxlen=65536)
         #: the drain-side spectrum tap (see the class docstring)
         self.spectrum_every = int(spectrum_every)
@@ -257,19 +260,13 @@ class RingServer:
     # -------------------------------------------------- core pump
 
     def _copy_in(self, dst: torch.Tensor, src: torch.Tensor) -> None:
-        """Copy a host block into the device tensor `dst`: through pinned
-        memory of the block's own dtype on a card, so the copy queues
-        behind the stream instead of waiting for it (the host allocator
-        keeps the staging buffer until the copy has run)."""
+        """Copy a host block into the device tensor `dst`
+        (:func:`~afp_tpu_torch.utils.staging.to_device`: through pinned
+        memory on a card)."""
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"blocks must be {tuple(dst.shape)}, "
                              f"got {tuple(src.shape)}")
-        if self._cuda:
-            staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            staged.copy_(src)
-            dst.copy_(staged, non_blocking=True)
-        else:
-            dst.copy_(src)
+        to_device(src, dst)
 
     def _land(self, slot: int, block) -> None:
         """Copy one [batch, blocksize] block into input slot `slot` in the
@@ -278,17 +275,22 @@ class RingServer:
         quantized); under pair ingest a ``(hi, lo)`` pair as given, or an
         f32 block split on the device; else f32.  With a packing the block
         is gathered into device order on the device; over a sharded
-        pipeline each shard's rows land in its own ring."""
-        pair = self.pipe._pair_ingest and isinstance(block, (tuple, list))
-        if self._layout is None:
-            self._land_rows(self._ring, self._ring_lo, slot, block, pair)
-            return
-        if not pair and not isinstance(block, torch.Tensor):
-            block = np.asarray(block)
-        for i, (r0, r1) in enumerate(self._layout.rows):
-            rows = tuple(h[r0:r1] for h in block) if pair else block[r0:r1]
-            lo = None if self._ring_lo is None else self._ring_lo[i]
-            self._land_rows(self._ring[i], lo, slot, rows, pair)
+        pipeline each shard's rows land in its own ring.  Traced as
+        ``afp.serve.land``."""
+        with trace.span("afp.serve.land", block=self.blocks_landed,
+                        blocks=1):
+            pair = self.pipe._pair_ingest and isinstance(block,
+                                                         (tuple, list))
+            if self._layout is None:
+                self._land_rows(self._ring, self._ring_lo, slot, block, pair)
+                return
+            if not pair and not isinstance(block, torch.Tensor):
+                block = np.asarray(block)
+            for i, (r0, r1) in enumerate(self._layout.rows):
+                rows = (tuple(h[r0:r1] for h in block) if pair
+                        else block[r0:r1])
+                lo = None if self._ring_lo is None else self._ring_lo[i]
+                self._land_rows(self._ring[i], lo, slot, rows, pair)
 
     def _land_rows(self, ring, ring_lo, slot: int, block, pair: bool) -> None:
         """:meth:`_land` into the ring `ring` (and `ring_lo`)."""
@@ -313,6 +315,8 @@ class RingServer:
         hi, lo = split_bf16(x)
         ring[slot].copy_(hi)
         ring_lo[slot].copy_(lo)
+        if self._cuda:  # the split's 14 elementwise kernels and 2 copies
+            trace.add(ops=16)
 
     def _put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         """Land the host block `src` in the device tensor `dst`, gathered
@@ -329,25 +333,31 @@ class RingServer:
         self._copy_in(staging, src)
         torch.index_select(staging, 0,
                            self.packing.index("perm", staging.device), out=dst)
+        if self._cuda:
+            trace.add(ops=1)
 
     def _fetch(self, slot: int, n: int):
         """Queue the copy of output slots [slot, slot+n) to the host; returns
         (host tensor, the events marking its completion: one per card, none
-        on the CPU)."""
-        if self._layout is not None:
-            return self._fetch_shards(slot, n)
-        view = self._out[slot:slot + n]
-        if self.packing is not None:  # restore caller stream order
-            view = torch.index_select(
-                view, 1, self.packing.index("inv", view.device),
-                out=None if self._stage_out is None else self._stage_out[:n])
-        if not self._cuda:
-            return view.clone(), []  # later dispatches rewrite these slots
-        host = torch.empty(view.shape, dtype=view.dtype, pin_memory=True)
-        host.copy_(view, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, [ev]
+        on the CPU).  Traced as ``afp.serve.fetch``."""
+        with trace.span("afp.serve.fetch", block=self.blocks_landed - n):
+            if self._layout is not None:
+                return self._fetch_shards(slot, n)
+            view = self._out[slot:slot + n]
+            if self.packing is not None:  # restore caller stream order
+                view = torch.index_select(
+                    view, 1, self.packing.index("inv", view.device),
+                    out=None if self._stage_out is None
+                    else self._stage_out[:n])
+            if not self._cuda:
+                trace.add(bytes=view.nbytes)
+                return view.clone(), []  # later dispatches rewrite these slots
+            host = torch.empty(view.shape, dtype=view.dtype, pin_memory=True)
+            host.copy_(view, non_blocking=True)
+            trace.add(bytes=view.nbytes, ops=1 + (self.packing is not None))
+            ev = torch.cuda.Event()
+            ev.record()
+            return host, [ev]
 
     def _fetch_shards(self, slot: int, n: int):
         """:meth:`_fetch` over per-shard rings: each shard's rows of each
@@ -361,6 +371,8 @@ class RingServer:
         for ring, (r0, r1) in zip(out, self._layout.rows):
             for j in range(n):
                 host[j, r0:r1].copy_(ring[slot + j], non_blocking=self._cuda)
+        trace.add(bytes=host.nbytes,
+                  ops=n * len(self._layout.rows) if self._cuda else 0)
         evs = []
         if self._cuda:
             for d in dict.fromkeys(self._layout.devices):
@@ -374,9 +386,11 @@ class RingServer:
         PCM blocks under pcm16 ingest, or bf16 ``(hi, lo)`` pairs under pair
         ingest) through the rings; yield one [batch, blocksize] output per
         input block (int16 under ``emit='pcm16'``), in order.  A short
-        final chunk is served as is."""
+        final chunk is served as is.  The drain's wait on a chunk's copy is
+        traced as ``afp.serve.drain.wait``, closed before the chunk's
+        blocks are yielded."""
         inflight: list = []
-        land_ts: list[float] = []  # land time per pending block
+        taken: list[float] = []  # when each pending block left the source
         slot = 0
         pending = 0
         src = iter(source)
@@ -388,8 +402,8 @@ class RingServer:
                 except StopIteration:
                     exhausted = True
                     break
+                taken.append(time.perf_counter())
                 self._land(slot + pending, block)
-                land_ts.append(time.perf_counter())
                 pending += 1
                 self.blocks_landed += 1
             if pending and (pending == self.chunk or exhausted):
@@ -400,15 +414,17 @@ class RingServer:
                 self._state, self._out = dispatch(
                     params, self._state, self._ring, self._ring_lo, self._out,
                     pending, start=slot)
-                inflight.append((*self._fetch(slot, pending), land_ts))
-                land_ts = []
+                inflight.append((*self._fetch(slot, pending), taken))
+                taken = []
                 slot = (slot + self.chunk) % self.K
                 pending = 0
             limit = 0 if exhausted else self.max_inflight
             while len(inflight) > limit:
                 host, evs, ts = inflight.pop(0)
-                for ev in evs:
-                    ev.synchronize()
+                with trace.span("afp.serve.drain.wait",
+                                block=self.blocks_served, blocks=len(ts)):
+                    for ev in evs:
+                        ev.synchronize()
                 arr = host.numpy()
                 now = time.perf_counter()
                 self._latencies.extend(now - t for t in ts)
@@ -440,8 +456,9 @@ class RingServer:
                 "latency": self.latency_stats()}
 
     def latency_stats(self) -> dict:
-        """Land→drain wall latency over the most recent served blocks:
-        {n, p50_ms, p95_ms, max_ms, mean_ms} (zeros when empty)."""
+        """Wall latency from the block's leaving the source (before it
+        lands) to its drain, over the most recent served blocks: {n,
+        p50_ms, p95_ms, max_ms, mean_ms} (zeros when empty)."""
         lat = np.asarray(self._latencies, dtype=np.float64)
         if not lat.size:
             return {"n": 0, "p50_ms": 0.0, "p95_ms": 0.0, "max_ms": 0.0,

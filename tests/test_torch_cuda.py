@@ -1256,3 +1256,105 @@ def test_sharded_step_equals_unsharded(dev, form):
                  else [(tail, utail)]):
         assert torch.equal(a, b)
     print(f"{form}: 2 shards of the card == unsharded")
+
+
+def _traced_device_ops(fn):
+    """Run `fn` under `torch.profiler` with the program's trace records
+    emptied first; returns (the records, the names of the device operations
+    in the profiler's trace: kernels and copies, not the spans' mirrors)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from afp_tpu_torch.utils import trace
+
+    torch.cuda.synchronize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    recs = [r for r in trace.records() if r is not None]
+    trace.clear()
+    return recs, ops
+
+
+_SERVE_FORMS = {
+    # the C5 mega ring (K4 and its tail), f32 in and out
+    "mega": (dict(upsample_factor=4, numtaps=1001, eq_enabled=False), True),
+    # the C8 AGC ring (the EQ's taps, K5, K6, K7 and its tail), 16-bit PCM
+    "agc": (dict(upsample_factor=2, numtaps=129, eq_enabled=True,
+                 agc_enabled=True, agc_window_size=512, output_clip=0.99,
+                 ingest="pcm16", emit="pcm16"), False),
+    # f32 blocks split on the card into the pair rings (K13 mega)
+    "pair": (dict(upsample_factor=2, numtaps=65, eq_enabled=False,
+                  ingest="pair"), True),
+    # a filter bank with interleaved designs: the packing's two gathers
+    "packed": (dict(upsample_factor=2, numtaps=65, eq_enabled=False), False),
+}
+
+
+@pytest.mark.parametrize("form", list(_SERVE_FORMS))
+def test_traced_ops_equal_the_profilers_device_operations(dev, form):
+    """A served stream under `torch.profiler`: the ``ops`` the pump and the
+    dispatch count equal the device operations in the profiler's trace of
+    the same blocks, one for one, and no span of the program is among
+    them."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+    from afp_tpu_torch.engine.batch import with_per_stream_filters
+    from afp_tpu_torch.runtime import RingServer
+
+    over, mega = _SERVE_FORMS[form]
+    cfg = StreamConfig(**{**dict(samplerate=44100, blocksize=1024, batch=32,
+                                 cutoff=9000.0, downsample_mode="decimate",
+                                 conv_strategy="td_mxu", dither_kind="tpdf"),
+                          **over})
+    pipe = Pipeline(cfg, dev)
+    packing = None
+    if form == "packed":
+        params, packing = with_per_stream_filters(
+            pipe, [dict(cutoff=4000.0 if i % 2 else 12000.0)
+                   for i in range(32)], pack=True)
+    else:
+        params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    srv = RingServer(pipe, params, slots=12, chunk=4, max_inflight=2, seed=5,
+                     mega=mega, packing=packing)
+    rng = np.random.default_rng(3)
+    if cfg.ingest == "pcm16":
+        blks = [(rng.standard_normal((32, 1024)) * 3000).astype(np.int16)
+                for _ in range(10)]
+    else:
+        blks = [(rng.standard_normal((32, 1024)) * 0.2).astype(np.float32)
+                for _ in range(10)]
+    list(srv.stream(iter(blks)))  # every shape once, before the profiler
+    recs, ops = _traced_device_ops(lambda: list(srv.stream(iter(blks))))
+    counted = sum(r[5].get("ops", 0) for r in recs)
+    land = [r for r in recs if r[0] == "afp.serve.land"]
+    print(f"{form}: {counted} ops counted, {len(ops)} in the trace "
+          f"({len(land)} blocks): {sorted(set(ops))}")
+    assert len(land) == 10 and counted == len(ops)
+    assert not [n for n in ops if n.startswith("afp.")]
+
+
+def test_traced_ops_count_the_tail_pads(dev):
+    """A tail narrower than k_pad is padded on the card before the ring and
+    pair kernels: the pads' operations are counted with the kernels'."""
+    from afp_tpu_torch.ops.cuda import device_launches
+    from afp_tpu_torch.utils import trace
+
+    h = randn(dev, 33, seed=1)
+    ring = randn(dev, 2, 16, 256, seed=2)
+    out = torch.zeros_like(ring)
+    tail = randn(dev, 16, 20, seed=3)
+    xh, xl = F.split_bf16(randn(dev, 16, 256, seed=4))
+    th, tl = F.split_bf16(randn(dev, 16, 32, seed=5))
+
+    def run():
+        with trace.span("afp.test.pads", counter=device_launches):
+            F.fir_td_mxu_ring_f32(ring, 1, tail, h, out)
+            F.fir_td_mxu_pair_to_ring(xh, xl, th, tl, h, 0, out)
+
+    run()
+    recs, ops = _traced_device_ops(run)
+    print(f"pads: {recs[0][5]} against {ops}")
+    assert recs[0][5]["ops"] == len(ops)

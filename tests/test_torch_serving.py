@@ -3,6 +3,7 @@ dispatch (K4) against the staged step and against `afp_tpu`'s ring, and
 `RingServer`'s pump, reconfiguration and validation.  Each test states its
 tolerance and prints the measured value."""
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -111,6 +112,25 @@ def test_ring_server_serves_staged_outputs(mega):
     stats = srv.latency_stats()
     print(f"mega={mega}: latency {stats}")
     assert stats["n"] == 10 and srv.blocks_served == 10 and srv.state.step == 10
+
+
+def test_latency_counts_the_landing():
+    """`latency_stats` starts a block's clock when it leaves the source,
+    before it lands: with a landing that takes 20 ms, every latency is at
+    least 20 ms."""
+    p, params = port()
+    srv = RingServer(p, params, slots=12, chunk=4, max_inflight=2)
+    copy_in = srv._copy_in
+
+    def slow_copy_in(dst, src):
+        time.sleep(0.02)
+        copy_in(dst, src)
+
+    srv._copy_in = slow_copy_in
+    res = srv.serve(iter(blocks(6, seed=8)), lambda out: None)
+    lat = np.asarray(srv._latencies)
+    print(f"latency {res['latency']}")
+    assert lat.size == 6 and lat.min() >= 0.02
 
 
 def test_ring_server_serve_and_reconfig():
