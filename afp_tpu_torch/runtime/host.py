@@ -16,51 +16,29 @@ No pybind11; a pure C ABI.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.native import build_library
+
 __all__ = ["BlockRing", "Pacer", "load_library", "native_available"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "host_ring.cpp"
-BUILD_DIR = _ROOT / "build" / "afp_tpu_torch"
 #: `native/Makefile`'s CXXFLAGS, its -shared link and -lpthread
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libafp_host_{digest.hexdigest()[:16]}.so"
-
-
 def build() -> Path:
     """Compile ``native/host_ring.cpp`` if its hashed library is missing;
     return the library's path.  Raises RuntimeError with the compiler's
     diagnostics when the build fails."""
-    out = _library_path()
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = os.environ.get("CXX", "g++")
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        lib = Path(tmpdir) / out.name
-        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(lib), str(SOURCE),
-                            "-lpthread"], capture_output=True, text=True)
-        if r.returncode:
-            raise RuntimeError(
-                f"native build failed (exit {r.returncode}):\n{r.stderr}")
-        os.replace(lib, out)  # atomic: a concurrent loader sees all or none
-    return out
+    return build_library(SOURCE, CXX_FLAGS, "libafp_host")
 
 
 def load_library() -> ctypes.CDLL:

@@ -17,6 +17,12 @@ under ``emit='pcm16'`` (half the drain bytes).  This module is the pump:
 3. copy the chunk's output slots to pinned host memory right behind the
    dispatch, and hand them to the caller up to `max_inflight` chunks later.
 
+Every landing (one-device, per shard, each half of a pair, into packing's
+staging) goes through `utils/staging.py:to_device`, which stages a host
+buffer of ``NATIVE_MIN_BYTES`` and up (C5's f32 blocks) with the native
+copy and a smaller one with ``copy_``, into pinned buffers that PyTorch's
+caching host allocator keeps until their host→device copy has run.
+
 Everything rides PyTorch's current stream, in order.  That is what makes
 the in-place rings safe: a chunk's output copy is enqueued before any later
 dispatch that could rewrite those slots, and a refill is enqueued after the

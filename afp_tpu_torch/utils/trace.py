@@ -15,8 +15,9 @@ the profiler, against a few µs for the record.  ``parent_index`` is the
 index in :func:`records` of the span it opened inside (-1 for none, per
 thread); ``block`` is the global index of the block, or of a chunk's first
 block, the span worked on (-1 where it has none), so the spans of one
-block share an id; ``counts`` maps ``blocks``, ``bytes`` and ``ops``
-(device operations enqueued) to their totals, where non-zero.
+block share an id; ``counts`` maps ``blocks``, ``bytes``, ``ops``
+(device operations enqueued) and ``threads`` (the threads of a native
+stage copy) to their totals, where non-zero.
 
 With the profiler off, :func:`span` makes one check and returns one shared
 no-op object: no allocation, no clock read.  The list is bounded by
@@ -29,7 +30,8 @@ The spans and what each covers:
 =========================  ==============================================
 ``afp.serve.land``         `RingServer._land`: one block into its input slot
 ``afp.h2d.pin``            the pinned staging buffer's allocation
-``afp.h2d.stage``          the host copy of the block into it (``bytes``)
+``afp.h2d.stage``          the host copy of the block into it (``bytes``;
+                           ``threads`` where the native copy ran)
 ``afp.h2d.copy``           the host→device copy enqueued (``bytes``, ``ops``)
 ``afp.serve.fetch``        a chunk's device→host copy enqueued (``bytes``,
                            ``ops``: the copies and packing's gather)

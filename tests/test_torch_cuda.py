@@ -1358,3 +1358,109 @@ def test_traced_ops_count_the_tail_pads(dev):
     recs, ops = _traced_device_ops(run)
     print(f"pads: {recs[0][5]} against {ops}")
     assert recs[0][5]["ops"] == len(ops)
+
+
+_LANDING_FORMS = {
+    # C5's mega ring at its served block (64 MiB), f32 in and out
+    "c5_f32": (dict(blocksize=4096, upsample_factor=4, numtaps=1001,
+                    eq_enabled=False), True),
+    # C8's AGC ring at its served block (16 MiB), 16-bit PCM in and out
+    "c8_pcm16": (dict(blocksize=2048, upsample_factor=2, numtaps=129,
+                      eq_enabled=True, agc_enabled=True, agc_window_size=512,
+                      output_clip=0.99, ingest="pcm16", emit="pcm16"), False),
+}
+
+
+def _landing_pipe(dev, form, n_blocks):
+    """A served cell's pipeline at batch 4096 and `n_blocks` of its input."""
+    from afp_tpu_torch.engine import Pipeline, StreamConfig
+
+    over, mega = _LANDING_FORMS[form]
+    cfg = StreamConfig(**{**dict(samplerate=44100, batch=4096, cutoff=11000.0,
+                                 downsample_mode="decimate",
+                                 conv_strategy="td_mxu", dither_kind="tpdf"),
+                          **over})
+    rng = np.random.default_rng(19)
+    shape = (cfg.batch, cfg.blocksize)
+    if cfg.ingest == "pcm16":
+        blks = [(rng.standard_normal(shape, dtype=np.float32) * 3000
+                 ).astype(np.int16) for _ in range(n_blocks)]
+    else:
+        blks = [rng.standard_normal(shape, dtype=np.float32) * 0.2
+                for _ in range(n_blocks)]
+    return Pipeline(cfg, dev), mega, blks
+
+
+@pytest.mark.parametrize("form", list(_LANDING_FORMS))
+def test_native_stage_keeps_buffers_until_copied(dev, form, monkeypatch):
+    """Blocks staged natively while a spin kernel stalls the stream before
+    every dispatch equal the same blocks staged with ``copy_``, bit for
+    bit: no pinned buffer the native copy fills is rewritten before its
+    host→device copy has run (the caching host allocator holds it), at C5
+    f32's and C8 pcm16's served shapes.  11 blocks over chunks of 4 end in
+    a short chunk."""
+    from afp_tpu_torch.runtime import RingServer
+    from afp_tpu_torch.utils import staging
+
+    pipe, mega, blks = _landing_pipe(dev, form, 11)
+    name = "run_ring_mega" if mega else "run_ring"
+    run = getattr(pipe, name)
+
+    def stalled(*args, **kwargs):
+        torch.cuda._sleep(50_000_000)  # tens of ms: the copies behind wait
+        return run(*args, **kwargs)
+
+    def serve(threshold):
+        monkeypatch.setattr(staging, "NATIVE_MIN_BYTES", threshold)
+        srv = RingServer(pipe, slots=16, chunk=4, max_inflight=2, seed=7,
+                         mega=mega)
+        setattr(pipe, name, stalled)
+        try:
+            torch.cuda._sleep(50_000_000)
+            return np.stack(list(srv.stream(iter(blks))))
+        finally:
+            delattr(pipe, name)
+
+    native = serve(1)
+    copied = serve(1 << 62)
+    print(f"{form}: {native.shape} {native.dtype}")
+    assert native.shape == (11, *blks[0].shape)
+    assert np.array_equal(native, copied)
+
+
+def test_stage_counts_threads_at_the_served_sizes(dev):
+    """Under the profiler `afp.h2d.stage` carries ``threads`` from
+    ``NATIVE_MIN_BYTES`` up (C5 f32's 64 MiB blocks) and none below (C5
+    pcm16's 32 MiB, C8 pcm16's 16 MiB, one byte short of the threshold);
+    a served C5 f32 stream stages every block natively, a C8 pcm16 stream
+    none."""
+    from afp_tpu_torch.runtime import RingServer
+    from afp_tpu_torch.utils.staging import NATIVE_MIN_BYTES, to_device
+
+    srcs = [torch.full((4096, 4096), 0.25),
+            torch.full((NATIVE_MIN_BYTES,), 1, dtype=torch.uint8),
+            torch.full((NATIVE_MIN_BYTES - 1,), 2, dtype=torch.uint8),
+            torch.full((4096, 4096), 3, dtype=torch.int16),
+            torch.full((4096, 2048), -3, dtype=torch.int16)]
+    outs = []
+    recs, _ = _traced_device_ops(
+        lambda: outs.extend(to_device(s, device=dev) for s in srcs))
+    stages = [r[5] for r in recs if r[0] == "afp.h2d.stage"]
+    print(f"stages: {stages}")
+    assert [c["bytes"] for c in stages] == [s.nbytes for s in srcs]
+    assert [c.get("threads", 0) > 0 for c in stages] == [
+        s.nbytes >= NATIVE_MIN_BYTES for s in srcs] == [True, True, False,
+                                                        False, False]
+    assert all(torch.equal(o.cpu(), s) for o, s in zip(outs, srcs))
+
+    for form, native in (("c5_f32", True), ("c8_pcm16", False)):
+        pipe, mega, blks = _landing_pipe(dev, form, 14)
+        srv = RingServer(pipe, slots=16, chunk=4, max_inflight=2, seed=7,
+                         mega=mega)
+        recs, _ = _traced_device_ops(lambda: list(srv.stream(iter(blks))))
+        stages = [r for r in recs if r[0] == "afp.h2d.stage"]
+        print(f"{form}: {len(stages)} stages, threads "
+              f"{sorted({r[5].get('threads', 0) for r in stages})}")
+        assert len(stages) == 14
+        assert all((r[5].get("threads", 0) > 0) == native for r in stages)
+        assert all(recs[r[3]][0] == "afp.serve.land" for r in stages)
