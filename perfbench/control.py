@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The control of the comparison that decides `correct`: the reference put
-in the program's place and computed in bfloat16 (input, gained signal and
-taps rounded), compared with the float64 reference exactly as a run
-compares the program, on the same seeded inputs, rows and blocks as a run
-of the cell that returns `--blocks` blocks in its window:
+"""The control of the comparison that decides `correct`: the cell's
+reference (the one its configuration names) put in the program's place and
+computed in bfloat16 (input, gained signal and taps rounded), compared with
+the float64 reference exactly as a run compares the program, on the same
+seeded inputs, rows and blocks as a run of the cell that returns
+`--blocks` blocks in its window:
 
     python3 perfbench/control.py --workload <cell> --blocks <n> --seeds <s> ...
 
@@ -32,9 +33,9 @@ def control_reading(bench, workload: str, seed: int, blocks: int,
 
     from perfbench.harness import check, traffic
     from perfbench.harness.runner import cell_parts
-    from perfbench.reference.chain import reference_blocks
 
     _, conf, mix, loop, stream, serving = cell_parts(bench, workload, shrink)
+    reference_blocks = bench.reference(conf).reference_blocks
     B, T = int(stream["batch"]), int(stream["blocksize"])
     pool = traffic.make_pool(mix, B, T, float(stream["samplerate"]), seed,
                              torch.device(device))
@@ -50,8 +51,9 @@ def control_reading(bench, workload: str, seed: int, blocks: int,
     def block_of(k):
         return pool[k % len(pool)]
 
-    ref = reference_blocks(block_of, rows, ks, stream, ds, "float64")
-    low = reference_blocks(block_of, rows, ks, stream, ds, "bfloat16")
+    kw = dict(config=conf, seed=int(seed))
+    ref = reference_blocks(block_of, rows, ks, stream, ds, "float64", **kw)
+    low = reference_blocks(block_of, rows, ks, stream, ds, "bfloat16", **kw)
     if stream.get("emit") == "pcm16":
         prog = np.clip(np.round(low * 32768.0), -32768, 32767).astype(np.int16)
     else:

@@ -3,13 +3,16 @@
 * the cell: an entry of ``workloads`` in ``BENCHMARK.json`` at the root;
 * its configuration: the ``file`` that ``configs`` gives for its name
   (``perfbench/configs/<config>.json``);
+* the configuration's plain reference: ``perfbench/reference/<module>.py``,
+  the module its ``"reference"`` key names (``chain`` without one);
 * its traffic mix: ``perfbench/traffic/<traffic>.json``, data read by the
   one general generator (`harness/traffic.py`), which names its loop;
 * the loop that drives the program: ``perfbench/loops/<loop>.py``;
 * a per-layer metric's reader: ``perfbench/metrics/<metric>.py``.
 
-A later change adds a configuration, a mix, a loop, a metric or a cell by
-adding files and entries; nothing here names one.
+A later change adds a configuration (with a reference of its own), a mix,
+a loop, a metric or a cell by adding files and entries; nothing here names
+one.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ __all__ = ["Bench", "BENCH_DIR", "ROOT"]
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
+#: the reference of a configuration that names none
+DEFAULT_REFERENCE = "chain"
 
 
 def _load_module(path: Path, tag: str):
@@ -53,6 +58,15 @@ class Bench:
             if c["name"] == name:
                 return json.loads((self.root / c["file"]).read_text())
         raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+    def reference(self, conf: dict):
+        """The plain reference module that the configuration file `conf`
+        names under ``reference`` (default ``chain``).  Every reference has
+        ``reference_blocks(block_of, rows, blocks, stream, dither_seed,
+        precision="float64", *, config, seed)``: `config` the whole
+        configuration file, `seed` the run's ``--seed``."""
+        name = conf.get("reference", DEFAULT_REFERENCE)
+        return _load_module(self.dir / "reference" / f"{name}.py", "reference")
 
     def traffic(self, name: str) -> dict:
         path = self.dir / "traffic" / f"{name}.json"

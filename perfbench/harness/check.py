@@ -5,9 +5,10 @@ to a :class:`Keeper`, which keeps, of a sample of rows drawn from the seed
 (one in each of 16 equal groups of the batch, so no half of the batch goes
 unseen), a uniform sample of blocks drawn from the seed (a reservoir) and
 the last blocks.  Once the window has closed, the program's memory peak has
-been read and its state freed, the plain reference (`reference/chain.py`)
-works out the same rows of the same blocks from the generated inputs, and
-:func:`compare` measures:
+been read and its state freed, the plain reference that the configuration
+names (``"reference"``: `reference/<module>.py`, by default
+`reference/chain.py`; `Bench.reference`) works out the same rows of the
+same blocks from the generated inputs, and :func:`compare` measures:
 
 * ``err_db`` (float outputs): the worst row's max |program − reference|
   over the row's max |reference|, in dB;

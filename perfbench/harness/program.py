@@ -81,11 +81,14 @@ def rate(trace: TraceData, key: str, names):
 def idle_in_spans_pct(trace: TraceData, names):
     """The device's idle time inside the spans, as a share of the window's
     wall, in %: the gaps between the device's operations intersected with
-    the spans' intervals."""
+    the spans' intervals, on each of the cell's cards, averaged."""
     mine = _named(trace, names)
     if mine is None or not trace.device_ops:
         return None
-    gaps = stats.gaps([(s, e) for _, s, e in trace.device_ops], trace.window)
-    idle = stats.union_within(gaps, [(s, e) for _, s, e, _, _ in mine])
+    spans = [(s, e) for _, s, e, _, _ in mine]
+
+    def idle(ivs):
+        return stats.union_within(stats.gaps(ivs, trace.window), spans)
+
     ws, we = trace.window
-    return 100.0 * idle / (we - ws)
+    return 100.0 * trace.per_card_mean(idle) / (we - ws)

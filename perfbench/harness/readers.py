@@ -1,6 +1,8 @@
 """The reductions the per-layer metrics' readers (`perfbench/metrics/`)
 share.  Each returns None where the trace holds nothing to read (no device
-operation, no block), never 0 for a share."""
+operation, no block), never 0 for a share.  The idle shares are taken on
+each of the cell's cards and averaged; the device times are summed over
+every card's operations."""
 from __future__ import annotations
 
 from . import peaks, stats
@@ -15,7 +17,8 @@ def _is_copy(name: str) -> bool:
 
 
 def copy_ms(trace: TraceData):
-    """Device ms of the host↔device copies per block returned."""
+    """Device ms of the host↔device copies per block returned.  Over
+    several cards the copies of every card are summed: card-ms a block."""
     if not trace.blocks:
         return None
     us = sum(e - s for n, s, e in trace.device_ops if _is_copy(n))
@@ -25,7 +28,9 @@ def copy_ms(trace: TraceData):
 def chain_roofline_pct(trace: TraceData):
     """The least HBM time of a block (`peaks.least_bytes` at the peak rate)
     over the device time per block of every operation that is not a
-    host↔device copy, in %."""
+    host↔device copy, in %.  Over several cards the device time is summed
+    over every card (card-seconds) against one card's HBM peak: the share
+    of the cards' aggregate peak."""
     if not trace.blocks or not trace.least_bytes:
         return None
     us = sum(e - s for n, s, e in trace.device_ops if not _is_copy(n))
@@ -36,20 +41,22 @@ def chain_roofline_pct(trace: TraceData):
 
 
 def idle_pct_window(trace: TraceData):
-    """1 − (union of the device intervals) / (the window's wall), in %."""
+    """1 − (union of the device intervals) / (the window's wall), in %,
+    averaged over the cell's cards."""
     if not trace.device_ops:
         return None
-    return stats.idle_pct([(s, e) for _, s, e in trace.device_ops], [trace.window])
+    return trace.per_card_mean(lambda ivs: stats.idle_pct(ivs, [trace.window]))
 
 
 def idle_pct_service(trace: TraceData):
     """1 − (union of the device intervals inside the blocks' service
     intervals) / (their union), in %: the share of the time the program
-    was serving a block in which the device had nothing to do."""
+    was serving a block in which the device had nothing to do, averaged
+    over the cell's cards."""
     service = trace.spans_named("process_block")
     if not trace.device_ops or not service:
         return None
-    return stats.idle_pct([(s, e) for _, s, e in trace.device_ops], service)
+    return trace.per_card_mean(lambda ivs: stats.idle_pct(ivs, service))
 
 
 def engine_busy_ms(trace: TraceData):

@@ -7,6 +7,11 @@ it opens) and ``Session(ctx)``, whose constructor builds the program's
 objects and warms up every shape the window uses, whose ``window(seconds)``
 drives the program for the measured window and returns its counts and
 end-to-end numbers, and whose ``close()`` frees the program's state.
+
+The configuration names its plain reference (`Bench.reference`), which
+works the kept outputs out again once the window has closed.  A cell on
+several cards is handed all of them (`Context.devices`); its memory peak is
+the fullest card's, and its traced idle readings are averaged per card.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import gc
 import subprocess
 import sys
 import time
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,16 +33,24 @@ __all__ = ["Context", "run_cell", "stream_config", "cell_parts"]
 
 @dataclass
 class Context:
-    """What a loop is handed: the configuration as the program runs it,
-    the inputs, and where the outputs go."""
+    """What a loop is handed: the configuration as the program runs it and
+    as its file states it, the run's seed, the cell's cards, the inputs,
+    and where the outputs go."""
 
     stream: dict  # StreamConfig fields, the wire applied
     serving: dict  # the configuration's serving knobs
-    device: object  # torch.device
+    devices: list  # torch.device of each card: cuda:0 … (CPU: chips × cpu)
     pool: np.ndarray  # [pool_blocks, batch, block] input blocks
     dither_seed: int  # the program's stream seed (keys its dither)
     keeper: check.Keeper
     tracer: Tracer
+    config: dict  # the whole configuration file
+    seed: int  # the run's --seed
+
+    @property
+    def device(self):
+        """The cell's first card."""
+        return self.devices[0]
 
     def block_of(self, k: int) -> np.ndarray:
         """Input block k of the stream: the pool, cycled."""
@@ -82,6 +96,13 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def _synchronize(devs) -> None:
+    import torch
+
+    for d in devs:
+        torch.cuda.synchronize(d)
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              t_start: float, device: str = "cuda", bench: Bench | None = None,
              shrink: dict | None = None) -> dict:
@@ -94,28 +115,33 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     bench = bench or Bench()
     cell, conf, mix, loop, stream, serving = cell_parts(bench, name, shrink)
     e2e, per_layer = bench.metrics_of(name)
+    chips = int(cell["chips"])
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    devs = ([torch.device("cuda", i) for i in range(chips)] if cuda
+            else [dev] * chips)
     if cuda:
         torch.cuda.init()
     log(f"set-up: imports and the CUDA context by {time.perf_counter() - t_start:.3f} s")
     t = time.perf_counter()
     pool = traffic.make_pool(mix, int(stream["batch"]), int(stream["blocksize"]),
-                             float(stream["samplerate"]), seed, dev)
+                             float(stream["samplerate"]), seed, devs[0])
     log(f"set-up: pool of {pool.shape} {pool.dtype} in {time.perf_counter() - t:.3f} s")
     if cuda:
-        torch.cuda.synchronize()
+        _synchronize(devs)
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
     rows = check.sample_rows(int(stream["batch"]), seed)
     tracer = Tracer(trace)
-    ctx = Context(stream=stream, serving=serving, device=dev, pool=pool,
+    ctx = Context(stream=stream, serving=serving, devices=devs, pool=pool,
                   dither_seed=int(seed) % (1 << 31),
-                  keeper=check.Keeper(rows, seed), tracer=tracer)
+                  keeper=check.Keeper(rows, seed), tracer=tracer,
+                  config=conf, seed=int(seed))
     t = time.perf_counter()
     session = loop.Session(ctx)
     if cuda:
-        torch.cuda.synchronize()
+        _synchronize(devs)
     log(f"set-up: program built and warmed in {time.perf_counter() - t:.3f} s")
     setup_s = time.perf_counter() - t_start
 
@@ -123,11 +149,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         with tracer.span("window"):
             res = session.window(float(seconds))
         if cuda:
-            torch.cuda.synchronize()
-    peak = int(torch.cuda.max_memory_allocated(dev)) if cuda else 0
+            _synchronize(devs)
+    card_peaks = [int(torch.cuda.max_memory_allocated(d)) if cuda else 0
+                  for d in devs]
+    peak = max(card_peaks)
+    log(f"memory: peak bytes a card {card_peaks}")
     data = None
     if trace:
-        data = tracer.collect(loop.SPANS)
+        data = tracer.collect(loop.SPANS, cards=chips)
+        log(f"trace: {len(data.device_ops)} device operations, by card "
+            f"{dict(sorted(Counter(data.op_cards).items()))}")
         data.blocks = res["returned"]
         data.least_bytes = peaks.least_bytes(
             int(stream["batch"]), int(stream["blocksize"]),
@@ -140,10 +171,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    from perfbench.reference.chain import reference_blocks
-
+    reference = bench.reference(conf)
     ks, prog = ctx.keeper.kept()
-    ref = (reference_blocks(ctx.block_of, rows, ks, stream, ctx.dither_seed)
+    ref = (reference.reference_blocks(ctx.block_of, rows, ks, stream,
+                                      ctx.dither_seed, config=conf,
+                                      seed=ctx.seed)
            if ks else np.zeros(prog.shape))
     correct, nums = check.compare(prog, ref, conf["limits"], res["unanswered"],
                                   ctx.keeper.nonfinite)
@@ -161,8 +193,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     devinfo = {"platform": "gpu" if cuda else "cpu",
-               "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-               "count": 1, "memory_peak_bytes": peak}
+               "kind": torch.cuda.get_device_name(devs[0]) if cuda else "cpu",
+               "count": chips, "memory_peak_bytes": peak}
     if cuda:
         devinfo["power_limit"] = _power_limit()
     out = {"correct": bool(correct), "attempted": int(res["attempted"]),

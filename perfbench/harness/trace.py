@@ -4,9 +4,14 @@ activity for the device's operations and the benchmark's own host spans
 
 :class:`Tracer` opens the spans (a no-op when tracing is off) and, when on,
 holds the profiler; :meth:`Tracer.collect` reduces what it recorded to a
-:class:`TraceData`: the device operations and the host spans, in
-microseconds on the profiler's one clock, and the window.  Nothing is
-written to disk.
+:class:`TraceData`: the device operations with the card each ran on, and
+the host spans, in microseconds on the profiler's one clock, and the
+window.  Nothing is written to disk.
+
+A cell on several cards has one timeline a card: the busy time, the idle
+shares and the idle gaps are taken per card and averaged over the cell's
+cards (:meth:`TraceData.per_card_mean`), so one card working does not
+hide the idle ones.  On one card each is the single timeline's number.
 """
 from __future__ import annotations
 
@@ -34,13 +39,35 @@ class TraceData:
     blocks: int = 0  # blocks returned in the window
     least_bytes: int = 0  # least HBM bytes of one block (harness/peaks.py)
     extra: dict = field(default_factory=dict)  # counts a loop reads off
+    op_cards: list | None = None  # the card of each device op (None: card 0)
+    cards: int = 1  # the cell's cards, cuda:0 … cuda:{cards-1}
 
     def spans_named(self, name: str) -> list:
         return [(s, e) for n, s, e in self.spans if n == name]
 
+    def card_intervals(self) -> list:
+        """One list of (start, end) device intervals for each of the cell's
+        cards.  An operation on a card outside the cell raises: the busy
+        and idle readings would leave out what the device-time ones count."""
+        out: list = [[] for _ in range(self.cards)]
+        for (name, s, e), c in zip(self.device_ops,
+                                   self.op_cards or [0] * len(self.device_ops),
+                                   strict=True):
+            if not 0 <= c < self.cards:
+                raise ValueError(f"device operation {name!r} at {s} us is on "
+                                 f"card {c}, outside the cell's {self.cards}")
+            out[c].append((s, e))
+        return out
+
+    def per_card_mean(self, fn) -> float:
+        """The mean over the cell's cards of `fn(intervals of the card)`."""
+        per = [fn(ivs) for ivs in self.card_intervals()]
+        return sum(per) / len(per)
+
     def busy_us(self) -> float:
-        return stats.union_within([(s, e) for _, s, e in self.device_ops],
-                                  [self.window])
+        """The device's busy time inside the window, averaged over cards."""
+        return self.per_card_mean(
+            lambda ivs: stats.union_within(ivs, [self.window]))
 
 
 class Tracer:
@@ -81,12 +108,13 @@ class Tracer:
             self._prof.__exit__(*exc)
         return False
 
-    def collect(self, span_names) -> TraceData:
-        """The device operations, the host spans named in `span_names`
-        (and the window), from the profiler's raw events."""
+    def collect(self, span_names, cards: int) -> TraceData:
+        """The device operations and their cards, the host spans named in
+        `span_names` (and the window), from the profiler's raw events, for
+        a cell on `cards` cards."""
         from torch.autograd import DeviceType
 
-        ops, spans, window = [], [], None
+        ops, op_cards, spans, window = [], [], [], None
         wanted = set(span_names) | {WINDOW}
         for e in self._prof.profiler.kineto_results.events():
             s = e.start_ns() / 1e3
@@ -96,6 +124,7 @@ class Tracer:
                 # user annotation: not a device operation
                 if not (e.is_user_annotation() or e.name() in wanted):
                     ops.append((e.name(), s, t))
+                    op_cards.append(e.device_index())
             elif e.name() in wanted:
                 if e.name() == WINDOW:
                     window = (s, t)
@@ -103,19 +132,29 @@ class Tracer:
                     spans.append((e.name(), s, t))
         if window is None:
             raise RuntimeError("the traced run recorded no window span")
-        inside = [o for o in ops if o[2] > window[0] and o[1] < window[1]]
-        return TraceData(device_ops=inside, spans=spans, window=window)
+        keep = [i for i, o in enumerate(ops)
+                if o[2] > window[0] and o[1] < window[1]]
+        return TraceData(device_ops=[ops[i] for i in keep], spans=spans,
+                         window=window, op_cards=[op_cards[i] for i in keep],
+                         cards=int(cards))
 
 
 def breakdown(trace: TraceData, top: int = 10) -> dict:
-    """The device operations that took most time, and the longest idle
-    time by the host span active in it, each as [name, seconds]."""
+    """The device operations that took most time (summed over the cell's
+    cards), and the longest idle time by the host span active in it (each
+    card's gaps, the time averaged over the cards, the gaps counted on all),
+    each as [name, seconds]."""
     by: dict = {}
     for name, s, e in trace.device_ops:
         by[name] = by.get(name, 0.0) + (e - s)
     ops = sorted(by.items(), key=lambda kv: -kv[1])[:top]
-    gap = stats.gaps([(s, e) for _, s, e in trace.device_ops], trace.window)
-    lab = stats.label_gaps(gap, trace.spans, default=WINDOW)
+    lab: dict = {}
+    for ivs in trace.card_intervals():
+        gap = stats.gaps(ivs, trace.window)
+        for n, (v, c) in stats.label_gaps(gap, trace.spans, default=WINDOW).items():
+            tot, cnt = lab.get(n, (0.0, 0))
+            lab[n] = (tot + v, cnt + c)
     idle = sorted(lab.items(), key=lambda kv: -kv[1][0])[:top]
     return {"device_ops": [[n[:NAME_CHARS], v / 1e6] for n, v in ops],
-            "idle_gaps": [[f"{n} ({c} gaps)", v / 1e6] for n, (v, c) in idle]}
+            "idle_gaps": [[f"{n} ({c} gaps)", v / trace.cards / 1e6]
+                          for n, (v, c) in idle]}

@@ -205,13 +205,16 @@ def _fir(seg: np.ndarray, h: np.ndarray, out_len: int) -> np.ndarray:
 
 
 def reference_blocks(block_of, rows, blocks, stream: dict, dither_seed: int,
-                     precision: str = "float64") -> np.ndarray:
+                     precision: str = "float64", *, config: dict | None = None,
+                     seed: int | None = None) -> np.ndarray:
     """The chain's output before the int16 quantizer, float64
     [len(blocks), len(rows), blocksize], for the given global block indices
     and rows.  `block_of(k)` returns input block k, [batch, blocksize]
     float32 or int16 PCM (n/32768).  Each block is worked out from the
     stream's start (block 0, zero history, unity gain) or, deeper in the
-    stream, from `agc_history_blocks` + 1 blocks before it."""
+    stream, from `agc_history_blocks` + 1 blocks before it.  `config` (the
+    whole configuration file) and `seed` (the run's) are every reference's
+    keywords; this chain needs neither."""
     rows = np.asarray(rows)
     blocks = [int(k) for k in blocks]
     T = int(stream["blocksize"])
