@@ -51,7 +51,12 @@
 //       against the band's tiles, built in shared memory from the band
 //       kernels as the body builds its own, into a double buffer (band k+1
 //       while band k runs), then y += g * z in fp32 (the taps are not mixed
-//       first, which would round differently).
+//       first, which would round differently).  Its pair forms take K8's
+//       loader (afp_fir_td_ps_pair): the staged pair form reads the AGC
+//       apply kernel's (hi, lo) block behind the carried pair tail, and the
+//       pair-to-ring form is the same with K7's slot store into out_ring
+//       slot idx; both emit the next pair tail as K7/K8 do (ring_tail_kernel),
+//       so the ring form's slot equals the staged form's output bit for bit.
 //   K15 the precision variants of _fir_td_call (fir_td.py:370): HIGHEST
 //       (_fir_kernel, fir_td.py:148; in K11 _fir_kernel_ps, :1701), the
 //       causal/valid conv in fp32 class: the TPU's own 6-pass product, x and
@@ -602,7 +607,10 @@ __global__ void __launch_bounds__(32 * kBodyWarps, kBodyMinBlocks)
 // warps share an SM; a bound of 168 registers for three spills and ran
 // slower) and 8 for the six-product form (about 230 registers and a
 // three-half window: one block per SM, so as wide a block as fits).
-template <int P, int WARPS>
+// MODE/IN pick the loader as in the body: kModeExt/kInF32 reads a staged
+// x_ext; kModePair/kInPair reads the bf16 pair block behind the pair tail
+// (bf16x3 only) and stores into slot src.start of `out` (K7's store).
+template <int MODE, int IN, int P, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS)
     fir_ps_kernel(Src src, const float* __restrict__ bands,
                   const float* __restrict__ gains, int n_bands, int n_taps,
@@ -625,8 +633,10 @@ __global__ void __launch_bounds__(32 * WARPS)
 
   build_tiles<P, NT>(bands, n_taps, 0, geo.S, reinterpret_cast<uint16_t*>(buf(0)),
                      tid);
-  // window position p of row r holds x_ext[b0 + r, t0 + p] (0 outside)
-  stage_window<kModeExt, kInF32, P, NT, ROWS>(src, b0, 0, t0, geo.W, geo.wp, win);
+  // window position p of row r holds extended sample t0 + hist - (n-1) + p
+  // of row b0 + r (x_ext[b0 + r, t0 + p] for K1's loader; 0 outside)
+  stage_window<MODE, IN, P, NT, ROWS>(src, b0, 0, t0 + src.hist - (n_taps - 1),
+                                      geo.W, geo.wp, win);
 
   // this lane's fragment rows: mt * 16 + lane / 4 (+ 8)
   float y[kPsMT][kNQ][4];
@@ -672,7 +682,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     }
   }
   store_tile<NT, COLS, kPsMT>(src, reinterpret_cast<float*>(smem_raw), b0, t0,
-                              0, 0, y, 0u, epi, emit_i16, out);
+                              MODE == kModePair ? src.start : 0, 0, y, 0u, epi,
+                              emit_i16, out);
 }
 
 // Next tail after n_steps ring steps: the last hist samples of the stream,
@@ -734,7 +745,7 @@ int launch_conv(const Src& s, const float* h, int n_taps, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
+template <int MODE, int IN, int P>
 int launch_ps(const Src& s, const float* bands, const float* gains,
               int n_taps, int n_bands, void* out, const afp::Epilogue& epi,
               int emit_i16, cudaStream_t stream) {
@@ -742,12 +753,12 @@ int launch_ps(const Src& s, const float* bands, const float* gains,
   const ConvGeom geo = ps_geom(n_taps, P, WARPS);
   if (geo.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      fir_ps_kernel<P, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(geo.smem));
+      fir_ps_kernel<MODE, IN, P, WARPS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(geo.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s.B + 16 * kPsMT - 1) / (16 * kPsMT),
                   (s.T + conv_cols(WARPS) - 1) / conv_cols(WARPS));
-  fir_ps_kernel<P, WARPS><<<grid, 32 * WARPS, geo.smem, stream>>>(
+  fir_ps_kernel<MODE, IN, P, WARPS><<<grid, 32 * WARPS, geo.smem, stream>>>(
       s, bands, gains, n_bands, n_taps, out, epi, emit_i16);
   return static_cast<int>(cudaGetLastError());
 }
@@ -926,8 +937,50 @@ extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
   const float* gf = static_cast<const float*>(gains);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (highest)
-    return launch_ps<3>(s, bf, gf, n_taps, n_bands, out, epi, emit_i16, st);
-  return launch_ps<2>(s, bf, gf, n_taps, n_bands, out, epi, emit_i16, st);
+    return launch_ps<kModeExt, kInF32, 3>(s, bf, gf, n_taps, n_bands, out, epi,
+                                          emit_i16, st);
+  return launch_ps<kModeExt, kInF32, 2>(s, bf, gf, n_taps, n_bands, out, epi,
+                                        emit_i16, st);
+}
+
+// K11's pair forms (bf16x3).  The bf16 pair of the block [B, T] behind the
+// pair tail [B, k_pad], the band kernels [n_bands, n_taps] and the
+// per-stream gains [B, n_bands] -> slot idx of out [S, B, T] (the staged
+// form: S = 1, idx = 0), f32 or (emit_i16) int16, and the next pair tail
+// [B, k_pad]: K8's loader and K7's slot store around K11's mix.
+extern "C" int afp_fir_td_ps_pair(const void* xh, const void* xl,
+                                  const void* th, const void* tl,
+                                  const void* bands, const void* gains,
+                                  void* out, void* th_out, void* tl_out, int S,
+                                  int B, int T, int k_pad, int n_taps,
+                                  int n_bands, int idx, int has_clip,
+                                  float clip, int dither, unsigned int seed,
+                                  unsigned int counter, float lsb,
+                                  int emit_i16, void* stream) {
+  if (S <= 0 || idx < 0 || B <= 0 || T <= 0 || T % 4 || n_taps <= 0 ||
+      n_bands <= 0 || k_pad <= 0 || k_pad < n_taps - 1 ||
+      static_cast<long long>(T) + k_pad > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Src s{};
+  s.x = xh;
+  s.xl = xl;
+  s.t = th;
+  s.tl = tl;
+  s.B = B;
+  s.T = T;
+  s.hist = k_pad;
+  s.S = S;
+  s.start = idx % S;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = launch_ps<kModePair, kInPair, 2>(
+      s, static_cast<const float*>(bands), static_cast<const float*>(gains),
+      n_taps, n_bands, out,
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb), emit_i16, st);
+  if (rc) return rc;
+  // the next tail: the last k_pad samples of concat(tail, block)
+  s.S = 1;
+  s.start = 0;
+  return launch_tail<kInPair>(s, 1, th_out, tl_out, st);
 }
 
 // The body's geometry at n_taps (`highest`: P = 3), as the launch takes it:

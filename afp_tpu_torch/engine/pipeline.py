@@ -54,7 +54,11 @@ Per-stream banks (`engine/batch.py`; `pipeline.py:549-557, 813-904`):
 * ``eq_gains`` [B, n_bands] (per-stream EQ): 'td_mxu' runs K11 on the f32
   extended block (a pair or int16 block and tail converted first), then
   its fused clip, dither and int16 store; 'fft' contracts the gains into a
-  [B, F] response.  The rings refuse it ("use step()").
+  [B, F] response.  Behind the AGC (K6's or K14's pair store) K11 runs in
+  its pair forms, as K8 and K7 do for shared taps: the staged step K5 →
+  K6 → K11 pair, and the AGC ring K5 → K6 → K11 pair-to-ring, so served ≡
+  staged bit for bit.  The conv rings without AGC, pair ingest, a filter
+  bank beside the gains and `run_ring_mega` refuse them.
 * ``casc_bank`` [D, n_casc] + ``casc_assign`` [B / bt] (per-stream main
   filters on 'td_mxu'): the staged step runs K10 (banked K12 over the
   one-slot view under pcm16 ingest without AGC), the f32 and int16 rings
@@ -63,9 +67,9 @@ Per-stream banks (`engine/batch.py`; `pipeline.py:549-557, 813-904`):
 * [B] AGC vectors (per-stream AGC policies): K5 and K6 read them on every
   route.
 
-Under a bank or per-stream gains K6 stores f32, not the pair: the pair
-tail is merged for the extended block and its next value re-split from the
-block's last k_pad columns (`pipeline.py:715-720, 796-805, 960-971`).
+Under a bank K6 stores f32, not the pair: the pair tail is merged for the
+extended block and its next value re-split from the block's last k_pad
+columns (`pipeline.py:715-720, 796-805, 960-971`).
 
 The conv's precision (K15; `AFP_TD_PRECISION` in `afp_tpu`, the
 ``td_precision`` argument here, `pipeline.py:273-348`): 'B3' (the default),
@@ -156,7 +160,10 @@ from ..ops.cuda.agc_scan import smooth_gain_apply
 from ..ops.cuda.dither import dither_cuda
 from ..ops.cuda.fir_td import (band_matrix, fir_td_mxu, fir_td_mxu_banked,
                                fir_td_mxu_pair, fir_td_mxu_pair_to_ring,
-                               fir_td_mxu_per_stream, fir_td_mxu_ring,
+                               fir_td_mxu_per_stream,
+                               fir_td_mxu_per_stream_pair,
+                               fir_td_mxu_per_stream_pair_to_ring,
+                               fir_td_mxu_ring,
                                fir_td_mxu_ring_f32, fir_td_mxu_ring_mega,
                                fir_td_mxu_ring_mega_f32,
                                fir_td_mxu_ring_mega_pcm16,
@@ -741,6 +748,23 @@ class Pipeline:
         """True when the params carry per-stream EQ gains."""
         return self.has_eq and params.eq_gains.ndim == 2
 
+    def _eq_mix(self, form, params: DeviceParams, state: StreamState, x,
+                *rest, **kw):
+        """K11 in one of its pair forms (`form`) over the gained pair `x`
+        behind the state's pair tail, with the band kernels, the per-stream
+        gains, the state's dither and `form`'s further arguments `rest`/`kw`;
+        traced as the span ``afp.pipe.eq_mix`` with the counts ``rows``,
+        ``bands``, ``taps``, ``samples`` (rows × block) and ``bytes`` (the
+        mix's output)."""
+        g, bands = params.eq_gains, params.casc_bands
+        rows, samples = g.shape[0], g.shape[0] * self.block
+        with trace.span("afp.pipe.eq_mix", block=state.step,
+                        nbytes=samples * self.out_dtype.itemsize):
+            trace.add(rows=rows, bands=bands.shape[0], taps=bands.shape[1],
+                      samples=samples)
+            return form(*x, *state.conv_tail, bands, g, *rest,
+                        **self._dither_kw(state, self.cfg.output_clip), **kw)
+
     def _ext(self, tail, x):
         """The f32 extended block [B, n−1+L] (the conv's history, then the
         block of any length L: a block, or a whole signal for the fold) and
@@ -821,7 +845,7 @@ class Pipeline:
             x, asrc = self._asrc(x, asrc)
         if self._agc_on:
             x, gain = self._agc(params, x, gain, emit_split=(
-                self._pair_tail and not (per_stream or banked)))
+                self._pair_tail and (per_stream or not banked)))
 
         def nxt(new_tail):
             return StreamState(new_tail, state.seed, state.step + 1, gain,
@@ -853,6 +877,11 @@ class Pipeline:
             out, new_tail = fir_td_mxu_ring_pcm16(x[None], 0, tail, h, out,
                                                   **dkw, **bkw)
             return nxt(new_tail), out[0]
+        if isinstance(x, tuple) and per_stream and self._agc_on:
+            # K11 over the AGC's pair store: the ring's form (staged ≡ ring)
+            y, th, tl = self._eq_mix(fir_td_mxu_per_stream_pair, params,
+                                     state, x, emit_i16=self._emit16)
+            return nxt((th, tl)), y
         if isinstance(x, tuple) and not (per_stream or banked):
             y, th, tl = fir_td_mxu_pair(
                 x[0], x[1], tail[0], tail[1],
@@ -1066,18 +1095,44 @@ class Pipeline:
             return params.combined_cascade(self.has_eq), {}
         return params.casc_bank, dict(assign=params.casc_assign)
 
+    def check_ring_params(self, params: DeviceParams,
+                          form: str = "ring_step") -> None:
+        """Refuse params that the ring form `form` (``'ring_step'``, which
+        `run_ring` steps, or ``'run_ring_mega'``) cannot serve: per-stream
+        EQ gains ride the AGC ring alone (K5 → K6 → K11 pair-to-ring), so
+        `run_ring_mega`, the conv rings without AGC, pair ingest and a
+        filter bank beside the gains refuse them.  `RingServer` asks at
+        construction."""
+        if not self._per_stream(params):
+            return
+        served = ("per-stream EQ gains are served on the AGC ring only "
+                  "(run_ring: K5 → K6 → K11 pair-to-ring)")
+        if form == "run_ring_mega":
+            raise ValueError(f"run_ring_mega does not support per-stream EQ "
+                             f"gains: {served}")
+        if self._pair_ingest:
+            raise ValueError(f"{form} does not support per-stream EQ gains "
+                             f"with pair ingest: {served} — use step()")
+        if not self._agc_on:
+            raise ValueError(f"{form} does not support per-stream EQ gains on "
+                             f"the conv rings without AGC: {served} — use "
+                             "step()")
+        if params.casc_bank is not None:
+            raise ValueError(f"{form} does not support per-stream EQ gains "
+                             f"together with a filter bank: {served}, with "
+                             "the shared band — use step()")
+
     def _ring_taps(self, params: DeviceParams, ring_hi, ring_lo, out_ring,
                    form: str = "ring_step"):
         """The checks of every ring form (`pipeline.py:1110-1191,
-        1369-1401`): no per-stream EQ gains, pair rings exactly for pair
-        ingest, an int16 input ring exactly for pcm16 ingest, an int16
-        output ring exactly under ``emit='pcm16'``, filter banks on the f32
-        and int16 conv rings only.  Returns the taps and bank keywords."""
+        1369-1401`): per-stream EQ gains on the AGC ring only
+        (:meth:`check_ring_params`), pair rings exactly for pair ingest, an
+        int16 input ring exactly for pcm16 ingest, an int16 output ring
+        exactly under ``emit='pcm16'``, filter banks on the f32 and int16
+        conv rings only.  Returns the taps and bank keywords: (None, {})
+        under per-stream gains, whose band kernels K11 mixes itself."""
         cfg = self.cfg
-        if self._per_stream(params):
-            raise ValueError(
-                f"{form} does not support per-stream EQ banks (the "
-                "per-stream mix consumes the f32 block) — use step()")
+        self.check_ring_params(params, form)
         if not self.supports_ring_step:
             raise ValueError(
                 "ring_step requires a conv ring: conv_strategy='td_mxu' "
@@ -1101,6 +1156,8 @@ class Pipeline:
                 "per-stream filter banks ride the f32/pcm16 conv rings "
                 "only — pair ingest and the fused AGC chain consume the "
                 "shared band (use step(), or drop the bank)")
+        if self._per_stream(params):
+            return None, {}
         return self._taps(params)
 
     def ring_step(self, params: DeviceParams, state: StreamState,
@@ -1113,16 +1170,23 @@ class Pipeline:
         ring_lo)`` of pair ingest.  With AGC, K5 and K6 (or K14 alone under
         the one-kernel option) read the slot in place and K7 convolves the
         gained pair into the output slot
-        (`afp_tpu/engine/pipeline.py:1093-1299`).  ``ring_lo`` is None
-        except under pair ingest."""
+        (`afp_tpu/engine/pipeline.py:1093-1299`); under per-stream EQ gains
+        K11's pair-to-ring form mixes it there instead (the staged step's
+        K11 pair form with K7's store: served ≡ staged).  ``ring_lo`` is
+        None except under pair ingest."""
         h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring)
         dkw = self._dither_kw(state, self.cfg.output_clip)
         if self._agc_on:
             (xh, xl), gain = self._agc(params, ring_hi, state.agc_gain,
                                        ring_idx=idx)
-            out_ring, th, tl = fir_td_mxu_pair_to_ring(
-                xh, xl, state.conv_tail[0], state.conv_tail[1], h, idx,
-                out_ring, **dkw)
+            if h is None:
+                out_ring, th, tl = self._eq_mix(
+                    fir_td_mxu_per_stream_pair_to_ring, params, state,
+                    (xh, xl), idx, out_ring)
+            else:
+                out_ring, th, tl = fir_td_mxu_pair_to_ring(
+                    xh, xl, state.conv_tail[0], state.conv_tail[1], h, idx,
+                    out_ring, **dkw)
             return (StreamState((th, tl), state.seed, state.step + 1, gain),
                     out_ring)
         if self._pair_ingest:
@@ -1139,8 +1203,10 @@ class Pipeline:
                  ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
                  n_steps: int, start: int = 0):
         """`n_steps` ring steps over slots ``(start+i) mod S`` (one K3, K12
-        or K13 launch each; with AGC, K5, K6 and K7 each); `out_ring` is
-        written in place.  Traced as ``afp.pipe.run_ring``."""
+        or K13 launch each; with AGC, K5, K6 and K7 each, or K11's
+        pair-to-ring form for K7 under per-stream gains); `out_ring` is
+        written in place.  Traced as ``afp.pipe.run_ring``, K11's launches
+        inside it as ``afp.pipe.eq_mix``."""
         S = ring_hi.shape[0]
         with trace.span("afp.pipe.run_ring", block=state.step,
                         blocks=int(n_steps), counter=device_launches):

@@ -10,7 +10,11 @@ from .fir_td import (LANE, PCM16_SCALE, band_matrix, fir_td_mxu,
                      fir_td_mxu_banked, fir_td_mxu_banked_plain,
                      fir_td_mxu_pair, fir_td_mxu_pair_plain,
                      fir_td_mxu_pair_to_ring, fir_td_mxu_pair_to_ring_plain,
-                     fir_td_mxu_per_stream, fir_td_mxu_per_stream_plain,
+                     fir_td_mxu_per_stream, fir_td_mxu_per_stream_pair,
+                     fir_td_mxu_per_stream_pair_plain,
+                     fir_td_mxu_per_stream_pair_to_ring,
+                     fir_td_mxu_per_stream_pair_to_ring_plain,
+                     fir_td_mxu_per_stream_plain,
                      fir_td_mxu_plain, fir_td_mxu_ring, fir_td_mxu_ring_f32,
                      fir_td_mxu_ring_f32_plain, fir_td_mxu_ring_mega,
                      fir_td_mxu_ring_mega_f32, fir_td_mxu_ring_mega_f32_plain,
@@ -27,7 +31,8 @@ KERNELS = (fir_td_mxu, fir_td_mxu_ring_f32, fir_td_mxu_ring_mega_f32,
            dither_cuda, rms_desired, smooth_gain_apply, fir_td_mxu_pair_to_ring,
            fir_td_mxu_pair, fir_td_mxu_ring_pcm16, fir_td_mxu_ring_mega_pcm16,
            fir_td_mxu_ring, fir_td_mxu_ring_mega, fir_td_mxu_banked,
-           fir_td_mxu_per_stream, agc_rms_apply, smooth_gain_scan)
+           fir_td_mxu_per_stream, agc_rms_apply, smooth_gain_scan,
+           fir_td_mxu_per_stream_pair, fir_td_mxu_per_stream_pair_to_ring)
 
 
 def device_launches() -> int:
@@ -43,6 +48,9 @@ __all__ = ["LANE", "KERNELS", "PCM16_SCALE", "agc_rms_apply",
            "fir_td_mxu_banked_plain", "fir_td_mxu_pair",
            "fir_td_mxu_pair_plain", "fir_td_mxu_pair_to_ring",
            "fir_td_mxu_pair_to_ring_plain", "fir_td_mxu_per_stream",
+           "fir_td_mxu_per_stream_pair", "fir_td_mxu_per_stream_pair_plain",
+           "fir_td_mxu_per_stream_pair_to_ring",
+           "fir_td_mxu_per_stream_pair_to_ring_plain",
            "fir_td_mxu_per_stream_plain", "fir_td_mxu_plain",
            "fir_td_mxu_ring", "fir_td_mxu_ring_f32",
            "fir_td_mxu_ring_f32_plain", "fir_td_mxu_ring_mega",

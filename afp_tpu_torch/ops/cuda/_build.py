@@ -47,6 +47,8 @@ _SIGNATURES = {
     "afp_fir_td_ring": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P, _I, _I, *_EPI, _I, _P),
     "afp_fir_td_ps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *_EPI, _I, _P),
+    "afp_fir_td_ps_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, *_EPI, _I, _P),
     "afp_conv_geometry": (_I, _I, _P),
     "afp_dither": (_P, _P, _LL, _I, _U, _U, _F, _P),
     "afp_fir_td_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -27,6 +27,8 @@ K13  :func:`fir_td_mxu_ring`                 fir_td.py:fir_td_mxu_ring
 K13  :func:`fir_td_mxu_ring_mega`            fir_td.py:fir_td_mxu_ring_mega
 K10  :func:`fir_td_mxu_banked`               fir_td.py:fir_td_mxu_banked
 K11  :func:`fir_td_mxu_per_stream`           fir_td.py:fir_td_mxu_per_stream
+K11  :func:`fir_td_mxu_per_stream_pair`     none: K11 with K8's loader
+K11  ``fir_td_mxu_per_stream_pair_to_ring``  none: and K7's slot store
 K15  ``precision=`` of K1 and K11             fir_td.py:_fir_td_call (HIGHEST,
                                              B3F, B3C), _fir_td_ps_call
 ===  ======================================  ================================
@@ -70,7 +72,10 @@ NaN (−32768 in an int16 store), on the card and in the plain version alike,
 so a bad assignment shows in the output without a synchronize per launch.  K11
 mixes K band convs per stream, ``y[b] = Σ_k gains[b, k]·(x[b] ⊛ h_k)``, on
 the tensor cores: each band is the product of the split window with its
-Toeplitz tiles, built in shared memory from the band kernels.
+Toeplitz tiles, built in shared memory from the band kernels.  Its pair
+forms read the AGC apply kernel's (hi, lo) block behind the pair tail, as
+K8 does, the staged form into a new block and the pair-to-ring form into a
+slot of the serving ring, as K7 does; both emit the next pair tail.
 
 K8, K7 and K13 take the block (or the rings) and the carried tail as bf16
 (hi, lo) pairs, the form the AGC apply kernel (K6) stores and
@@ -119,7 +124,10 @@ __all__ = ["LANE", "PCM16_SCALE", "PRECISIONS", "ACC_STEPS", "split_bf16", "merg
            "fir_td_mxu_ring", "fir_td_mxu_ring_plain",
            "fir_td_mxu_ring_mega", "fir_td_mxu_ring_mega_plain",
            "fir_td_mxu_banked", "fir_td_mxu_banked_plain",
-           "fir_td_mxu_per_stream", "fir_td_mxu_per_stream_plain"]
+           "fir_td_mxu_per_stream", "fir_td_mxu_per_stream_plain",
+           "fir_td_mxu_per_stream_pair", "fir_td_mxu_per_stream_pair_plain",
+           "fir_td_mxu_per_stream_pair_to_ring",
+           "fir_td_mxu_per_stream_pair_to_ring_plain"]
 
 #: output-tile width of the band-matrix form and the granule of the block
 #: length and of the ring tail (`fir_td.py:LANE`)
@@ -597,19 +605,22 @@ def fir_td_mxu_per_stream_plain(x_ext, kernels, gains, out_clip=None,
                                 precision="B3"):
     """Plain K11: each band's conv (the plain K1's, at `precision`), mixed
     as ``y = y + gains[:, k]·z_k`` in band order, then K1's output stage."""
-    B, T, _, K = _check_per_stream(x_ext, kernels, gains)
+    B, T, _, _ = _check_per_stream(x_ext, kernels, gains)
     if is_highest(precision):
-        def band(k):
-            return _conv_f32(x_ext, kernels[k])
+        y = _mix(lambda h: _conv_f32(x_ext, h), kernels, gains, (B, T))
     else:
         xh, xl = _split_f32(x_ext)
-
-        def band(k):
-            return _conv_split(xh, xl, kernels[k])
-    y = torch.zeros((B, T), dtype=torch.float32, device=x_ext.device)
-    for k in range(K):
-        y = y + gains[:, k:k + 1] * band(k)
+        y = _mix(lambda h: _conv_split(xh, xl, h), kernels, gains, (B, T))
     return _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
+
+
+def _mix(band, kernels, gains, shape):
+    """The plain K11 mix: ``y = y + gains[:, k]·band(kernels[k])`` in band
+    order, from zeros of `shape`."""
+    y = torch.zeros(shape, dtype=torch.float32, device=gains.device)
+    for k in range(kernels.shape[0]):
+        y = y + gains[:, k:k + 1] * band(kernels[k])
+    return y
 
 
 def fir_td_mxu_per_stream(x_ext: torch.Tensor, kernels: torch.Tensor,
@@ -929,18 +940,17 @@ fir_td_mxu_ring_mega_pcm16.banked_launches = 0
 # ---------------------------------------------------------------- K8 / K7
 
 
-def _pair_tail_args(B, tail_hi, tail_lo, h, ref):
-    """The pair tail [B, n−1 .. k_pad], zero-padded on the left to k_pad
-    (`fir_td.py:727-738`; the padded history meets only zero taps).
-    Returns (h, tail_hi, tail_lo, k_pad)."""
+def _pair_tail_args(B, tail_hi, tail_lo, n, ref):
+    """The pair tail [B, n−1 .. k_pad] for `n` taps, zero-padded on the
+    left to k_pad (`fir_td.py:727-738`; the padded history meets only zero
+    taps).  Returns (tail_hi, tail_lo, k_pad)."""
     for name, t in (("tail_hi", tail_hi), ("tail_lo", tail_lo)):
         if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != ref.device:
             raise ValueError(f"{name} must be 2-D bfloat16 on {ref.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    h = _check_taps(h, ref)
-    k_pad = ring_k_pad(h.shape[0])
+    k_pad = ring_k_pad(n)
     if tail_lo.shape != tail_hi.shape or tail_hi.shape[0] != B or (
-            not h.shape[0] - 1 <= tail_hi.shape[1] <= k_pad):
+            not n - 1 <= tail_hi.shape[1] <= k_pad):
         raise ValueError(f"the tail pair must be two [{B}, n-1 .. {k_pad}] "
                          f"halves, got {tuple(tail_hi.shape)} and "
                          f"{tuple(tail_lo.shape)}")
@@ -950,12 +960,12 @@ def _pair_tail_args(B, tail_hi, tail_lo, h, ref):
         tail_lo = torch.nn.functional.pad(tail_lo, (pad, 0))
         if tail_hi.is_cuda:  # each pad's fill and copy
             trace.add(ops=4)
-    return h, tail_hi.contiguous(), tail_lo.contiguous(), k_pad
+    return tail_hi.contiguous(), tail_lo.contiguous(), k_pad
 
 
-def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
-    """Shared checks of K8/K7: a bf16 block pair [B, T] on one device with
-    T a multiple of LANE, and the pair tail (:func:`_pair_tail_args`)."""
+def _pair_block(x_hi, x_lo) -> int:
+    """A bf16 block pair [B, T] on one device with T a multiple of LANE
+    (K8/K7 and K11's pair forms).  Returns B."""
     for name, t in (("x_hi", x_hi), ("x_lo", x_lo)):
         if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != x_hi.device:
             raise ValueError(f"{name} must be 2-D bfloat16 on {x_hi.device}, "
@@ -965,7 +975,16 @@ def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
         raise ValueError(f"the block pair must be two [B, T] halves with T a "
                          f"multiple of {LANE}, got {tuple(x_hi.shape)} and "
                          f"{tuple(x_lo.shape)}")
-    return _pair_tail_args(B, tail_hi, tail_lo, h, x_hi)
+    return B
+
+
+def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
+    """Shared checks of K8/K7: the block pair (:func:`_pair_block`), the
+    taps [n] and the pair tail (:func:`_pair_tail_args`).  Returns (h,
+    tail_hi, tail_lo, k_pad)."""
+    B = _pair_block(x_hi, x_lo)
+    h = _check_taps(h, x_hi)
+    return (h, *_pair_tail_args(B, tail_hi, tail_lo, h.shape[0], x_hi))
 
 
 def _next_pair_tail(tail, x, k_pad):
@@ -1085,6 +1104,150 @@ fir_td_mxu_pair_to_ring.launches = 0
 fir_td_mxu_pair_to_ring.kernels = 2
 
 
+# ---------------------------------------------------------------- K11 pair
+
+
+def _ps_pair_args(x_hi, x_lo, tail_hi, tail_lo, kernels, gains):
+    """Checks of K11's pair forms: the block pair and pair tail as K8's
+    (:func:`_pair_block`, :func:`_pair_tail_args`), the band kernels [K, n] and the gains [B, K]
+    float32 on the block's device.  Returns (kernels, gains, tail_hi,
+    tail_lo, k_pad)."""
+    for name, t in (("kernels", kernels), ("gains", gains)):
+        if t.ndim != 2 or t.dtype != torch.float32 or t.device != x_hi.device:
+            raise ValueError(f"{name} must be 2-D float32 on {x_hi.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if tuple(gains.shape) != (x_hi.shape[0], kernels.shape[0]):
+        raise ValueError(f"gains must be [{x_hi.shape[0]}, "
+                         f"{kernels.shape[0]}], got {tuple(gains.shape)}")
+    tail_hi, tail_lo, k_pad = _pair_tail_args(
+        _pair_block(x_hi, x_lo), tail_hi, tail_lo, kernels.shape[1], x_hi)
+    return (kernels.contiguous(), gains.contiguous(), tail_hi, tail_lo, k_pad)
+
+
+def fir_td_mxu_per_stream_pair_plain(x_hi, x_lo, tail_hi, tail_lo, kernels,
+                                     gains, out_clip=None, dither_key=(0, 0),
+                                     dither_bits=None, dither_tpdf=True,
+                                     emit_i16=False):
+    """Plain K11, pair form: the pairs widened to f32 (exact) and
+    concatenated, as the plain K8, then the plain K11's band products and
+    mix.  Returns ``(y, next_tail_hi, next_tail_lo)``."""
+    kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
+        x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
+    n = kernels.shape[1]
+    eh = torch.cat([tail_hi, x_hi], dim=-1)[:, k_pad - (n - 1):].float()
+    el = torch.cat([tail_lo, x_lo], dim=-1)[:, k_pad - (n - 1):].float()
+    y = _mix(lambda h: _conv_split(eh, el, h), kernels, gains,
+             tuple(x_hi.shape))
+    y = _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
+    return (y, _next_pair_tail(tail_hi, x_hi, k_pad),
+            _next_pair_tail(tail_lo, x_lo, k_pad))
+
+
+def _launch_ps_pair(x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out,
+                    S, idx, epi, emit, what):
+    B, T = x_hi.shape
+    th = torch.empty((B, k_pad), dtype=torch.bfloat16, device=x_hi.device)
+    tl = torch.empty_like(th)
+    x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
+    K, n = kernels.shape
+    lib = _build.load()
+    with torch.cuda.device(x_hi.device):
+        rc = lib.afp_fir_td_ps_pair(
+            x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
+            tail_lo.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
+            out.data_ptr(), th.data_ptr(), tl.data_ptr(), S, B, T, k_pad, n,
+            K, idx, *epi, int(emit), _stream(x_hi))
+    _raise_on(rc, what)
+    return th, tl
+
+
+def fir_td_mxu_per_stream_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
+                               tail_hi: torch.Tensor, tail_lo: torch.Tensor,
+                               kernels: torch.Tensor, gains: torch.Tensor,
+                               out_clip=None, dither_key=(0, 0),
+                               dither_bits=None, dither_tpdf=True,
+                               emit_i16=False):
+    """K11, staged pair form: the per-stream EQ mix of
+    :func:`fir_td_mxu_per_stream` over the bf16 pair of the block [B, T]
+    behind the carried pair tail [B, n−1 .. k_pad] (K8's loader: the AGC
+    apply kernel's pair store, read without a split), with K11's fused
+    clip, dither and int16 store.  Equal to K11 on concat(tail, block) when
+    the pairs are :func:`split_bf16` of f32 inputs.  Returns ``(y,
+    next_tail_hi, next_tail_lo)``, the tail as K8's.  bf16×3 only: the
+    HIGHEST K11 has no pair form."""
+    if not _on_cuda(x_hi):
+        return fir_td_mxu_per_stream_pair_plain(
+            x_hi, x_lo, tail_hi, tail_lo, kernels, gains, out_clip,
+            dither_key, dither_bits, dither_tpdf, emit_i16)
+    kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
+        x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
+    y = torch.empty(x_hi.shape,
+                    dtype=torch.int16 if emit_i16 else torch.float32,
+                    device=x_hi.device)
+    th, tl = _launch_ps_pair(
+        x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, y, 1, 0,
+        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit_i16,
+        "fir_td_mxu_per_stream_pair (K11)")
+    fir_td_mxu_per_stream_pair.launches += 1
+    return y, th, tl
+
+
+fir_td_mxu_per_stream_pair.launches = 0
+fir_td_mxu_per_stream_pair.kernels = 2
+
+
+def fir_td_mxu_per_stream_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo,
+                                             kernels, gains, idx, out_ring,
+                                             out_clip=None, dither_key=(0, 0),
+                                             dither_bits=None,
+                                             dither_tpdf=True):
+    """Plain K11, pair-to-ring form: the plain staged pair form written
+    into ``out_ring[idx]`` in place (quantized when the ring is int16)."""
+    y, th, tl = fir_td_mxu_per_stream_pair_plain(
+        x_hi, x_lo, tail_hi, tail_lo, kernels, gains, out_clip, dither_key,
+        dither_bits, dither_tpdf, out_ring.dtype == torch.int16)
+    out_ring[int(idx) % out_ring.shape[0]] = y
+    return out_ring, th, tl
+
+
+def fir_td_mxu_per_stream_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
+                                       tail_hi: torch.Tensor,
+                                       tail_lo: torch.Tensor,
+                                       kernels: torch.Tensor,
+                                       gains: torch.Tensor, idx: int,
+                                       out_ring: torch.Tensor, out_clip=None,
+                                       dither_key=(0, 0), dither_bits=None,
+                                       dither_tpdf=True):
+    """K11, pair-to-ring form: :func:`fir_td_mxu_per_stream_pair` writing
+    its output into slot ``idx`` of ``out_ring`` [S, B, T] (f32, or int16
+    for the int16 store) in place, every other slot untouched: K7's store
+    around the same kernel, so the slot equals the staged pair form's
+    output bit for bit.  Returns ``(out_ring, next_tail_hi,
+    next_tail_lo)``."""
+    if out_ring.ndim != 3:
+        raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
+                         f"{x_hi.shape[-1]}], got {tuple(out_ring.shape)}")
+    emit = _out_ring_emit(out_ring, (out_ring.shape[0], *x_hi.shape),
+                          x_hi.device)
+    if not _on_cuda(x_hi):
+        return fir_td_mxu_per_stream_pair_to_ring_plain(
+            x_hi, x_lo, tail_hi, tail_lo, kernels, gains, idx, out_ring,
+            out_clip, dither_key, dither_bits, dither_tpdf)
+    kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
+        x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
+    S = out_ring.shape[0]
+    th, tl = _launch_ps_pair(
+        x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out_ring, S,
+        int(idx) % S, _epi(out_clip, dither_key, dither_bits, dither_tpdf),
+        emit, "fir_td_mxu_per_stream_pair_to_ring (K11)")
+    fir_td_mxu_per_stream_pair_to_ring.launches += 1
+    return out_ring, th, tl
+
+
+fir_td_mxu_per_stream_pair_to_ring.launches = 0
+fir_td_mxu_per_stream_pair_to_ring.kernels = 2
+
+
 # ---------------------------------------------------------------- K13
 
 
@@ -1105,7 +1268,9 @@ def _pair_ring_args(ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring):
     if T % LANE:
         raise ValueError(f"T={T} must be a multiple of {LANE}")
     emit = _out_ring_emit(out_ring, ring_hi.shape, ring_hi.device)
-    return (*_pair_tail_args(B, tail_hi, tail_lo, h, ring_hi), emit)
+    h = _check_taps(h, ring_hi)
+    return (h, *_pair_tail_args(B, tail_hi, tail_lo, h.shape[0], ring_hi),
+            emit)
 
 
 def fir_td_mxu_ring_plain(ring_hi, ring_lo, idx, tail_hi, tail_lo, h,

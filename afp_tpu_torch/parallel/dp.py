@@ -352,8 +352,19 @@ class ShardedPipeline:
         return self._ring("run_ring_mega", params, state, ring_hi, ring_lo,
                           out_ring, n_steps, start)
 
+    def check_ring_params(self, params: DeviceParams,
+                          form: str = "ring_step") -> None:
+        """Refuse params that the shards' rings cannot serve: per-stream EQ
+        gains are served on one Pipeline's AGC ring only
+        (`Pipeline.check_ring_params`), never over a mesh's rings."""
+        if params.eq_gains.ndim == 2:
+            raise ValueError(
+                f"{form} over a mesh does not support per-stream EQ gains: "
+                "they are served on one Pipeline's AGC ring only")
+
     def _ring(self, form: str, params, state, ring_hi, ring_lo, out_ring,
               n_steps: int, start: int):
+        self.check_ring_params(params, form)
         ps = self.shard_params(params)
         rh, rl, ro = (self._rings(r, n) for r, n in (
             (ring_hi, "ring_hi"), (ring_lo, "ring_lo"), (out_ring, "out_ring")))

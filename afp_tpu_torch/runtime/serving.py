@@ -90,6 +90,12 @@ class RingServer:
     The pipeline's options ride along: with ``agc_one_kernel`` its AGC ring
     step is K14 → K7; a ``td_precision='HIGHEST'`` pipeline, or one with
     the waterfall, has no ring form and is refused, as in `afp_tpu`.
+    Per-stream EQ gains (`params` with [batch, n_bands] ``eq_gains``) are
+    served on the AGC ring (K5 → K6 → K11 pair-to-ring,
+    :meth:`set_eq_gains` swapping each listener's gains at a chunk
+    boundary); with `mega`, without AGC, under pair ingest, beside a
+    filter bank, with a `packing` or over a sharded pipeline they are
+    refused here.
 
     `pipeline` may also be a `ShardedPipeline` (no `packing`): the rings
     then follow its ``ring_layout``.
@@ -155,6 +161,14 @@ class RingServer:
         self._swap_lock = threading.Lock()
         self.params = params if params is not None else (
             pipeline.device_params(PipelineParams.design(pipeline.cfg)))
+        # per-stream EQ gains ride the AGC ring alone: refused here, not at
+        # the first dispatch
+        pipeline.check_ring_params(
+            self.params, "run_ring_mega" if self.mega else "ring_step")
+        if self.packing is not None and self.params.eq_gains.ndim == 2:
+            raise ValueError(
+                "per-stream EQ gains are not served with a packing: it moves "
+                "the streams' data into device order, not their params")
         self.K = slots
         self.chunk = chunk
         self.max_inflight = max_inflight
@@ -217,13 +231,17 @@ class RingServer:
 
     def set_eq_gains(self, gains) -> None:
         """Live gain-only update, same chunk-boundary atomicity as
-        :meth:`swap_params`."""
+        :meth:`swap_params`: the shared [n_bands] vector, or under per-stream
+        params each listener's [batch, n_bands] matrix (the shape the
+        server's params carry)."""
         g = torch.as_tensor(np.asarray(gains, dtype=np.float32),
                             device=self.pipe.device)
         with self._swap_lock:
             if g.shape != self.params.eq_gains.shape:
                 raise ValueError(
-                    "gain vector length must match the EQ band count")
+                    "gain vector length must match the EQ band count, in "
+                    f"the served params' shape {tuple(self.params.eq_gains.shape)}"
+                    f", got {tuple(g.shape)}")
             self.params = self.params._replace(eq_gains=g)
 
     def retune(self, new_cfg: StreamConfig) -> None:

@@ -16,8 +16,9 @@ index in :func:`records` of the span it opened inside (-1 for none, per
 thread); ``block`` is the global index of the block, or of a chunk's first
 block, the span worked on (-1 where it has none), so the spans of one
 block share an id; ``counts`` maps ``blocks``, ``bytes``, ``ops``
-(device operations enqueued) and ``threads`` (the threads of a native
-stage copy) to their totals, where non-zero.
+(device operations enqueued), ``threads`` (the threads of a native
+stage copy) and the EQ mix's ``rows``, ``bands``, ``taps`` and
+``samples`` to their totals, where non-zero.
 
 With the profiler off, :func:`span` makes one check and returns one shared
 no-op object: no allocation, no clock read.  The list is bounded by
@@ -38,6 +39,11 @@ The spans and what each covers:
 ``afp.serve.drain.wait``   the wait on a chunk's copy (``blocks`` drained)
 ``afp.pipe.run_ring``,     a chunk's ring dispatch (``blocks``, ``ops``:
 ``afp.pipe.run_ring_mega`` every device operation it launched)
+``afp.pipe.eq_mix``        K11's launch under per-stream EQ gains, inside
+                           the step (``rows``, ``bands``, ``taps``,
+                           ``samples`` = rows × block, ``bytes`` of its
+                           output; its launches count in the parent's
+                           ``ops``)
 ``afp.engine.block``       `StreamEngine`'s block, and inside it
 ``afp.engine.upload``,     the block's upload, the pipeline step, the
 ``afp.engine.step``,       download (and its ``.wait`` on the device) and

@@ -25,7 +25,8 @@ Phases, one output line each; any failure raises (exit code != 0):
    version and row by row ≡ its shared-taps form on that row's design; K11
    at C8-psg (9 bands, per-stream gains; the tensor-core kernel) ≤ −110 dB,
    its fused epilogue ≡ K11 → clip → K2 → quantize_pcm16, rows run alone ≡
-   the same rows in the batch, its band tiles built on the card ≡ the CPU's;
+   the same rows in the batch, its band tiles built on the card ≡ the CPU's,
+   its pair forms (staged and into a ring slot) ≡ K11 on the f32 block;
    K5/K6 with [B] vectors ≡ the scalar runs per policy group; then the last
    three: K15's HIGHEST K1 at the C5 headline and HIGHEST K11 at C8-psg
    (the six-product tensor-core form, with K11's checks; ≤ −110 dB, B3F/B3C
@@ -1640,7 +1641,60 @@ def phase_kernels_banks(torch, dev, sz: Sizes) -> dict:
         f"F.conv1d over mixed taps {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
         f"ms ({r['bound_ms'] / r['ms']:.0%}); {K} x K1's {t1:.3f} ms = {K * t1:.3f} "
         f"ms in this call; plain {r['plain_ms']:.3f} ms")
-    del x8, yk, yp, unfused
+
+    # K11's pair forms (behind the AGC): the split of x8's block behind the
+    # split of its history, ≡ K11 on x8; the ring form's slot ≡ the staged;
+    # each against its plain twin (conv ≤ CONV_DB, tails bit-exact)
+    kp = F.ring_k_pad(n8)
+    hist = torch.cat([torch.zeros(B8, kp - (n8 - 1), device=dev), x8[:, :n8 - 1]], 1)
+    (xh, xl), (th, tl) = F.split_bf16(x8[:, n8 - 1:]), F.split_bf16(hist)
+    yq, qh, ql = F.fir_td_mxu_per_stream_pair(xh, xl, th, tl, bands, gains, **dkw)
+    out8 = torch.zeros((2, B8, T8), dtype=torch.int16, device=dev)
+    out8, rh, rl = F.fir_td_mxu_per_stream_pair_to_ring(xh, xl, th, tl, bands, gains,
+                                                        1, out8, **dkw)
+    same = (torch.equal(yq, F.fir_td_mxu_per_stream(x8, bands, gains, **dkw))
+            and torch.equal(out8[1], F.quantize_pcm16(yq)) and torch.equal(qh, rh)
+            and torch.equal(ql, rl) and torch.equal(qh, xh[:, T8 - kp:]))
+    check(same, "K11 pair forms: staged != K11 on the f32 block, ring slot != "
+          "staged, or tails differ")
+    ringk, ringp = (torch.zeros((2, B8, T8), device=dev) for _ in range(2))
+    errs = {}
+    pair = dict(
+        fir_td_mxu_per_stream_pair=(
+            F.fir_td_mxu_per_stream_pair(xh, xl, th, tl, bands, gains),
+            F.fir_td_mxu_per_stream_pair_plain(xh, xl, th, tl, bands, gains),
+            lambda f: f(xh, xl, th, tl, bands, gains, emit_i16=True, **dkw)),
+        fir_td_mxu_per_stream_pair_to_ring=(
+            F.fir_td_mxu_per_stream_pair_to_ring(xh, xl, th, tl, bands, gains, 1,
+                                                 ringk),
+            F.fir_td_mxu_per_stream_pair_to_ring_plain(xh, xl, th, tl, bands, gains,
+                                                       1, ringp),
+            lambda f: f(xh, xl, th, tl, bands, gains, 1, out8, **dkw)))
+    for name, ((yk2, kh, kl), (yp2, ph, pl), call) in pair.items():
+        if yk2.ndim == 3:  # the ring forms: their slot 1
+            yk2, yp2 = yk2[1], yp2[1]
+        e = errs[name] = err_db(yk2.cpu(), yp2.cpu())
+        tails = torch.equal(kh, ph) and torch.equal(kl, pl)
+        check(e <= CONV_DB and tails, f"{name}: conv {e:.1f} dB vs plain, tails "
+              f"bit-exact {tails}")
+        # the library has no pair loader: its form of the pair forms is K11's,
+        # the grouped F.conv1d over mixed taps on the merged f32 block
+        res[name] = dict(max_abs_err=float((yk2 - yp2).abs().max()),
+                         ms=time_ms(torch, lambda: call(getattr(F, name)), 5),
+                         plain_ms=time_ms(torch, lambda: call(getattr(F, name + "_plain")),
+                                          1),
+                         library_ms=r["library_ms"],
+                         **bound(6.0 * B8 * T8 * n8 * K + 2.0 * B8 * T8 * K,
+                                 4 * (B8 * T8 + K * n8 + B8 * K + B8 * kp)
+                                 + 2 * B8 * T8))
+    a, b = (res[k] for k in pair)
+    say(f"phase 3 K11 pair forms [{B8}, {kp}+{T8}] (int16 out): staged == K11 on the "
+        f"f32 block bit for bit, ring slot == staged, tails == the block's last "
+        f"{kp}; vs plain: conv {' / '.join(f'{e:.1f}' for e in errs.values())} dB, tails "
+        f"bit-exact; {a['ms']:.3f} ms staged, {b['ms']:.3f} ms into the ring "
+        f"(plain {a['plain_ms']:.3f} / {b['plain_ms']:.3f} ms, F.conv1d over mixed "
+        f"taps {r['library_ms']:.3f} ms)")
+    del x8, yk, yp, unfused, xh, xl, th, tl, yq, out8, ringk, ringp, pair
 
     # K5 and K6 with [B] vectors at C8-psagc ≡ the scalar runs per group
     from afp_tpu_torch.ops.agc import agc_alphas
@@ -1793,9 +1847,9 @@ def phase_bank_pipeline(torch, dev, sz: Sizes) -> None:
 
 def phase_bank_serving(torch, dev, sz: Sizes) -> None:
     """RingServer at C5-bank (mega and per-step), C5-i16io-bank (mega),
-    C5-bank-packed, and C8-psagc (per-step), each ≡ its staged steps (or the
-    contiguous bank in caller order), dither on."""
-    from afp_tpu_torch.engine import Pipeline, PipelineParams
+    C5-bank-packed, C8-psagc and C8-psg (per-step), each ≡ its staged steps
+    (or the contiguous bank in caller order), dither on."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, batch
 
     g = torch.Generator(device=dev).manual_seed(90)
     src = list((torch.randn(sz.serve_blocks, sz.batch, sz.block, generator=g,
@@ -1853,6 +1907,13 @@ def phase_bank_serving(torch, dev, sz: Sizes) -> None:
           "C8-psagc RingServer differs from its staged steps (dither on)")
     say("phase 5 C8-psagc RingServer per-step ring == staged steps bit for bit, "
         "dither on")
+    psg = batch.with_per_stream_gains(
+        p8, p8.device_params(PipelineParams.design(p8.cfg)), psg_gains(sz.c8_batch))
+    got = served("C8-psg", p8, psg, src8, False)
+    check(np.array_equal(got, staged_outputs(torch, p8, psg, src8)),
+          "C8-psg RingServer differs from its staged steps (dither on)")
+    say("phase 5 C8-psg RingServer per-step ring (K5 -> K6 -> K11 pair-to-ring) == "
+        "staged steps (K11 pair) bit for bit, dither on")
 
 
 def phase_bank_engine(torch, dev, sz: Sizes) -> None:
@@ -3686,6 +3747,9 @@ REPLACES = {
                           "afp_tpu/ops/pallas/fir_td.py:556"),
     "fir_td_mxu_per_stream": ("afp_tpu_torch/csrc/fir_td.cu",
                               "afp_tpu/ops/pallas/fir_td.py:1784"),
+    # K11 behind the AGC with K8's loader (and K7's store): no TPU twin
+    "fir_td_mxu_per_stream_pair": ("afp_tpu_torch/csrc/fir_td.cu", "none"),
+    "fir_td_mxu_per_stream_pair_to_ring": ("afp_tpu_torch/csrc/fir_td.cu", "none"),
     "agc_rms_apply": ("afp_tpu_torch/csrc/agc_fused.cu",
                       "afp_tpu/ops/pallas/agc_fused.py:295"),
     "smooth_gain_scan": ("afp_tpu_torch/csrc/agc_scan.cu",
@@ -3700,8 +3764,9 @@ REPLACES = {
 #: what each phase must launch: kernels by wrapper name, and the options of a
 #: wrapper as "name:option" (its ``<option>_launches`` count).  The transport
 #: phases: K12 and K13, the int16 store (K12 at C5-i16io, K8 and K7 at
-#: C8-i16io) and K5/K6's int16 loads (C8-i16io); the bank phases: K10, K11,
-#: the bank option of K3, K4 and K12, the vector option of K5 and K6
+#: C8-i16io) and K5/K6's int16 loads (C8-i16io); the bank phases: K10, K11's
+#: pair forms (C8-psg behind the AGC, staged and on the ring), the bank
+#: option of K3, K4 and K12, the vector option of K5 and K6
 PHASE_LAUNCHES = {
     "phase_transport_pipeline": ("fir_td_mxu_ring_pcm16", "fir_td_mxu_pair",
                                  "rms_desired", "smooth_gain_apply"),
@@ -3711,14 +3776,15 @@ PHASE_LAUNCHES = {
                                 "rms_desired", "smooth_gain_apply"),
     "phase_transport_engine": ("fir_td_mxu_pair", "rms_desired",
                                "smooth_gain_apply"),
-    "phase_bank_pipeline": ("fir_td_mxu_banked", "fir_td_mxu_per_stream",
+    "phase_bank_pipeline": ("fir_td_mxu_banked", "fir_td_mxu_per_stream_pair",
                             "rms_desired:vector", "smooth_gain_apply:vector"),
     "phase_bank_serving": ("fir_td_mxu_ring_f32:banked",
                            "fir_td_mxu_ring_mega_f32:banked",
                            "fir_td_mxu_ring_pcm16:banked",
                            "fir_td_mxu_ring_mega_pcm16:banked", "fir_td_mxu_banked",
                            "rms_desired:vector", "smooth_gain_apply:vector",
-                           "fir_td_mxu_pair_to_ring"),
+                           "fir_td_mxu_pair_to_ring",
+                           "fir_td_mxu_per_stream_pair_to_ring"),
     "phase_bank_engine": ("dither_cuda",),
     "phase_highest_pipeline": ("fir_td_mxu:highest",
                                "fir_td_mxu_per_stream:highest", "rms_desired",

@@ -563,14 +563,50 @@ def test_per_stream_gains_transport(ingest):
 
 
 def test_per_stream_gains_rings_refused():
+    """Per-stream EQ gains are served on the AGC ring alone: `run_ring_mega`,
+    `RingServer(mega=True)`, the conv rings without AGC, pair ingest, gains
+    beside a filter bank, a packing and a mesh's rings refuse them, each
+    naming what is served (at construction for `RingServer`)."""
+    from afp_tpu_torch.parallel import ShardedPipeline, make_mesh
+
     p = Pipeline(StreamConfig(**EQ), "cpu")
     params = batch.with_per_stream_gains(
         p, p.device_params(PipelineParams.design(p.cfg)), 1.5)
     ring = torch.zeros(2, 16, 512)
-    with pytest.raises(ValueError, match="ring_step does not support per-stream"):
+    served = "served on the AGC ring only"
+    with pytest.raises(ValueError, match="conv rings without AGC.*" + served):
         p.ring_step(params, p.init_state(), ring, None, 0, torch.zeros_like(ring))
-    with pytest.raises(ValueError, match="run_ring_mega does not support per-stream"):
+    with pytest.raises(ValueError, match="run_ring_mega does not support per-stream.*"
+                       + served):
         p.run_ring_mega(params, p.init_state(), ring, None, torch.zeros_like(ring), 2)
+    with pytest.raises(ValueError, match="run_ring_mega does not support per-stream"):
+        RingServer(p, params, slots=4, chunk=2, max_inflight=1, mega=True)
+    with pytest.raises(ValueError, match="conv rings without AGC"):
+        RingServer(p, params, slots=4, chunk=2, max_inflight=1)
+    q = Pipeline(StreamConfig(**{**EQ, "ingest": "pair"}), "cpu")
+    qp = batch.with_per_stream_gains(
+        q, q.device_params(PipelineParams.design(q.cfg)), 1.5)
+    with pytest.raises(ValueError, match="with pair ingest.*" + served):
+        q.ring_step(qp, q.init_state(), ring.bfloat16(), ring.bfloat16(), 0,
+                    torch.zeros_like(ring))
+    a = Pipeline(StreamConfig(**{**C8, "batch": 16}), "cpu")
+    ap = batch.with_per_stream_gains(
+        a, a.device_params(PipelineParams.design(a.cfg)), 1.5)
+    bank = ap.casc_main[None].clone()
+    with pytest.raises(ValueError, match="together with a filter bank.*" + served):
+        a.ring_step(ap._replace(casc_bank=bank, casc_assign=torch.zeros(2, dtype=torch.int32)),
+                    a.init_state(), torch.zeros(2, 16, 256), None, 0,
+                    torch.zeros(2, 16, 256))
+    _, packing = batch.with_per_stream_filters(
+        Pipeline(StreamConfig(**TD), "cpu"), INTERLEAVED, pack=True)
+    with pytest.raises(ValueError, match="not served with a packing"):
+        RingServer(a, ap, slots=4, chunk=2, max_inflight=1, packing=packing)
+    sp = ShardedPipeline(StreamConfig(**{**C8, "batch": 16}),
+                         make_mesh(2, devices=["cpu", "cpu"]))
+    spp = batch.with_per_stream_gains(
+        a, sp.device_params(PipelineParams.design(sp.cfg)), 1.5)
+    with pytest.raises(ValueError, match="over a mesh does not support per-stream"):
+        RingServer(sp, spp, slots=4, chunk=2, max_inflight=1)
     # no shared taps: one cascade per stream, its own gains' band sum
     k = params.combined_cascade(True)
     g, bands = params.eq_gains.double(), params.casc_bands.double()
@@ -579,6 +615,70 @@ def test_per_stream_gains_rings_refused():
     e = float((k.double() - want).abs().max() / want.abs().max())
     print(f"per-stream cascade vs float64: {20 * np.log10(e + 1e-300):.1f} dB")
     assert 20 * np.log10(e + 1e-300) <= -130
+
+
+def _psg(ingest="f32", emit="f32", seed=23):
+    """The C8 chain with dither on and seeded per-stream gains on the 0.1
+    grid of 0-4 (the EQ GUI's sliders)."""
+    kw = {**C8, "ingest": ingest, "emit": emit, "dither_kind": "tpdf"}
+    p = Pipeline(StreamConfig(**kw), "cpu")
+    gains = (np.random.default_rng(seed).integers(0, 41, (8, 9)) / 10.0
+             ).astype(np.float32)
+    return p, batch.with_per_stream_gains(
+        p, p.device_params(PipelineParams.design(p.cfg)), gains)
+
+
+def _psg_blocks(n, ingest, seed=24):
+    xs = blocks(n, B=8, L=256, seed=seed, scale=0.05)
+    xs[:, 0] *= 12.0
+    return pcm(xs) if ingest == "pcm16" else xs
+
+
+@pytest.mark.parametrize("ingest,emit", [("f32", "f32"), ("f32", "pcm16"),
+                                         ("pcm16", "f32"), ("pcm16", "pcm16")])
+def test_per_stream_gains_agc_ring_equals_staged(ingest, emit):
+    """Per-stream EQ gains on the AGC ring (K5 → K6 → K11 pair-to-ring) ≡
+    the staged steps (K5 → K6 pair store → K11 pair), bit for bit, over 6
+    blocks with the dither on: the ring's slots, the pair tail and the gain
+    carry; and `RingServer` serving them ≡ the staged outputs."""
+    p, params = _psg(ingest, emit)
+    xs = _psg_blocks(6, ingest)
+    st, staged = steps(p, params, xs, seed=4)
+    out = torch.zeros(xs.shape, dtype=p.out_dtype)
+    rst, out = p.run_ring(params, p.init_state(seed=4), torch.from_numpy(xs), None,
+                          out, 6)
+    assert np.array_equal(out.numpy(), staged)
+    assert all(torch.equal(a, b) for a, b in zip(rst.conv_tail, st.conv_tail))
+    assert torch.equal(rst.agc_gain, st.agc_gain)
+    srv = RingServer(p, params, slots=6, chunk=2, max_inflight=2, seed=4)
+    assert np.array_equal(np.stack(list(srv.stream(iter(xs)))), staged)
+
+
+def test_per_stream_gains_swap_at_a_chunk_boundary():
+    """`RingServer.set_eq_gains` with a new [B, 9] matrix in the middle of a
+    stream takes effect at the next chunk: the served outputs ≡ staged
+    steps that swap the gains at the same block; a shared [9] vector does
+    not fit a per-stream server."""
+    p, params = _psg("pcm16", "pcm16")
+    xs = _psg_blocks(7, "pcm16")
+    new = (np.random.default_rng(25).integers(0, 41, (8, 9)) / 10.0
+           ).astype(np.float32)
+    swapped = batch.with_per_stream_gains(p, params, new)
+    st, head = steps(p, params, xs[:4], seed=6)
+    _, tail = steps(p, swapped, xs[4:], state=st)
+    srv = RingServer(p, params, slots=6, chunk=2, max_inflight=1, seed=6)
+
+    def source():
+        for i, x in enumerate(xs):
+            if i == 4:  # chunks [0, 1] and [2, 3] are dispatched by now
+                srv.set_eq_gains(new)
+            yield x
+
+    got = np.stack(list(srv.stream(source())))
+    assert np.array_equal(got, np.concatenate([head, tail]))
+    assert not np.array_equal(head, steps(p, swapped, xs[:4], seed=6)[1])
+    with pytest.raises(ValueError, match="EQ band count"):
+        srv.set_eq_gains(np.ones(9, np.float32))
 
 
 def _policies(p):
@@ -647,9 +747,10 @@ def test_agc_validation_matches():
 
 @pytest.mark.parametrize("agc", ["gains", "bank"])
 def test_c8_with_gains_or_bank_matches_jax(agc):
-    """The C8 chain (AGC, K6 storing f32) with per-stream EQ gains (K11) or,
-    without EQ, a filter bank (K10) against `afp_tpu`'s unforced route
-    ≤ −100 dB, over 3 blocks (the pair tail merged and re-split)."""
+    """The C8 chain with per-stream EQ gains (K6 storing its pair, K11's
+    pair form behind the pair tail) or, without EQ, a filter bank (K6
+    storing f32, K10; the pair tail merged and re-split) against
+    `afp_tpu`'s unforced route ≤ −100 dB, over 3 blocks."""
     kw = dict(C8) if agc == "gains" else {**C8, "eq_enabled": False}
     xs = blocks(3, B=8, L=256, seed=18, scale=0.05)
     xs[:, 0] *= 12.0

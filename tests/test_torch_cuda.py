@@ -35,7 +35,10 @@ slice, `upfirdn`, `resample_poly` and `PolyResampler` on the card ≡ the
 CPU's (cuFFT against torch's CPU FFT, ≤ −100 dB) at every ratio, the
 literal chain and the compat ASRC on the card ≡ their CPU runs, the
 exact frontend on the card chunked ≡ one shot bit for bit, and the
-'parallel' AGC route on the card ≡ the exact route.
+'parallel' AGC route on the card ≡ the exact route; and for the
+per-listener EQ farm, K11's pair forms against their plain twins, the
+per-stream AGC ring ≡ the staged steps (at the served cell's shape too),
+and its counted operations against the profiler's.
 Marked
 ``cuda``: they skip without a CUDA device.  The card's machine has no jax,
 so run them there without the suite's conftest:
@@ -1464,3 +1467,136 @@ def test_stage_counts_threads_at_the_served_sizes(dev):
         assert len(stages) == 14
         assert all((r[5].get("threads", 0) > 0) == native for r in stages)
         assert all(recs[r[3]][0] == "afp.serve.land" for r in stages)
+
+
+@pytest.mark.parametrize("B,T,n,K", [(12, 384, 65, 9), (5, 640, 209, 9),
+                                     (7, 128, 300, 1), (37, 2048, 209, 9)])
+def test_k11_pair_forms_vs_plain(dev, B, T, n, K):
+    """K11's staged pair form and pair-to-ring form (the per-listener EQ
+    behind the AGC) at masked rows, a tail longer than the block (300 taps:
+    k_pad 384 > T = 128) and the C8-psg taps: ≤ −110 dB against their plain
+    twins, the tails bit-exact; the clip and the noise fused bit for bit
+    (f32 and int16 stores); the ring slot ≡ the staged output, other slots
+    untouched; and the pair forms on the split of an f32 block and tail ≡
+    K11's x_ext form on that f32 history and block, as K8 ≡ K1."""
+    kernels = randn(dev, K, n, seed=1) * 0.3
+    gains = torch.rand(B, K, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev) * 4.0
+    x, t = randn(dev, B, T), randn(dev, B, F.ring_k_pad(n), seed=3)
+    xh, xl = F.split_bf16(x)
+    th, tl = F.split_bf16(t)
+    y, nh, nl = F.fir_td_mxu_per_stream_pair(xh, xl, th, tl, kernels, gains)
+    yp, ph, pl = F.fir_td_mxu_per_stream_pair_plain(xh, xl, th, tl, kernels, gains)
+    e = err_db(y, yp)
+    print(f"K11 pair B={B} T={T} n={n} K={K}: {e:.1f} dB")
+    assert y.shape == (B, T) and e <= CONV_DB
+    assert torch.equal(nh, ph) and torch.equal(nl, pl)
+    ext = torch.cat([t, x], dim=-1)[:, F.ring_k_pad(n) - (n - 1):].contiguous()
+    assert torch.equal(y, F.fir_td_mxu_per_stream(ext, kernels, gains))
+    ye, _, _ = F.fir_td_mxu_per_stream_pair(xh, xl, th, tl, kernels, gains, **EPI)
+    assert torch.equal(ye, dither_cuda(torch.clamp(y, -0.3, 0.3), (9, 4), 16, "tpdf"))
+    yi, _, _ = F.fir_td_mxu_per_stream_pair(xh, xl, th, tl, kernels, gains,
+                                            emit_i16=True, **EPI)
+    assert torch.equal(yi, F.quantize_pcm16(ye))
+    for dtype, want in ((torch.float32, ye), (torch.int16, yi)):
+        out = torch.full((3, B, T), 5, dtype=dtype, device=dev)
+        out, rh, rl = F.fir_td_mxu_per_stream_pair_to_ring(
+            xh, xl, th, tl, kernels, gains, 2, out, **EPI)
+        assert torch.equal(out[2], want) and bool((out[:2] == 5).all())
+        assert torch.equal(rh, nh) and torch.equal(rl, nl)
+    pout = torch.zeros((3, B, T), device="cpu")
+    pout, _, _ = F.fir_td_mxu_per_stream_pair_to_ring_plain(
+        xh.cpu(), xl.cpu(), th.cpu(), tl.cpu(), kernels.cpu(), gains.cpu(), 1,
+        pout)
+    assert err_db(pout[1], y) <= CONV_DB
+
+
+def _psg_pipe(dev, B, T, ingest, emit, seed=11):
+    """The C8-psg chain (AGC, 2×, 129 taps, the 9-band EQ, clip 0.99,
+    TPDF) at batch B, block T, with seeded per-stream gains in 0-4."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig, batch
+
+    cfg = StreamConfig(samplerate=44100, blocksize=T, upsample_factor=2,
+                       numtaps=129, batch=B, cutoff=14000.0, eq_enabled=True,
+                       agc_enabled=True, agc_window_size=512, agc_carry=True,
+                       output_clip=0.99, dither_kind="tpdf",
+                       downsample_mode="decimate", conv_strategy="td_mxu",
+                       ingest=ingest, emit=emit)
+    pipe = Pipeline(cfg, dev)
+    gains = (np.random.default_rng(seed).integers(0, 41, (B, 9)) / 10.0
+             ).astype(np.float32)
+    params = batch.with_per_stream_gains(
+        pipe, pipe.device_params(PipelineParams.design(pipe.cfg)), gains)
+    return pipe, params
+
+
+def _psg_blocks(n, B, T, ingest, seed=12):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, B, T)) * 10 ** rng.uniform(-2, -0.2, (n, B, 1))
+    if ingest == "pcm16":
+        return np.clip(np.round(x * 32768), -32768, 32767).astype(np.int16)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("B,T,ingest,emit", [
+    (32, 1024, "f32", "f32"), (32, 1024, "pcm16", "pcm16"),
+    (4096, 2048, "pcm16", "pcm16")])
+def test_per_stream_agc_ring_equals_staged(dev, B, T, ingest, emit):
+    """Per-stream EQ gains on the AGC ring (K5 → K6 → K11 pair-to-ring)
+    ≡ the staged steps (K5 → K6 → K11 pair), bit for bit on the card over
+    6 blocks with the dither on, at a small batch and at the served cell's
+    shape (4096 listeners × 2048 samples, 16-bit PCM): outputs, the pair
+    tail and the gain carry; and through `RingServer`."""
+    from afp_tpu_torch.runtime import RingServer
+
+    pipe, params = _psg_pipe(dev, B, T, ingest, emit)
+    xs = _psg_blocks(6, B, T, ingest)
+    st = pipe.init_state(seed=7)
+    outs = []
+    for x in xs:
+        st, y = pipe.step(params, st, x)
+        outs.append(y)
+    staged = torch.stack(outs)
+    before = F.fir_td_mxu_per_stream_pair_to_ring.launches
+    ring = torch.as_tensor(xs, device=dev)
+    out = torch.zeros(xs.shape, dtype=pipe.out_dtype, device=dev)
+    rs, out = pipe.run_ring(params, pipe.init_state(seed=7), ring, None, out, 6)
+    assert F.fir_td_mxu_per_stream_pair_to_ring.launches == before + 6
+    assert torch.equal(out, staged)
+    assert all(torch.equal(a, b) for a, b in zip(rs.conv_tail, st.conv_tail))
+    assert torch.equal(rs.agc_gain, st.agc_gain)
+    srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=7)
+    served = np.stack(list(srv.stream(iter(xs))))
+    assert np.array_equal(served, staged.cpu().numpy())
+    print(f"psg ring B={B} T={T} {ingest}/{emit}: served == staged")
+
+
+def test_traced_ops_of_the_per_stream_ring(dev):
+    """The per-listener EQ ring served under `torch.profiler`: the counted
+    ``ops`` equal the trace's device operations one for one (K5, K6, K11
+    and its tail a block, no shared taps computed), one ``afp.pipe.eq_mix``
+    span a block with its counts, and each mix one `fir_ps_kernel`
+    operation."""
+    from collections import Counter
+
+    from afp_tpu_torch.runtime import RingServer
+
+    pipe, params = _psg_pipe(dev, 32, 1024, "pcm16", "pcm16")
+    srv = RingServer(pipe, params, slots=12, chunk=4, max_inflight=2, seed=5)
+    blks = list(_psg_blocks(10, 32, 1024, "pcm16"))
+    list(srv.stream(iter(blks)))  # every shape once, before the profiler
+    recs, ops = _traced_device_ops(lambda: list(srv.stream(iter(blks))))
+    counted = sum(r[5].get("ops", 0) for r in recs
+                  if r[0] != "afp.pipe.eq_mix")
+    mixes = [r[5] for r in recs if r[0] == "afp.pipe.eq_mix"]
+    ring = sum(r[5].get("ops", 0) for r in recs if r[0] == "afp.pipe.run_ring")
+    by_span = Counter()
+    for r in recs:
+        by_span[r[0]] += r[5].get("ops", 0)
+    print(f"psg: {counted} ops counted ({dict(by_span)}), {len(ops)} in the "
+          f"trace: {dict(Counter(n[:40] for n in ops))}; first {ops[:6]}")
+    assert counted == len(ops) and ring == 4 * 10
+    assert len(mixes) == 10 and all(
+        m == dict(rows=32, bands=9, taps=pipe.n_casc, samples=32 * 1024,
+                  bytes=2 * 32 * 1024) for m in mixes)
+    assert sum("fir_ps_kernel" in n for n in ops) == 10

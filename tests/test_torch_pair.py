@@ -161,6 +161,25 @@ def test_k13_checks():
         F.fir_td_mxu_ring_mega(hi, hi, 0, th, th, h, torch.zeros(2, 4, 256), 0)
 
 
+@pytest.mark.parametrize("taps", ["2-D", "float64"])
+@pytest.mark.parametrize("form", ["K8", "K7", "K13", "K13 mega"])
+def test_pair_forms_refuse_taps_that_are_not_1d_f32(form, taps):
+    """K8, K7 and K13 take one 1-D float32 taps vector on the block's
+    device; band kernels [K, n] are K11's, and its pair forms check them."""
+    h = torch.zeros(2, 31) if taps == "2-D" else torch.zeros(31, dtype=torch.float64)
+    xh = torch.zeros(4, 256, dtype=torch.bfloat16)
+    ring = torch.zeros(2, 4, 256, dtype=torch.bfloat16)
+    th = torch.zeros(4, 128, dtype=torch.bfloat16)
+    out = torch.zeros(2, 4, 256)
+    call = {"K8": lambda: F.fir_td_mxu_pair(xh, xh, th, th, h),
+            "K7": lambda: F.fir_td_mxu_pair_to_ring(xh, xh, th, th, h, 0, out),
+            "K13": lambda: F.fir_td_mxu_ring(ring, ring, 0, th, th, h, out),
+            "K13 mega": lambda: F.fir_td_mxu_ring_mega(ring, ring, 0, th, th,
+                                                       h, out, 2)}[form]
+    with pytest.raises(ValueError, match="taps must be 1-D float32"):
+        call()
+
+
 # ---------------------------------------------------------------- the chain
 
 
