@@ -380,7 +380,7 @@ __device__ __forceinline__ int16_t pcm16(float y) {
 // over the flat index b*T + t, then f32 or the int16 quantizer.  With `bad`
 // the rows are NaN instead (the int16 quantizer makes that -32768).
 __device__ __forceinline__ void store_rows(const Src& src, int b0, int t,
-                                           int slot, int step,
+                                           int slot, uint32_t step,
                                            const float (&acc)[kRows][4],
                                            const afp::Epilogue& epi,
                                            int emit_i16, void* out,
@@ -393,7 +393,7 @@ __device__ __forceinline__ void store_rows(const Src& src, int b0, int t,
     afp::U4 bits = {{0u, 0u, 0u, 0u}};
     if (epi.dither)
       bits = afp::noise_bits4(static_cast<uint64_t>(flat >> 2), epi.seed,
-                              epi.counter + static_cast<uint32_t>(step));
+                              epi.counter + step);
     float4 y;
     y.x = afp::finish(acc[r][0], epi, bits.w[0]);
     y.y = afp::finish(acc[r][1], epi, bits.w[1]);
@@ -469,6 +469,10 @@ __device__ __forceinline__ void store_tile(const Src& src, float* ys, int b0,
       }
   __syncthreads();
   constexpr int kChunks = 16 * MT / kRows * (COLS / 4);
+  // the step's block counter, past the chunk's on the device when given
+  const uint32_t key_step =
+      static_cast<uint32_t>(step) +
+      (epi.counter_dev != nullptr ? *epi.counter_dev : 0u);
   for (int i = threadIdx.x; i < kChunks; i += NT) {
     const int c = (i % (COLS / 4)) * 4;
     const int r = (i / (COLS / 4)) * kRows;
@@ -483,7 +487,7 @@ __device__ __forceinline__ void store_tile(const Src& src, float* ys, int b0,
       acc[rr][2] = v.z;
       acc[rr][3] = v.w;
     }
-    store_rows(src, b0 + r, t0 + c, slot, step, acc, epi, emit_i16, out,
+    store_rows(src, b0 + r, t0 + c, slot, key_step, acc, epi, emit_i16, out,
                (bad >> (r / 8)) & 1u);
   }
 }
@@ -688,12 +692,16 @@ __global__ void __launch_bounds__(32 * WARPS)
 
 // Next tail after n_steps ring steps: the last hist samples of the stream,
 // i.e. step n_steps's history, in the ring's own element type (raw int16 for
-// K12, both halves for K13 and K7/K8).
+// K12, both halves for K13 and K7/K8).  With `counter_dev` one thread adds
+// `counter_add` to the device's block counter, after the conv read it.
 template <int IN>
 __global__ void ring_tail_kernel(Src src, int n_steps, void* __restrict__ out,
-                                 void* __restrict__ out_lo) {
+                                 void* __restrict__ out_lo,
+                                 uint32_t* __restrict__ counter_dev,
+                                 uint32_t counter_add) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
+  if (counter_dev != nullptr && i == 0) *counter_dev += counter_add;
   if (i >= static_cast<long long>(src.B) * src.hist) return;
   const int b = static_cast<int>(i / src.hist);
   const int e = static_cast<int>(i - static_cast<long long>(b) * src.hist);
@@ -713,7 +721,7 @@ __global__ void ring_tail_kernel(Src src, int n_steps, void* __restrict__ out,
 
 afp::Epilogue make_epilogue(int has_clip, float clip, int dither,
                             unsigned int seed, unsigned int counter,
-                            float lsb) {
+                            float lsb, const void* counter_dev = nullptr) {
   afp::Epilogue e;
   e.has_clip = has_clip;
   e.clip = clip;
@@ -721,6 +729,7 @@ afp::Epilogue make_epilogue(int has_clip, float clip, int dither,
   e.seed = seed;
   e.counter = counter;
   e.lsb = lsb;
+  e.counter_dev = static_cast<const uint32_t*>(counter_dev);
   return e;
 }
 
@@ -765,11 +774,14 @@ int launch_ps(const Src& s, const float* bands, const float* gains,
 
 template <int IN>
 int launch_tail(const Src& s, int n_steps, void* out, void* out_lo,
-                cudaStream_t stream) {
+                cudaStream_t stream, void* counter_dev = nullptr,
+                unsigned int counter_add = 0) {
   const long long n = static_cast<long long>(s.B) * s.hist;
   const int threads = 256;
   ring_tail_kernel<IN><<<static_cast<unsigned int>((n + threads - 1) / threads),
-                         threads, 0, stream>>>(s, n_steps, out, out_lo);
+                         threads, 0, stream>>>(
+      s, n_steps, out, out_lo, static_cast<uint32_t*>(counter_dev),
+      counter_add);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -879,13 +891,16 @@ extern "C" int afp_fir_td_ring(const void* ring, const void* ring_lo,
 
 // K8 and K7.  The bf16 pair of the block [B, T] behind the pair tail
 // [B, k_pad] -> slot idx of out [S, B, T] (K8: S = 1, idx = 0), f32 or
-// (emit_i16) int16, and the next pair tail [B, k_pad].
+// (emit_i16) int16, and the next pair tail [B, k_pad].  With `counter_dev`
+// (a uint32 on the device) the dither's block counter is *counter_dev +
+// counter, and the tail kernel then adds `counter_add` to it.
 extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
                                const void* tl, const void* h, void* out,
                                void* th_out, void* tl_out, int S, int B, int T,
                                int k_pad, int n_taps, int idx, int has_clip,
                                float clip, int dither, unsigned int seed,
                                unsigned int counter, float lsb, int emit_i16,
+                               void* counter_dev, unsigned int counter_add,
                                void* stream) {
   if (S <= 0 || idx < 0 || k_pad <= 0 || k_pad < n_taps - 1 ||
       static_cast<long long>(T) + k_pad > 0x7FFFFFFFLL)
@@ -903,14 +918,15 @@ extern "C" int afp_fir_td_pair(const void* xh, const void* xl, const void* th,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = launch_conv<kModePair, kInPair>(
       s, static_cast<const float*>(h), n_taps, out,
-      make_epilogue(has_clip, clip, dither, seed, counter, lsb), 1, emit_i16,
-      st);
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb, counter_dev),
+      1, emit_i16, st);
   if (rc) return rc;
   // the block is a one-slot ring for the tail: the last k_pad samples of
   // concat(tail, block)
   s.S = 1;
   s.start = 0;
-  return launch_tail<kInPair>(s, 1, th_out, tl_out, st);
+  return launch_tail<kInPair>(s, 1, th_out, tl_out, st, counter_dev,
+                              counter_add);
 }
 
 // K11 (and K15's HIGHEST K11 with `highest`).  x_ext [B, n_taps-1+T], the
@@ -948,6 +964,7 @@ extern "C" int afp_fir_td_ps(const void* x_ext, const void* bands,
 // per-stream gains [B, n_bands] -> slot idx of out [S, B, T] (the staged
 // form: S = 1, idx = 0), f32 or (emit_i16) int16, and the next pair tail
 // [B, k_pad]: K8's loader and K7's slot store around K11's mix.
+// `counter_dev`/`counter_add`: as for afp_fir_td_pair.
 extern "C" int afp_fir_td_ps_pair(const void* xh, const void* xl,
                                   const void* th, const void* tl,
                                   const void* bands, const void* gains,
@@ -956,7 +973,8 @@ extern "C" int afp_fir_td_ps_pair(const void* xh, const void* xl,
                                   int n_bands, int idx, int has_clip,
                                   float clip, int dither, unsigned int seed,
                                   unsigned int counter, float lsb,
-                                  int emit_i16, void* stream) {
+                                  int emit_i16, void* counter_dev,
+                                  unsigned int counter_add, void* stream) {
   if (S <= 0 || idx < 0 || B <= 0 || T <= 0 || T % 4 || n_taps <= 0 ||
       n_bands <= 0 || k_pad <= 0 || k_pad < n_taps - 1 ||
       static_cast<long long>(T) + k_pad > 0x7FFFFFFFLL)
@@ -975,12 +993,14 @@ extern "C" int afp_fir_td_ps_pair(const void* xh, const void* xl,
   const int rc = launch_ps<kModePair, kInPair, 2>(
       s, static_cast<const float*>(bands), static_cast<const float*>(gains),
       n_taps, n_bands, out,
-      make_epilogue(has_clip, clip, dither, seed, counter, lsb), emit_i16, st);
+      make_epilogue(has_clip, clip, dither, seed, counter, lsb, counter_dev),
+      emit_i16, st);
   if (rc) return rc;
   // the next tail: the last k_pad samples of concat(tail, block)
   s.S = 1;
   s.start = 0;
-  return launch_tail<kInPair>(s, 1, th_out, tl_out, st);
+  return launch_tail<kInPair>(s, 1, th_out, tl_out, st, counter_dev,
+                              counter_add);
 }
 
 // The body's geometry at n_taps (`highest`: P = 3), as the launch takes it:

@@ -67,7 +67,9 @@ __device__ __forceinline__ float noise_from_bits(uint32_t b, int kind,
 }
 
 // Output stage in the reference's order (`fir_td.py:_finish_tile`):
-// optional clip, then optional dither.
+// optional clip, then optional dither.  With `counter_dev` the block
+// counter is *counter_dev + counter (a CUDA graph's launch reads the
+// chunk's counter from the device); null keeps the launch argument alone.
 struct Epilogue {
   int has_clip;
   float clip;
@@ -75,6 +77,7 @@ struct Epilogue {
   uint32_t seed;
   uint32_t counter;
   float lsb;
+  const uint32_t* counter_dev;
 };
 
 __device__ __forceinline__ float finish(float y, const Epilogue& e,

@@ -49,6 +49,15 @@ both ingest forms to 'td_mxu'):
   `quantize_pcm16` fused into the conv store after the clip and the
   dither ('td_mxu'), or run after K2 ('fft').  Output rings are int16.
 
+A `RingServer` hands :meth:`Pipeline.run_ring` its cache of CUDA graphs
+(`engine/ring_graphs.py`): on a card the AGC ring's chunk then runs its
+steps eagerly the first time its first slot, length and rings are
+dispatched, is captured the second time and is replayed from then on, one
+launch a chunk, bit for bit the eager steps; the taps are built once per
+params object, the dither's block counter is read on the device, and the
+state returned lives in the cache's buffers.  Every other ring call (no
+cache, the CPU, the conv rings, a sharded pipeline's shards) runs eagerly.
+
 Per-stream banks (`engine/batch.py`; `pipeline.py:549-557, 813-904`):
 
 * ``eq_gains`` [B, n_bands] (per-stream EQ): 'td_mxu' runs K11 on the f32
@@ -144,6 +153,7 @@ the fold carry it (`supports_ring_step`, `supports_fold`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -694,12 +704,12 @@ class Pipeline:
         return link_desired(d, self.cfg.agc_link_group, batch_axis=1)
 
     def _agc(self, params: DeviceParams, x: torch.Tensor, gain, ring_idx=None,
-             emit_split=None):
+             emit_split=None, carry_out=None):
         """The AGC on the block ``x`` [B, L] (or on slot ``ring_idx`` of the
         ring ``x``): K5 → link → K6, or K14 alone under the one-kernel
         option with scalar knobs.  Returns (the gained block — its bf16
         pair when the conv reads pairs, unless `emit_split` says otherwise —
-        and the new [B] gain carry)."""
+        and the new [B] gain carry, stored into `carry_out` where given)."""
         cfg = self.cfg
         emit = self._pair_tail if emit_split is None else emit_split
         init = gain if cfg.agc_carry else None
@@ -712,7 +722,7 @@ class Pipeline:
                                  params.agc_a_rel, params.agc_target,
                                  params.agc_max_gain, init=init,
                                  out_clip=0.99, emit_split=emit,
-                                 ring_idx=ring_idx)
+                                 ring_idx=ring_idx, carry_out=carry_out)
         lp, rp = self._rms_pad
         mc = self._agc_blockwise if self._agc_means else 0
         d = rms_desired(x, self._rms_band, lp, rp, params.agc_target,
@@ -723,7 +733,8 @@ class Pipeline:
         return smooth_gain_apply(
             d, x, params.agc_a_att, params.agc_a_rel, params.agc_max_gain,
             init=init, out_clip=0.99, emit_split=emit, ring_idx=ring_idx,
-            blockwise=self._agc_blockwise, d_is_means=bool(mc))
+            blockwise=self._agc_blockwise, d_is_means=bool(mc),
+            carry_out=carry_out)
 
     def _agc_solver(self, params: DeviceParams, x: torch.Tensor, init, emit):
         """``agc_mode='parallel'`` (`afp_tpu/engine/pipeline.py:637-740`):
@@ -748,22 +759,29 @@ class Pipeline:
         """True when the params carry per-stream EQ gains."""
         return self.has_eq and params.eq_gains.ndim == 2
 
-    def _eq_mix(self, form, params: DeviceParams, state: StreamState, x,
-                *rest, **kw):
-        """K11 in one of its pair forms (`form`) over the gained pair `x`
-        behind the state's pair tail, with the band kernels, the per-stream
-        gains, the state's dither and `form`'s further arguments `rest`/`kw`;
-        traced as the span ``afp.pipe.eq_mix`` with the counts ``rows``,
+    @contextlib.contextmanager
+    def _eq_mix_span(self, params: DeviceParams, block: int):
+        """The span ``afp.pipe.eq_mix`` of one K11 launch over `params`'
+        per-stream gains for block `block`, with the counts ``rows``,
         ``bands``, ``taps``, ``samples`` (rows × block) and ``bytes`` (the
         mix's output)."""
         g, bands = params.eq_gains, params.casc_bands
-        rows, samples = g.shape[0], g.shape[0] * self.block
-        with trace.span("afp.pipe.eq_mix", block=state.step,
+        samples = g.shape[0] * self.block
+        with trace.span("afp.pipe.eq_mix", block=block,
                         nbytes=samples * self.out_dtype.itemsize):
-            trace.add(rows=rows, bands=bands.shape[0], taps=bands.shape[1],
-                      samples=samples)
-            return form(*x, *state.conv_tail, bands, g, *rest,
-                        **self._dither_kw(state, self.cfg.output_clip), **kw)
+            trace.add(rows=g.shape[0], bands=bands.shape[0],
+                      taps=bands.shape[1], samples=samples)
+            yield
+
+    def _eq_mix(self, form, params: DeviceParams, tail, block: int, dkw: dict,
+                x, *rest, **kw):
+        """K11 in one of its pair forms (`form`) over the gained pair `x`
+        behind the pair `tail`, with the band kernels, the per-stream gains,
+        the dither `dkw` and `form`'s further arguments `rest`/`kw`; traced
+        as :meth:`_eq_mix_span` of block `block`."""
+        with self._eq_mix_span(params, block):
+            return form(*x, *tail, params.casc_bands, params.eq_gains, *rest,
+                        **dkw, **kw)
 
     def _ext(self, tail, x):
         """The f32 extended block [B, n−1+L] (the conv's history, then the
@@ -880,7 +898,8 @@ class Pipeline:
         if isinstance(x, tuple) and per_stream and self._agc_on:
             # K11 over the AGC's pair store: the ring's form (staged ≡ ring)
             y, th, tl = self._eq_mix(fir_td_mxu_per_stream_pair, params,
-                                     state, x, emit_i16=self._emit16)
+                                     tail, state.step, dkw, x,
+                                     emit_i16=self._emit16)
             return nxt((th, tl)), y
         if isinstance(x, tuple) and not (per_stream or banked):
             y, th, tl = fir_td_mxu_pair(
@@ -1124,13 +1143,21 @@ class Pipeline:
 
     def _ring_taps(self, params: DeviceParams, ring_hi, ring_lo, out_ring,
                    form: str = "ring_step"):
+        """:meth:`_check_ring`, then the taps and bank keywords: (None, {})
+        under per-stream gains, whose band kernels K11 mixes itself."""
+        self._check_ring(params, ring_hi, ring_lo, out_ring, form)
+        if self._per_stream(params):
+            return None, {}
+        return self._taps(params)
+
+    def _check_ring(self, params: DeviceParams, ring_hi, ring_lo, out_ring,
+                    form: str = "ring_step") -> None:
         """The checks of every ring form (`pipeline.py:1110-1191,
         1369-1401`): per-stream EQ gains on the AGC ring only
         (:meth:`check_ring_params`), pair rings exactly for pair ingest, an
         int16 input ring exactly for pcm16 ingest, an int16 output ring
         exactly under ``emit='pcm16'``, filter banks on the f32 and int16
-        conv rings only.  Returns the taps and bank keywords: (None, {})
-        under per-stream gains, whose band kernels K11 mixes itself."""
+        conv rings only."""
         cfg = self.cfg
         self.check_ring_params(params, form)
         if not self.supports_ring_step:
@@ -1156,9 +1183,6 @@ class Pipeline:
                 "per-stream filter banks ride the f32/pcm16 conv rings "
                 "only — pair ingest and the fused AGC chain consume the "
                 "shared band (use step(), or drop the bank)")
-        if self._per_stream(params):
-            return None, {}
-        return self._taps(params)
 
     def ring_step(self, params: DeviceParams, state: StreamState,
                   ring_hi: torch.Tensor, ring_lo, idx: int,
@@ -1177,17 +1201,10 @@ class Pipeline:
         h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring)
         dkw = self._dither_kw(state, self.cfg.output_clip)
         if self._agc_on:
-            (xh, xl), gain = self._agc(params, ring_hi, state.agc_gain,
-                                       ring_idx=idx)
-            if h is None:
-                out_ring, th, tl = self._eq_mix(
-                    fir_td_mxu_per_stream_pair_to_ring, params, state,
-                    (xh, xl), idx, out_ring)
-            else:
-                out_ring, th, tl = fir_td_mxu_pair_to_ring(
-                    xh, xl, state.conv_tail[0], state.conv_tail[1], h, idx,
-                    out_ring, **dkw)
-            return (StreamState((th, tl), state.seed, state.step + 1, gain),
+            out_ring, tail, gain = self._agc_ring_step(
+                params, h, state.conv_tail, state.agc_gain, ring_hi, idx,
+                out_ring, dkw, state.step)
+            return (StreamState(tail, state.seed, state.step + 1, gain),
                     out_ring)
         if self._pair_ingest:
             out_ring, th, tl = fir_td_mxu_ring(
@@ -1199,17 +1216,85 @@ class Pipeline:
                               **dkw, **bkw)
         return StreamState(tail, state.seed, state.step + 1), out_ring
 
+    def _agc_ring_step(self, params: DeviceParams, h, tail, gain, ring, idx,
+                       out_ring, dkw: dict, block: int, counter=None,
+                       counter_add: int = 0, tail_out=None, carry_out=None):
+        """One step of the AGC ring: K5 and K6 (K14 under the one-kernel
+        option) over slot `idx` of `ring`, then K7 with the taps `h` into
+        slot `idx` of `out_ring`, or K11's pair-to-ring form with `params`'
+        per-stream gains where `h` is None; behind the pair `tail` and the
+        gain carry `gain`, dithered as `dkw` says, traced as block `block`.
+        Returns (out_ring, the next pair tail, the next gain carry).
+        `counter`/`counter_add`/`tail_out` go to K7 or K11 and `carry_out`
+        to K6 or K14 (a chunk's graph, :meth:`_agc_ring_chunk`)."""
+        (xh, xl), gain = self._agc(params, ring, gain, ring_idx=idx,
+                                   carry_out=carry_out)
+        io = dict(counter=counter, counter_add=counter_add, tail_out=tail_out)
+        if h is None:
+            out_ring, th, tl = self._eq_mix(
+                fir_td_mxu_per_stream_pair_to_ring, params, tail, block, dkw,
+                (xh, xl), idx, out_ring, **io)
+        else:
+            out_ring, th, tl = fir_td_mxu_pair_to_ring(
+                xh, xl, tail[0], tail[1], h, idx, out_ring, **dkw, **io)
+        return out_ring, (th, tl), gain
+
+    def _agc_ring_chunk(self, params: DeviceParams, h, home, ring, out_ring,
+                        n_steps: int, start: int, dkw: dict, block: int,
+                        counter: torch.Tensor) -> int:
+        """`n_steps` AGC ring steps (:meth:`_agc_ring_step`) over slots
+        ``(start+i) mod S``, from the state in `home` (the pair tail's two
+        halves and the [B] gain carry) back into it: the body of a chunk's
+        CUDA graph (`engine/ring_graphs.py`), run as it is the first time
+        its chunk is dispatched.  Step i dithers under the block counter
+        ``counter + i``, `counter` an int32 on the device that the last
+        step's tail kernel advances by `n_steps`; the last step's kernels
+        store the tail and the carry into `home`, except in a one-step
+        chunk, which reads them, where three copies do.  Returns the device
+        operations it enqueued besides the kernels' launches."""
+        S = ring.shape[0]
+        seed = dkw["dither_key"][0]
+        tail, gain = home[:2], home[2]
+        for i in range(n_steps):
+            last = i == n_steps - 1
+            into = last and n_steps > 1
+            out_ring, tail, gain = self._agc_ring_step(
+                params, h, tail, gain, ring, (start + i) % S, out_ring,
+                {**dkw, "dither_key": (seed, i)}, block + i, counter=counter,
+                counter_add=n_steps if last else 0,
+                tail_out=home[:2] if into else None,
+                carry_out=home[2] if into else None)
+        if n_steps > 1:
+            return 0
+        for dst, src in zip(home, (*tail, gain)):
+            dst.copy_(src)
+        return 3
+
     def run_ring(self, params: DeviceParams, state: StreamState,
                  ring_hi: torch.Tensor, ring_lo, out_ring: torch.Tensor,
-                 n_steps: int, start: int = 0):
+                 n_steps: int, start: int = 0, graphs=None):
         """`n_steps` ring steps over slots ``(start+i) mod S`` (one K3, K12
         or K13 launch each; with AGC, K5, K6 and K7 each, or K11's
         pair-to-ring form for K7 under per-stream gains); `out_ring` is
         written in place.  Traced as ``afp.pipe.run_ring``, K11's launches
-        inside it as ``afp.pipe.eq_mix``."""
+        inside it as ``afp.pipe.eq_mix``.
+
+        `graphs` is a server's :class:`~afp_tpu_torch.engine.ring_graphs.
+        RingGraphs`.  With it, the AGC ring on a card with its AGC knobs all
+        host scalars or all [B] vectors runs the chunk as a CUDA graph: the
+        same steps, eagerly the first time this chunk (first slot, steps,
+        rings) is dispatched, captured the second and replayed from then
+        on, with the taps built once per bank; the state returned then
+        holds the cache's own buffers, which the next chunk overwrites.
+        Every other call runs the steps one launch at a time, as without
+        it."""
         S = ring_hi.shape[0]
         with trace.span("afp.pipe.run_ring", block=state.step,
                         blocks=int(n_steps), counter=device_launches):
+            if graphs is not None and graphs.engages(self, params, state,
+                                                     ring_hi, ring_lo):
+                return graphs.run(self, params, state, ring_hi, out_ring,
+                                  int(n_steps), start)
             for i in range(int(n_steps)):
                 state, out_ring = self.ring_step(params, state, ring_hi,
                                                  ring_lo, (start + i) % S,

@@ -48,11 +48,11 @@ _SIGNATURES = {
                         _I, _I, _I, _P, _I, _I, *_EPI, _I, _P),
     "afp_fir_td_ps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *_EPI, _I, _P),
     "afp_fir_td_ps_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, *_EPI, _I, _P),
+                           _I, _I, _I, *_EPI, _I, _P, _U, _P),
     "afp_conv_geometry": (_I, _I, _P),
     "afp_dither": (_P, _P, _LL, _I, _U, _U, _F, _P),
     "afp_fir_td_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, *_EPI, _I, _P),
+                        _I, *_EPI, _I, _P, _U, _P),
     "afp_rms_desired": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         _F, _F, _P, _P, _P),
     "afp_agc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,

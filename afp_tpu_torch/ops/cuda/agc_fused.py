@@ -31,7 +31,7 @@ import torch
 
 from ..agc import fma_f32
 from . import _build
-from .agc_rms import knobs
+from .agc_rms import carry_buffer, knobs
 from .fir_td import _on_cuda, _raise_on, _stream, pcm16_to_f32, split_bf16
 
 __all__ = ["TC", "fused_rms_supported", "agc_rms_apply", "agc_rms_apply_plain"]
@@ -143,24 +143,26 @@ def agc_rms_apply_plain(x: torch.Tensor, w: int, a_att, a_rel, target,
 
 def agc_rms_apply(x: torch.Tensor, w: int, a_att, a_rel, target, max_gain,
                   init=None, out_clip: float = 0.99, emit_split: bool = False,
-                  ring_idx=None):
+                  ring_idx=None, carry_out=None):
     """K14: the whole AGC stage of ``x`` [B, T], f32 or int16 PCM (or of slot
     ``ring_idx`` of an [S, B, T] ring, read in place), with moving-RMS window
     ``w`` (:func:`fused_rms_supported` must hold).  ``init`` [B] is the
     carried gain, or None to restart at the block's first desired gain.
     Returns ``(y, carry)``: y [B, T] f32 or, with ``emit_split``, its bf16
     pair ``(y_hi, y_lo)`` for K8/K7; carry [B] the clipped last gain
-    (`agc_fused.py:295-358`)."""
+    (`agc_fused.py:295-358`), stored into ``carry_out`` where given, as
+    K6's."""
     if not _on_cuda(x):
-        return agc_rms_apply_plain(x, w, a_att, a_rel, target, max_gain, init,
-                                   out_clip, emit_split, ring_idx)
+        y, carry = agc_rms_apply_plain(x, w, a_att, a_rel, target, max_gain,
+                                       init, out_clip, emit_split, ring_idx)
+        return y, carry if carry_out is None else carry_out.copy_(carry)
     xs, init = _check(x, w, init, ring_idx)
     B, T = xs.shape
     a_att, a_rel, target, mg = _scalars(B, xs.device, a_att, a_rel, target,
                                         max_gain)
     xs = xs.contiguous()
     dev = xs.device
-    carry = torch.empty(B, dtype=torch.float32, device=dev)
+    carry = carry_buffer(carry_out, B, dev)
     if emit_split:
         yh = torch.empty((B, T), dtype=torch.bfloat16, device=dev)
         yl = torch.empty((B, T), dtype=torch.bfloat16, device=dev)

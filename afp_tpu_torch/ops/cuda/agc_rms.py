@@ -62,6 +62,20 @@ def knobs(B: int, device, **values):
                   for k, t in ts.items()}
 
 
+def carry_buffer(carry_out, B: int, device) -> torch.Tensor:
+    """The [B] float32 tensor an AGC kernel stores its gain carry into: a
+    fresh one, or the given `carry_out` (contiguous, on `device`; not the
+    ``init`` the kernel reads)."""
+    if carry_out is None:
+        return torch.empty(B, dtype=torch.float32, device=device)
+    if (tuple(carry_out.shape) != (B,) or carry_out.dtype != torch.float32
+            or carry_out.device != device or not carry_out.is_contiguous()):
+        raise ValueError(f"carry_out must be a contiguous [{B}] float32 on "
+                         f"{device}, got {tuple(carry_out.shape)} "
+                         f"{carry_out.dtype} on {carry_out.device}")
+    return carry_out
+
+
 def _check(x, band, lp, rp, transposed, ring_idx, mean_chunk):
     """Shared argument checks: returns (the [B, T] block, W)."""
     if mean_chunk and (not transposed or LANE % mean_chunk

@@ -39,7 +39,7 @@ import torch
 from ..agc import compound_alpha, fma_f32
 from ..agc import smooth_gain_scan as _scan
 from . import _build
-from .agc_rms import knobs
+from .agc_rms import carry_buffer, knobs
 from .fir_td import _on_cuda, _raise_on, _stream, pcm16_to_f32, split_bf16
 
 __all__ = ["smooth_gain_apply", "smooth_gain_apply_plain", "smooth_gain_scan",
@@ -139,7 +139,8 @@ def smooth_gain_apply_plain(desired_tm: torch.Tensor, x: torch.Tensor,
 def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
                       max_gain, init=None, out_clip: float = 0.99,
                       emit_split: bool = False, ring_idx=None,
-                      blockwise: int | None = None, d_is_means: bool = False):
+                      blockwise: int | None = None, d_is_means: bool = False,
+                      carry_out=None):
     """K6: the attack/release recurrence over ``desired_tm`` [T, B] (the
     layout :func:`~afp_tpu_torch.ops.cuda.agc_rms.rms_desired` emits with
     ``transposed``), applied to ``x`` [B, T], f32 or int16 PCM (or to slot
@@ -149,18 +150,21 @@ def smooth_gain_apply(desired_tm: torch.Tensor, x: torch.Tensor, a_att, a_rel,
     carry)``: y [B, T] f32 or, with ``emit_split``, its bf16 pair ``(y_hi,
     y_lo)``; carry [B] the clipped last gain.  ``blockwise=chunk`` runs the
     'fast' recurrence; with ``d_is_means`` the input is the [T/chunk, B]
-    chunk-mean matrix."""
+    chunk-mean matrix.  ``carry_out`` [B], where given, receives the carry
+    (:func:`~afp_tpu_torch.ops.cuda.agc_rms.carry_buffer`)."""
     if not _on_cuda(x):
-        return smooth_gain_apply_plain(desired_tm, x, a_att, a_rel, max_gain,
-                                       init, out_clip, emit_split, ring_idx,
-                                       blockwise, d_is_means)
+        y, carry = smooth_gain_apply_plain(desired_tm, x, a_att, a_rel,
+                                           max_gain, init, out_clip,
+                                           emit_split, ring_idx, blockwise,
+                                           d_is_means)
+        return y, carry if carry_out is None else carry_out.copy_(carry)
     d, xs, init, T, B = _check(desired_tm, x, init, ring_idx, blockwise,
                                d_is_means)
     vec, kn = knobs(B, xs.device, a_att=a_att, a_rel=a_rel, max_gain=max_gain)
     a_att, a_rel, max_gain = _alphas(kn, vec, blockwise)
     d, xs = d.contiguous(), xs.contiguous()
     dev = xs.device
-    carry = torch.empty(B, dtype=torch.float32, device=dev)
+    carry = carry_buffer(carry_out, B, dev)
     if emit_split:
         yh = torch.empty((B, T), dtype=torch.bfloat16, device=dev)
         yl = torch.empty((B, T), dtype=torch.bfloat16, device=dev)

@@ -381,6 +381,51 @@ def _epi(out_clip, dither_key, dither_bits, dither_tpdf) -> tuple:
             lsb_for_bits(dither_bits) if dither_bits is not None else 0.0)
 
 
+def _counter_args(counter, counter_add, ref: torch.Tensor) -> tuple:
+    """The launch arguments of the device block counter (K7's and K11's
+    pair-to-ring forms): ``(None, 0)`` without one, which leaves the
+    epilogue's ``(seed, counter)`` arguments as they are; else the pointer
+    of `counter`, a one-element int32 tensor on `ref`'s device read as
+    uint32, and `counter_add`, the blocks the step's tail kernel adds to it
+    after the conv read it."""
+    if counter is None:
+        return None, 0
+    if (counter.dtype != torch.int32 or counter.numel() != 1
+            or counter.device != ref.device):
+        raise ValueError(f"counter must be one int32 on {ref.device}, got "
+                         f"{tuple(counter.shape)} {counter.dtype} on "
+                         f"{counter.device}")
+    return counter.data_ptr(), int(counter_add) & _M32
+
+
+def _plain_counter(dither_key, counter, counter_add):
+    """The plain versions' side of :func:`_counter_args`: the dither key
+    with the counter read from `counter` plus the key's counter as the
+    offset, and `counter` advanced by `counter_add` (as the tail kernel
+    does); the key as it is without one."""
+    if counter is None:
+        return dither_key
+    seed, off = dither_key
+    key = (seed, (int(counter.reshape(-1)[0]) + int(off)) & _M32)
+    counter.add_(int(counter_add))
+    return key
+
+
+def _pair_tail_out(tail_out, B: int, k_pad: int, ref: torch.Tensor):
+    """Two fresh [B, k_pad] bf16 halves for the next pair tail, or the
+    given pair `tail_out` (contiguous, on `ref`'s device) to write it
+    into."""
+    if tail_out is None:
+        th = torch.empty((B, k_pad), dtype=torch.bfloat16, device=ref.device)
+        return th, torch.empty_like(th)
+    if any(t.shape != (B, k_pad) or t.dtype != torch.bfloat16
+           or t.device != ref.device or not t.is_contiguous()
+           for t in tail_out):
+        raise ValueError(f"tail_out must be two contiguous [{B}, {k_pad}] "
+                         f"bfloat16 halves on {ref.device}")
+    return tuple(tail_out)
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; anything else raises."""
     if t.device.type == "cuda":
@@ -1011,10 +1056,9 @@ def fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h, out_clip=None,
 
 
 def _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out, S, idx, epi,
-                 emit, what):
+                 emit, what, counter=(None, 0), tail_out=None):
     B, T = x_hi.shape
-    th = torch.empty((B, k_pad), dtype=torch.bfloat16, device=x_hi.device)
-    tl = torch.empty_like(th)
+    th, tl = _pair_tail_out(tail_out, B, k_pad, x_hi)
     x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
     lib = _build.load()
     with torch.cuda.device(x_hi.device):
@@ -1022,7 +1066,7 @@ def _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out, S, idx, epi,
             x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
             tail_lo.data_ptr(), h.data_ptr(), out.data_ptr(), th.data_ptr(),
             tl.data_ptr(), S, B, T, k_pad, h.shape[0], idx, *epi, int(emit),
-            _stream(x_hi))
+            *counter, _stream(x_hi))
     _raise_on(rc, what)
     return th, tl
 
@@ -1060,27 +1104,39 @@ fir_td_mxu_pair.kernels = 2
 
 def fir_td_mxu_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo, h, idx,
                                   out_ring, out_clip=None, dither_key=(0, 0),
-                                  dither_bits=None, dither_tpdf=True):
+                                  dither_bits=None, dither_tpdf=True,
+                                  counter=None, counter_add=0, tail_out=None):
     """Plain K7: the plain K8 with its tail, written into ``out_ring[idx]``
-    in place (quantized when the ring is int16)."""
+    in place (quantized when the ring is int16); `counter`, `counter_add`
+    and `tail_out` as K7's."""
+    dither_key = _plain_counter(dither_key, counter, counter_add)
     y, th, tl = fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
                                       out_clip, dither_key, dither_bits,
                                       dither_tpdf,
                                       out_ring.dtype == torch.int16)
     out_ring[int(idx) % out_ring.shape[0]] = y
-    return out_ring, th, tl
+    return (out_ring, th, tl) if tail_out is None else (
+        out_ring, tail_out[0].copy_(th), tail_out[1].copy_(tl))
 
 
 def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
                             tail_hi: torch.Tensor, tail_lo: torch.Tensor,
                             h: torch.Tensor, idx: int, out_ring: torch.Tensor,
                             out_clip=None, dither_key=(0, 0),
-                            dither_bits=None, dither_tpdf=True):
+                            dither_bits=None, dither_tpdf=True,
+                            counter=None, counter_add=0, tail_out=None):
     """K7: :func:`fir_td_mxu_pair` writing its output into slot ``idx`` of
     ``out_ring`` [S, B, T] (f32, or int16 for the int16 store) in place
     (every other slot untouched), the same body and so the same bits as
     K8.  Returns ``(out_ring, next_tail_hi, next_tail_lo)``
-    (`fir_td.py:828-862`)."""
+    (`fir_td.py:828-862`).
+
+    For a CUDA graph of ring steps: with `counter` (one int32 on the
+    device) the dither's block counter is ``counter + dither_key[1]``, read
+    when the kernel runs, and the tail kernel then adds `counter_add` to
+    it; `tail_out` is a pair of [B, k_pad] halves the next tail is written
+    into (it must not be the tail read).  Without them the launch is as
+    it always was."""
     if out_ring.ndim != 3:
         raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
                          f"{x_hi.shape[-1]}], got {tuple(out_ring.shape)}")
@@ -1089,13 +1145,15 @@ def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
     if not _on_cuda(x_hi):
         return fir_td_mxu_pair_to_ring_plain(
             x_hi, x_lo, tail_hi, tail_lo, h, idx, out_ring, out_clip,
-            dither_key, dither_bits, dither_tpdf)
+            dither_key, dither_bits, dither_tpdf, counter, counter_add,
+            tail_out)
     h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
     S = out_ring.shape[0]
     th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out_ring, S,
                           int(idx) % S,
                           _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-                          emit, "fir_td_mxu_pair_to_ring (K7)")
+                          emit, "fir_td_mxu_pair_to_ring (K7)",
+                          _counter_args(counter, counter_add, x_hi), tail_out)
     fir_td_mxu_pair_to_ring.launches += 1
     return out_ring, th, tl
 
@@ -1144,10 +1202,9 @@ def fir_td_mxu_per_stream_pair_plain(x_hi, x_lo, tail_hi, tail_lo, kernels,
 
 
 def _launch_ps_pair(x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out,
-                    S, idx, epi, emit, what):
+                    S, idx, epi, emit, what, counter=(None, 0), tail_out=None):
     B, T = x_hi.shape
-    th = torch.empty((B, k_pad), dtype=torch.bfloat16, device=x_hi.device)
-    tl = torch.empty_like(th)
+    th, tl = _pair_tail_out(tail_out, B, k_pad, x_hi)
     x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
     K, n = kernels.shape
     lib = _build.load()
@@ -1156,7 +1213,7 @@ def _launch_ps_pair(x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out,
             x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
             tail_lo.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
             out.data_ptr(), th.data_ptr(), tl.data_ptr(), S, B, T, k_pad, n,
-            K, idx, *epi, int(emit), _stream(x_hi))
+            K, idx, *epi, int(emit), *counter, _stream(x_hi))
     _raise_on(rc, what)
     return th, tl
 
@@ -1200,14 +1257,18 @@ def fir_td_mxu_per_stream_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo,
                                              kernels, gains, idx, out_ring,
                                              out_clip=None, dither_key=(0, 0),
                                              dither_bits=None,
-                                             dither_tpdf=True):
+                                             dither_tpdf=True, counter=None,
+                                             counter_add=0, tail_out=None):
     """Plain K11, pair-to-ring form: the plain staged pair form written
-    into ``out_ring[idx]`` in place (quantized when the ring is int16)."""
+    into ``out_ring[idx]`` in place (quantized when the ring is int16);
+    `counter`, `counter_add` and `tail_out` as K7's."""
+    dither_key = _plain_counter(dither_key, counter, counter_add)
     y, th, tl = fir_td_mxu_per_stream_pair_plain(
         x_hi, x_lo, tail_hi, tail_lo, kernels, gains, out_clip, dither_key,
         dither_bits, dither_tpdf, out_ring.dtype == torch.int16)
     out_ring[int(idx) % out_ring.shape[0]] = y
-    return out_ring, th, tl
+    return (out_ring, th, tl) if tail_out is None else (
+        out_ring, tail_out[0].copy_(th), tail_out[1].copy_(tl))
 
 
 def fir_td_mxu_per_stream_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
@@ -1217,13 +1278,15 @@ def fir_td_mxu_per_stream_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
                                        gains: torch.Tensor, idx: int,
                                        out_ring: torch.Tensor, out_clip=None,
                                        dither_key=(0, 0), dither_bits=None,
-                                       dither_tpdf=True):
+                                       dither_tpdf=True, counter=None,
+                                       counter_add=0, tail_out=None):
     """K11, pair-to-ring form: :func:`fir_td_mxu_per_stream_pair` writing
     its output into slot ``idx`` of ``out_ring`` [S, B, T] (f32, or int16
     for the int16 store) in place, every other slot untouched: K7's store
     around the same kernel, so the slot equals the staged pair form's
     output bit for bit.  Returns ``(out_ring, next_tail_hi,
-    next_tail_lo)``."""
+    next_tail_lo)``.  `counter`, `counter_add` and `tail_out` as
+    :func:`fir_td_mxu_pair_to_ring`'s."""
     if out_ring.ndim != 3:
         raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
                          f"{x_hi.shape[-1]}], got {tuple(out_ring.shape)}")
@@ -1232,14 +1295,16 @@ def fir_td_mxu_per_stream_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
     if not _on_cuda(x_hi):
         return fir_td_mxu_per_stream_pair_to_ring_plain(
             x_hi, x_lo, tail_hi, tail_lo, kernels, gains, idx, out_ring,
-            out_clip, dither_key, dither_bits, dither_tpdf)
+            out_clip, dither_key, dither_bits, dither_tpdf, counter,
+            counter_add, tail_out)
     kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
         x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
     S = out_ring.shape[0]
     th, tl = _launch_ps_pair(
         x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out_ring, S,
         int(idx) % S, _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-        emit, "fir_td_mxu_per_stream_pair_to_ring (K11)")
+        emit, "fir_td_mxu_per_stream_pair_to_ring (K11)",
+        _counter_args(counter, counter_add, x_hi), tail_out)
     fir_td_mxu_per_stream_pair_to_ring.launches += 1
     return out_ring, th, tl
 

@@ -6,10 +6,17 @@ The device side is `Pipeline.run_ring` (one K3, K12 or K13 launch per
 block; with AGC, K5 → K6 → K7 per block) or `Pipeline.run_ring_mega` (one
 K4, K12 or K13 launch per chunk, no AGC): a dispatch advances `chunk`
 blocks around preallocated input rings, writing the output ring's slots in
-place.  The rings take the pipeline's transport forms: one f32 input ring,
-one raw int16 PCM ring (``ingest='pcm16'``: half the ingest bytes), or the
-bf16 (hi, lo) pair rings (``ingest='pair'``); the output ring is int16
-under ``emit='pcm16'`` (half the drain bytes).  This module is the pump:
+place.  On a card the AGC ring's chunks run from CUDA graphs
+(`engine/ring_graphs.py`, one cache per server): a chunk runs its steps
+eagerly the first time its first slot and length are dispatched, is
+captured the second time and is replayed, one launch a chunk, from then
+on; the server's state then lives in the cache's buffers, and
+:attr:`RingServer.state` hands out a snapshot.  A sharded pipeline, the
+conv rings and the CPU run every chunk eagerly.  The rings take the
+pipeline's transport forms: one f32 input ring, one raw int16 PCM ring
+(``ingest='pcm16'``: half the ingest bytes), or the bf16 (hi, lo) pair
+rings (``ingest='pair'``); the output ring is int16 under
+``emit='pcm16'`` (half the drain bytes).  This module is the pump:
 
 1. land incoming [batch, blocksize] blocks in the next input slots (a
    host→device copy through pinned memory),
@@ -65,6 +72,7 @@ import torch
 from ..engine.batch import StreamPacking
 from ..engine.config import PipelineParams, StreamConfig
 from ..engine.pipeline import DeviceParams, Pipeline, StreamState, bf16_tensor
+from ..engine.ring_graphs import RingGraphs
 from ..ops.agc import AGCParams
 from ..ops.cuda.fir_td import split_bf16
 from ..ops.spectrum import WATERFALL_DEPTH, spectrum_db_np, spectrum_freqs
@@ -175,6 +183,10 @@ class RingServer:
         self._state: StreamState = pipeline.init_state(seed=seed)
         dev = pipeline.device
         self._cuda = dev.type == "cuda"
+        #: the AGC ring's chunk graphs (one-device run_ring; they engage on
+        #: a card, `Pipeline.run_ring`)
+        self._graphs = (RingGraphs() if self._layout is None and not self.mega
+                        else None)
 
         def ring(dtype):
             if self._layout is not None:
@@ -433,11 +445,12 @@ class RingServer:
             if pending and (pending == self.chunk or exhausted):
                 dispatch = (self.pipe.run_ring_mega if self.mega
                             else self.pipe.run_ring)
+                kw = {} if self._graphs is None else {"graphs": self._graphs}
                 with self._swap_lock:  # one bank for the whole chunk
                     params = self.params
                 self._state, self._out = dispatch(
                     params, self._state, self._ring, self._ring_lo, self._out,
-                    pending, start=slot)
+                    pending, start=slot, **kw)
                 inflight.append((*self._fetch(slot, pending), taken))
                 taken = []
                 slot = (slot + self.chunk) % self.K
@@ -495,5 +508,13 @@ class RingServer:
 
     @property
     def state(self) -> StreamState:
-        """The carried state (conv tail, dither seed and block counter)."""
-        return self._state
+        """The carried state (conv tail, dither seed and block counter), as
+        a snapshot: its tensors are copies, since the next chunk's graph
+        overwrites the server's own in place."""
+        s = self._state
+        if self._graphs is None:  # mega or sharded: nothing writes it later
+            return s
+        tail = (tuple(t.clone() for t in s.conv_tail)
+                if isinstance(s.conv_tail, tuple) else s.conv_tail.clone())
+        return s._replace(conv_tail=tail, agc_gain=None if s.agc_gain is None
+                          else s.agc_gain.clone())

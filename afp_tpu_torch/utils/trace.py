@@ -21,7 +21,9 @@ stage copy) and the EQ mix's ``rows``, ``bands``, ``taps`` and
 ``samples`` to their totals, where non-zero.
 
 With the profiler off, :func:`span` makes one check and returns one shared
-no-op object: no allocation, no clock read.  The list is bounded by
+no-op object: no allocation, no clock read.  Inside :func:`muted` (the
+capture of a CUDA graph, which enqueues nothing yet) the thread's spans
+and counts are dropped as if the profiler were off.  The list is bounded by
 :data:`LIMIT`; past it records are dropped and counted (:func:`dropped`),
 and a reader should take no number from a partial list.  Nothing is
 written anywhere: read the records with :func:`records`.
@@ -38,7 +40,10 @@ The spans and what each covers:
                            ``ops``: the copies and packing's gather)
 ``afp.serve.drain.wait``   the wait on a chunk's copy (``blocks`` drained)
 ``afp.pipe.run_ring``,     a chunk's ring dispatch (``blocks``, ``ops``:
-``afp.pipe.run_ring_mega`` every device operation it launched)
+``afp.pipe.run_ring_mega`` every device operation it launched, a CUDA
+                           graph's replayed kernels among them;
+                           ``graphed``: the blocks a graph's replay served,
+                           ``captures``: the graphs captured)
 ``afp.pipe.eq_mix``        K11's launch under per-stream EQ gains, inside
                            the step (``rows``, ``bands``, ``taps``,
                            ``samples`` = rows × block, ``bytes`` of its
@@ -53,12 +58,14 @@ The spans and what each covers:
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import torch
 
-__all__ = ["LIMIT", "on", "span", "add", "records", "clear", "dropped"]
+__all__ = ["LIMIT", "on", "span", "add", "muted", "records", "clear",
+           "dropped"]
 
 #: the most records the list holds
 LIMIT = 1 << 22
@@ -151,7 +158,7 @@ def span(name: str, block: int = -1, blocks: int = 0, nbytes: int = 0,
     work; `counter`, a function returning a running count of device
     operations launched, adds its growth across the span to ``ops``.  With
     the profiler off: one shared object that does nothing."""
-    if not on():
+    if not on() or getattr(_local, "muted", False):
         return _OFF
     counts = {}
     if blocks:
@@ -167,12 +174,24 @@ def add(**counts) -> None:
     """Add counts known only after the work (device operations launched) to
     the innermost open span of this thread; nothing with the profiler off
     or no span open."""
-    if not on():
+    if not on() or getattr(_local, "muted", False):
         return
     stack = _stack()
     if stack:
         for key, n in counts.items():
             _bump(stack[-1].counts, key, n)
+
+
+@contextlib.contextmanager
+def muted():
+    """No span opens and no count is added on this thread inside: for
+    code run to be captured into a CUDA graph, whose work is done and
+    traced when the graph replays."""
+    _local.muted = True
+    try:
+        yield
+    finally:
+        _local.muted = False
 
 
 def records() -> list:

@@ -1574,9 +1574,10 @@ def test_per_stream_agc_ring_equals_staged(dev, B, T, ingest, emit):
 def test_traced_ops_of_the_per_stream_ring(dev):
     """The per-listener EQ ring served under `torch.profiler`: the counted
     ``ops`` equal the trace's device operations one for one (K5, K6, K11
-    and its tail a block, no shared taps computed), one ``afp.pipe.eq_mix``
-    span a block with its counts, and each mix one `fir_ps_kernel`
-    operation."""
+    and its tail a block, no shared taps computed, and each chunk's CUDA
+    graph captured here, the second time it is dispatched, with the two
+    fills of the capture's start), one ``afp.pipe.eq_mix`` span a block
+    with its counts, and each mix one `fir_ps_kernel` operation."""
     from collections import Counter
 
     from afp_tpu_torch.runtime import RingServer
@@ -1595,7 +1596,9 @@ def test_traced_ops_of_the_per_stream_ring(dev):
         by_span[r[0]] += r[5].get("ops", 0)
     print(f"psg: {counted} ops counted ({dict(by_span)}), {len(ops)} in the "
           f"trace: {dict(Counter(n[:40] for n in ops))}; first {ops[:6]}")
-    assert counted == len(ops) and ring == 4 * 10
+    caps = sum(r[5].get("captures", 0) for r in recs
+               if r[0] == "afp.pipe.run_ring")
+    assert counted == len(ops) and ring == 4 * 10 + 2 * caps and caps == 3
     assert len(mixes) == 10 and all(
         m == dict(rows=32, bands=9, taps=pipe.n_casc, samples=32 * 1024,
                   bytes=2 * 32 * 1024) for m in mixes)
