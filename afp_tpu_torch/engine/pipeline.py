@@ -1115,43 +1115,43 @@ class Pipeline:
         return params.casc_bank, dict(assign=params.casc_assign)
 
     def check_ring_params(self, params: DeviceParams,
-                          form: str = "ring_step") -> None:
-        """Refuse params that the ring form `form` (``'ring_step'``, which
-        `run_ring` steps, or ``'run_ring_mega'``) cannot serve: per-stream
-        EQ gains ride the AGC ring alone (K5 → K6 → K11 pair-to-ring), so
-        `run_ring_mega`, the conv rings without AGC, pair ingest and a
-        filter bank beside the gains refuse them.  `RingServer` asks at
-        construction."""
+                          mega: bool = False) -> None:
+        """Refuse params that the ring dispatch cannot serve (`mega`:
+        `run_ring_mega`'s, else `ring_step`'s, which `run_ring` steps):
+        per-stream EQ gains ride the AGC ring alone (K5 → K6 → K11
+        pair-to-ring), so `run_ring_mega`, the conv rings without AGC, pair
+        ingest and a filter bank beside the gains refuse them.
+        `RingServer` asks at construction."""
         if not self._per_stream(params):
             return
         served = ("per-stream EQ gains are served on the AGC ring only "
                   "(run_ring: K5 → K6 → K11 pair-to-ring)")
-        if form == "run_ring_mega":
+        if mega:
             raise ValueError(f"run_ring_mega does not support per-stream EQ "
                              f"gains: {served}")
         if self._pair_ingest:
-            raise ValueError(f"{form} does not support per-stream EQ gains "
-                             f"with pair ingest: {served} — use step()")
+            raise ValueError(f"ring_step does not support per-stream EQ "
+                             f"gains with pair ingest: {served} — use step()")
         if not self._agc_on:
-            raise ValueError(f"{form} does not support per-stream EQ gains on "
-                             f"the conv rings without AGC: {served} — use "
+            raise ValueError(f"ring_step does not support per-stream EQ gains "
+                             f"on the conv rings without AGC: {served} — use "
                              "step()")
         if params.casc_bank is not None:
-            raise ValueError(f"{form} does not support per-stream EQ gains "
-                             f"together with a filter bank: {served}, with "
-                             "the shared band — use step()")
+            raise ValueError(f"ring_step does not support per-stream EQ "
+                             f"gains together with a filter bank: {served}, "
+                             "with the shared band — use step()")
 
     def _ring_taps(self, params: DeviceParams, ring_hi, ring_lo, out_ring,
-                   form: str = "ring_step"):
+                   mega: bool = False):
         """:meth:`_check_ring`, then the taps and bank keywords: (None, {})
         under per-stream gains, whose band kernels K11 mixes itself."""
-        self._check_ring(params, ring_hi, ring_lo, out_ring, form)
+        self._check_ring(params, ring_hi, ring_lo, out_ring, mega)
         if self._per_stream(params):
             return None, {}
         return self._taps(params)
 
     def _check_ring(self, params: DeviceParams, ring_hi, ring_lo, out_ring,
-                    form: str = "ring_step") -> None:
+                    mega: bool = False) -> None:
         """The checks of every ring form (`pipeline.py:1110-1191,
         1369-1401`): per-stream EQ gains on the AGC ring only
         (:meth:`check_ring_params`), pair rings exactly for pair ingest, an
@@ -1159,7 +1159,7 @@ class Pipeline:
         exactly under ``emit='pcm16'``, filter banks on the f32 and int16
         conv rings only."""
         cfg = self.cfg
-        self.check_ring_params(params, form)
+        self.check_ring_params(params, mega)
         if not self.supports_ring_step:
             raise ValueError(
                 "ring_step requires a conv ring: conv_strategy='td_mxu' "
@@ -1198,23 +1198,42 @@ class Pipeline:
         K11's pair-to-ring form mixes it there instead (the staged step's
         K11 pair form with K7's store: served ≡ staged).  ``ring_lo`` is
         None except under pair ingest."""
-        h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring)
+        if not self._agc_on:
+            return self._conv_ring(params, state, ring_hi, ring_lo, out_ring,
+                                   idx, 1, False), out_ring
+        h, _ = self._ring_taps(params, ring_hi, ring_lo, out_ring)
         dkw = self._dither_kw(state, self.cfg.output_clip)
-        if self._agc_on:
-            out_ring, tail, gain = self._agc_ring_step(
-                params, h, state.conv_tail, state.agc_gain, ring_hi, idx,
-                out_ring, dkw, state.step)
-            return (StreamState(tail, state.seed, state.step + 1, gain),
-                    out_ring)
-        if self._pair_ingest:
-            out_ring, th, tl = fir_td_mxu_ring(
-                ring_hi, ring_lo, idx, *state.conv_tail, h, out_ring, **dkw)
-            return StreamState((th, tl), state.seed, state.step + 1), out_ring
-        ring = (fir_td_mxu_ring_pcm16 if self._i16_ingest
-                else fir_td_mxu_ring_f32)
-        out_ring, tail = ring(ring_hi, idx, state.conv_tail, h, out_ring,
-                              **dkw, **bkw)
-        return StreamState(tail, state.seed, state.step + 1), out_ring
+        out_ring, tail, gain = self._agc_ring_step(
+            params, h, state.conv_tail, state.agc_gain, ring_hi, idx,
+            out_ring, dkw, state.step)
+        return StreamState(tail, state.seed, state.step + 1, gain), out_ring
+
+    #: the conv ring wrappers by (ingest, mega): one step, or one launch of
+    #: n steps
+    _CONV_RINGS = {("f32", False): fir_td_mxu_ring_f32,
+                   ("f32", True): fir_td_mxu_ring_mega_f32,
+                   ("pcm16", False): fir_td_mxu_ring_pcm16,
+                   ("pcm16", True): fir_td_mxu_ring_mega_pcm16,
+                   ("pair", False): fir_td_mxu_ring,
+                   ("pair", True): fir_td_mxu_ring_mega}
+
+    def _conv_ring(self, params: DeviceParams, state: StreamState, ring_hi,
+                   ring_lo, out_ring, start: int, n_steps: int,
+                   mega: bool) -> StreamState:
+        """The conv ring without AGC from slot `start` into `out_ring`, in
+        place: one step (K3, K12 or K13; `n_steps` 1), or with `mega` one
+        launch of `n_steps` (K4, K12's or K13's megakernel form), banked
+        under a filter bank.  Returns the next state."""
+        h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring, mega)
+        dkw = self._dither_kw(state, self.cfg.output_clip)
+        pair = self._pair_ingest
+        rings = (ring_hi, ring_lo) if pair else (ring_hi,)
+        tails = state.conv_tail if pair else (state.conv_tail,)
+        out_ring, *tail = self._CONV_RINGS[self.cfg.ingest, mega](
+            *rings, start, *tails, h, out_ring, *((n_steps,) if mega else ()),
+            **dkw, **bkw)
+        return StreamState(tuple(tail) if pair else tail[0], state.seed,
+                           state.step + int(n_steps))
 
     def _agc_ring_step(self, params: DeviceParams, h, tail, gain, ring, idx,
                        out_ring, dkw: dict, block: int, counter=None,
@@ -1315,17 +1334,6 @@ class Pipeline:
                 "chain serves through run_ring")
         with trace.span("afp.pipe.run_ring_mega", block=state.step,
                         blocks=int(n_steps), counter=device_launches):
-            h, bkw = self._ring_taps(params, ring_hi, ring_lo, out_ring,
-                                     form="run_ring_mega")
-            dkw = self._dither_kw(state, self.cfg.output_clip)
-            if self._pair_ingest:
-                out_ring, th, tl = fir_td_mxu_ring_mega(
-                    ring_hi, ring_lo, start, *state.conv_tail, h, out_ring,
-                    n_steps, **dkw)
-                tail = (th, tl)
-            else:
-                mega = (fir_td_mxu_ring_mega_pcm16 if self._i16_ingest
-                        else fir_td_mxu_ring_mega_f32)
-                out_ring, tail = mega(ring_hi, start, state.conv_tail, h,
-                                      out_ring, n_steps, **dkw, **bkw)
-        return StreamState(tail, state.seed, state.step + int(n_steps)), out_ring
+            state = self._conv_ring(params, state, ring_hi, ring_lo,
+                                    out_ring, start, n_steps, True)
+        return state, out_ring

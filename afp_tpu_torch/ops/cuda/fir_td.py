@@ -398,19 +398,6 @@ def _counter_args(counter, counter_add, ref: torch.Tensor) -> tuple:
     return counter.data_ptr(), int(counter_add) & _M32
 
 
-def _plain_counter(dither_key, counter, counter_add):
-    """The plain versions' side of :func:`_counter_args`: the dither key
-    with the counter read from `counter` plus the key's counter as the
-    offset, and `counter` advanced by `counter_add` (as the tail kernel
-    does); the key as it is without one."""
-    if counter is None:
-        return dither_key
-    seed, off = dither_key
-    key = (seed, (int(counter.reshape(-1)[0]) + int(off)) & _M32)
-    counter.add_(int(counter_add))
-    return key
-
-
 def _pair_tail_out(tail_out, B: int, k_pad: int, ref: torch.Tensor):
     """Two fresh [B, k_pad] bf16 halves for the next pair tail, or the
     given pair `tail_out` (contiguous, on `ref`'s device) to write it
@@ -625,19 +612,26 @@ fir_td_mxu_banked.kernels = 1
 # ---------------------------------------------------------------- K11
 
 
+def _check_bands(kernels, gains, B: int, ref: torch.Tensor) -> None:
+    """K11's band kernels [K, n] and per-stream gains [B, K], float32 on
+    `ref`'s device."""
+    for name, t in (("kernels", kernels), ("gains", gains)):
+        if t.ndim != 2 or t.dtype != torch.float32 or t.device != ref.device:
+            raise ValueError(f"{name} must be 2-D float32 on {ref.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if tuple(gains.shape) != (B, kernels.shape[0]):
+        raise ValueError(f"gains must be [{B}, {kernels.shape[0]}], got "
+                         f"{tuple(gains.shape)}")
+
+
 def _check_per_stream(x_ext, kernels, gains):
     """Checks of K11: returns (B, T, n, K)."""
     if x_ext.ndim != 2 or x_ext.dtype != torch.float32:
         raise ValueError(f"x_ext must be [B, n-1+T] float32, got "
                          f"{tuple(x_ext.shape)} {x_ext.dtype}")
     B, text = x_ext.shape
-    for name, t in (("kernels", kernels), ("gains", gains)):
-        if t.ndim != 2 or t.dtype != torch.float32 or t.device != x_ext.device:
-            raise ValueError(f"{name} must be 2-D float32 on {x_ext.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_bands(kernels, gains, B, x_ext)
     K, n = kernels.shape
-    if tuple(gains.shape) != (B, K):
-        raise ValueError(f"gains must be [{B}, {K}], got {tuple(gains.shape)}")
     T = text - (n - 1)
     if T <= 0 or T % LANE:
         raise ValueError(f"output length {T} must be a multiple of {LANE}")
@@ -720,43 +714,114 @@ fir_td_mxu_per_stream.kernels = 1
 fir_td_mxu_per_stream.highest_launches = 0
 
 # ---------------------------------------------------------------- ring forms
+#
+# The ten ring and pair wrappers are thin names over two bodies:
+# :func:`_ring_body` launches `csrc/fir_td.cu:afp_fir_td_ring` (K3, K4, K12
+# and K13, per step and megakernel), :func:`_pair_body` `afp_fir_td_pair`
+# (K8, K7) or, with band gains, `afp_fir_td_ps_pair` (K11's pair forms).
+# A body takes the wrapper to count, or None for its plain version, runs
+# every check, and sends the plain version and a CPU tensor to the one
+# plain step, :func:`_plain_step`.
+
+#: the input forms of `afp_fir_td_ring` by ring dtype, and their names
+_RING_DTYPES = {torch.float32: (_IN_F32, "float32"),
+                torch.int16: (_IN_I16, "int16"),
+                torch.bfloat16: (_IN_PAIR, "bfloat16")}
 
 
-def _ring_args(ring, tail, h, out_ring, dtype, assign=None):
-    """Shared checks of the raw-input ring forms, K3/K4 (f32) and K12
-    (int16) (`fir_td.py:_ring_geometry`, `_ring_assign`): the ring and tail
-    dtype, the LANE rule on the slot length, the taps (shared, or with
-    `assign` the bank), and a narrow tail zero-padded on the left to k_pad
-    (the padded history meets only zero taps).  Returns (h, tail, k_pad,
-    emit_i16, assign, bt)."""
-    name = "float32" if dtype == torch.float32 else "int16"
-    if ring.ndim != 3 or ring.dtype != dtype:
-        raise ValueError(f"ring must be [S, B, T] {name}, got "
-                         f"{tuple(ring.shape)} {ring.dtype}")
-    S, B, T = ring.shape
+def _check_like(ts, names, dtype, dims: str, ref: torch.Tensor) -> tuple:
+    """Checks of a ring, a block or a tail: one tensor of `dtype`, or a
+    (hi, lo) pair of equal shapes, each ``[dims]`` on `ref`'s device.
+    Returns the shape."""
+    for name, t in zip(names, ts):
+        if (t.ndim != len(dims.split(",")) or t.dtype != dtype
+                or t.device != ref.device):
+            raise ValueError(f"{name} must be {_RING_DTYPES[dtype][1]} "
+                             f"[{dims}] on {ref.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if ts[-1].shape != ts[0].shape:
+        raise ValueError(f"{names[0]} and {names[1]} must be two [{dims}] "
+                         f"halves, got {tuple(ts[0].shape)} and "
+                         f"{tuple(ts[1].shape)}")
+    return tuple(ts[0].shape)
+
+
+def _check_lane(T: int) -> None:
     if T % LANE:
         raise ValueError(f"T={T} must be a multiple of {LANE}")
-    emit = _out_ring_emit(out_ring, ring.shape, ring.device)
-    h, assign, bt, n = _taps(h, assign, B, ring)
-    if tail.dtype != dtype or tail.device != ring.device:
-        raise ValueError(f"tail must be {name} on {ring.device}, got "
-                         f"{tail.dtype} on {tail.device}")
-    k_pad = ring_k_pad(n)
-    if tail.ndim != 2 or tail.shape[0] != B or tail.shape[1] > k_pad:
-        raise ValueError(f"tail must be [{B}, <= {k_pad}], got "
-                         f"{tuple(tail.shape)}")
-    if tail.shape[1] < k_pad:
-        tail = torch.nn.functional.pad(tail, (k_pad - tail.shape[1], 0))
-        if tail.is_cuda:  # the pad's fill and copy
-            trace.add(ops=2)
-    return h, tail.contiguous(), k_pad, emit, assign, bt
 
 
-def _launch_ring(kind, rings, tails, h, out_ring, k_pad, start, n_steps,
-                 epi, emit, what, assign=None, bt=0):
-    """Launch `csrc/fir_td.cu:afp_fir_td_ring` over `rings` (the ring, or
-    the (hi, lo) pair) behind `tails`; returns the next tail(s)."""
-    S, B, T = rings[0].shape
+def _tail_args(tails, B: int, n: int, dtype, ref: torch.Tensor):
+    """The carried tail for `n` taps, one [B, <= k_pad] tensor of `dtype`
+    (a raw ring's) or the (hi, lo) bf16 pair [B, n−1 .. k_pad]
+    (`fir_td.py:727-738`), zero-padded on the left to k_pad: the padded
+    history meets only zero taps.  Returns (tails, k_pad)."""
+    pair = len(tails) == 2
+    _, w = _check_like(tails, ("tail_hi", "tail_lo") if pair else ("tail",),
+                       dtype, "B, w", ref)
+    k_pad, low = ring_k_pad(n), (n - 1 if pair else 0)
+    if tails[0].shape[0] != B or not low <= w <= k_pad:
+        raise ValueError(
+            f"{'the tail pair must be two' if pair else 'tail must be'} "
+            f"[{B}, {low} .. {k_pad}], got {tuple(tails[0].shape)}")
+    if w < k_pad:
+        tails = [torch.nn.functional.pad(t, (k_pad - w, 0)) for t in tails]
+        if ref.is_cuda:  # each pad's fill and copy
+            trace.add(ops=2 * len(tails))
+    return [t.contiguous() for t in tails], k_pad
+
+
+def _plain_step(xs, tails, h, out, idx: int, epilogue, assign=None,
+                gains=None):
+    """One plain step of every ring and pair form: concat(tail, block) for
+    the block `xs` (one f32 or int16 tensor, converted n/32768, or the
+    (hi, lo) pair, widened to f32 without a split) through the plain K1
+    (K10 with `assign`, K11's band mix with `gains`), into ``out[idx]``
+    (quantized when `out` is int16).  Returns the next tails, the raw last
+    k_pad samples (`fir_td.py:296-308`)."""
+    n, k_pad = h.shape[-1], tails[0].shape[1]
+    cats = [torch.cat([t, x], dim=-1) for t, x in zip(tails, xs)]
+    ext = [c[:, k_pad - (n - 1):] for c in cats]
+    epi = (*epilogue, out.dtype == torch.int16)
+    if len(xs) == 2:
+        eh, el = ext[0].float(), ext[1].float()
+        y = (_conv_split(eh, el, h) if gains is None else
+             _mix(lambda k: _conv_split(eh, el, k), h, gains,
+                  tuple(xs[0].shape)))
+        out[idx] = _finish(y, *epi)
+    elif assign is None:
+        out[idx] = fir_td_mxu_plain(pcm16_to_f32(ext[0]), h, *epi)
+    else:
+        out[idx] = fir_td_mxu_banked_plain(pcm16_to_f32(ext[0]), h, assign,
+                                           *epi)
+    return [c[:, -k_pad:].clone() for c in cats]
+
+
+def _ring_body(fn, tag: str, dtype, rings, tails, h, out_ring, start,
+               n_steps, epilogue, assign=None):
+    """`n_steps` ring steps over slots ``(start+i) mod S`` of `rings` (the
+    ring of `dtype`, or the bf16 (hi, lo) pair) behind `tails`, step i
+    under block counter ``counter+i``, into `out_ring` in place: one
+    launch of `afp_fir_td_ring` counted on `fn`, or with `fn` None (or on
+    the CPU) the plain step looped.  `epilogue` is (out_clip, dither_key,
+    dither_bits, dither_tpdf).  Returns ``(out_ring, *next_tails)``."""
+    names = ("ring",) if len(rings) == 1 else ("ring_hi", "ring_lo")
+    S, B, T = _check_like(rings, names, dtype, "S, B, T", rings[0])
+    _check_lane(T)
+    emit = _out_ring_emit(out_ring, (S, B, T), rings[0].device)
+    h, assign, bt, n = _taps(h, assign, B, rings[0])
+    tails, k_pad = _tail_args(tails, B, n, dtype, rings[0])
+    n_steps, start = int(n_steps), int(start) % S
+    if not 1 <= n_steps <= 65535:
+        raise ValueError(f"n_steps must be in [1, 65535], got {n_steps}")
+    if fn is None or not _on_cuda(rings[0]):
+        out_clip, (seed, counter), bits, tpdf = epilogue
+        for i in range(n_steps):
+            idx = (start + i) % S
+            tails = _plain_step([r[idx] for r in rings], tails, h, out_ring,
+                                idx, (out_clip, (seed, counter + i), bits,
+                                      tpdf), assign)
+        return (out_ring, *tails)
     rings = [r.contiguous() for r in rings]
     new = [torch.empty((B, k_pad), dtype=t.dtype, device=t.device)
            for t in tails]
@@ -766,48 +831,81 @@ def _launch_ring(kind, rings, tails, h, out_ring, k_pad, start, n_steps,
         rc = lib.afp_fir_td_ring(
             rings[0].data_ptr(), lo(rings), tails[0].data_ptr(), lo(tails),
             h.data_ptr(), out_ring.data_ptr(), new[0].data_ptr(), lo(new),
-            kind, S, B, T, k_pad, h.shape[-1], start, n_steps,
+            _RING_DTYPES[dtype][0], S, B, T, k_pad, n, start, n_steps,
             None if assign is None else assign.data_ptr(), bt,
-            0 if assign is None else h.shape[0], *epi,
-            int(emit), _stream(rings[0]))
-    _raise_on(rc, what)
-    return new
-
-
-def _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
-                dither_bits, dither_tpdf, assign=None):
-    """One plain ring step over an f32 or int16 ring: concat(tail,
-    ring[idx]) (converted n/32768 when int16) through the plain K1 (K10
-    with `assign`) into ``out_ring[idx]`` (quantized when the ring is
-    int16); the next tail is the raw last k_pad samples."""
-    n = h.shape[-1]
-    k_pad = tail.shape[1]
-    cat = torch.cat([tail, ring[idx]], dim=-1)
-    ext = pcm16_to_f32(cat[:, k_pad - (n - 1):])
-    epi = (out_clip, dither_key, dither_bits, dither_tpdf,
-           out_ring.dtype == torch.int16)
-    out_ring[idx] = (fir_td_mxu_plain(ext, h, *epi) if assign is None else
-                     fir_td_mxu_banked_plain(ext, h, assign, *epi))
-    return out_ring, cat[:, -k_pad:].clone()
-
-
-def _ring_mega_plain(ring, start, tail, h, out_ring, n_steps, out_clip,
-                     dither_key, dither_bits, dither_tpdf, assign=None):
-    """The plain ring step looped over slots ``(start+i) mod S``, block
-    counter ``counter+i`` for step i."""
-    S = ring.shape[0]
-    seed, counter = dither_key
-    for i in range(n_steps):
-        out_ring, tail = _ring_plain(ring, (start + i) % S, tail, h, out_ring,
-                                     out_clip, (seed, counter + i),
-                                     dither_bits, dither_tpdf, assign)
-    return out_ring, tail
-
-
-def _count(wrapper, assign) -> None:
-    wrapper.launches += 1
+            0 if assign is None else h.shape[0], *_epi(*epilogue), int(emit),
+            _stream(rings[0]))
+    _raise_on(rc, f"{fn.__name__} ({tag})")
+    fn.launches += 1
     if assign is not None:
-        wrapper.banked_launches += 1
+        fn.banked_launches += 1
+    return (out_ring, *new)
+
+
+def _pair_body(fn, tag: str, x_hi, x_lo, tail_hi, tail_lo, h, out, idx,
+               epilogue, gains=None, counter=None, counter_add=0,
+               tail_out=None, emit_i16=False):
+    """The bf16 pair of the block [B, T] behind the pair tail, with taps `h`
+    [n] (or band kernels [K, n] mixed by `gains` [B, K]), into slot `idx`
+    of `out` [S, B, T] in place, or with `out` None into a fresh [B, T]
+    block (int16 with `emit_i16`): one launch of `afp_fir_td_pair` (of
+    `afp_fir_td_ps_pair` with `gains`) counted on `fn`, or with `fn` None
+    (or on the CPU) the plain step.  `counter`, `counter_add` and
+    `tail_out` as :func:`fir_td_mxu_pair_to_ring`'s.  Returns ``(out or
+    the block, next_tail_hi, next_tail_lo)``."""
+    B, T = _check_like((x_hi, x_lo), ("x_hi", "x_lo"), torch.bfloat16,
+                       "B, T", x_hi)
+    _check_lane(T)
+    y = out
+    if out is None:
+        y = torch.empty((B, T), device=x_hi.device,
+                        dtype=torch.int16 if emit_i16 else torch.float32)
+        out = y[None]
+    if out.ndim != 3:
+        raise ValueError(f"out_ring must be [S, {B}, {T}], got "
+                         f"{tuple(out.shape)}")
+    emit = _out_ring_emit(out, (out.shape[0], B, T), x_hi.device)
+    if gains is None:
+        h = _check_taps(h, x_hi)
+    else:
+        _check_bands(h, gains, B, x_hi)
+        h, gains = h.contiguous(), gains.contiguous()
+    tails, k_pad = _tail_args((tail_hi, tail_lo), B, h.shape[-1],
+                              torch.bfloat16, x_hi)
+    S, idx = out.shape[0], int(idx) % out.shape[0]
+    ctr = _counter_args(counter, counter_add, x_hi)
+    th, tl = _pair_tail_out(tail_out, B, k_pad, x_hi)
+    if fn is None or not _on_cuda(x_hi):
+        # the device counter's plain side: read as the key's counter plus
+        # its offset, then advanced by counter_add, as the tail kernel does
+        out_clip, (seed, off), bits, tpdf = epilogue
+        if counter is not None:
+            off = (int(counter.reshape(-1)[0]) + int(off)) & _M32
+            counter.add_(int(counter_add))
+        nh, nl = _plain_step((x_hi, x_lo), tails, h, out, idx,
+                             (out_clip, (seed, off), bits, tpdf), gains=gains)
+        return y, th.copy_(nh), tl.copy_(nl)
+    x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
+    ptrs = (x_hi.data_ptr(), x_lo.data_ptr(), tails[0].data_ptr(),
+            tails[1].data_ptr(), h.data_ptr())
+    rest = (*_epi(*epilogue), int(emit), *ctr, _stream(x_hi))
+    lib = _build.load()
+    with torch.cuda.device(x_hi.device):
+        if gains is None:
+            rc = lib.afp_fir_td_pair(
+                *ptrs, out.data_ptr(), th.data_ptr(), tl.data_ptr(), S, B, T,
+                k_pad, h.shape[0], idx, *rest)
+        else:
+            rc = lib.afp_fir_td_ps_pair(
+                *ptrs, gains.data_ptr(), out.data_ptr(), th.data_ptr(),
+                tl.data_ptr(), S, B, T, k_pad, h.shape[1], h.shape[0], idx,
+                *rest)
+    _raise_on(rc, f"{fn.__name__} ({tag})")
+    fn.launches += 1
+    return y, th, tl
+
+
+# ---------------------------------------------------------------- K3 / K4
 
 
 def fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring, out_clip=None,
@@ -816,8 +914,9 @@ def fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring, out_clip=None,
     """Plain K3: concat(tail, ring[idx]) through the plain K1 (K10 with
     `assign`); writes ``out_ring[idx]`` in place.  Returns ``(out_ring,
     next_tail)``."""
-    return _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
-                       dither_bits, dither_tpdf, assign)
+    return _ring_body(None, "K3", torch.float32, (ring,), (tail,), h,
+                      out_ring, idx, 1, (out_clip, dither_key, dither_bits,
+                                         dither_tpdf), assign)
 
 
 def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
@@ -831,31 +930,14 @@ def fir_td_mxu_ring_f32(ring: torch.Tensor, idx: int, tail: torch.Tensor,
     k_pad samples of concat(tail, slot) (`fir_td.py:1058-1063`).  With
     ``assign`` (the per-tile design index [B / bt]) ``h`` is a tap bank
     [D, n]: the banked form (`fir_td.py:1173-1213`)."""
-    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
-                                                  torch.float32, assign)
-    idx = int(idx) % ring.shape[0]
-    if not _on_cuda(ring):
-        return fir_td_mxu_ring_f32_plain(ring, idx, tail, h, out_ring,
-                                         out_clip, dither_key, dither_bits,
-                                         dither_tpdf, assign)
-    (new_tail,) = _launch_ring(
-        _IN_F32, (ring,), (tail,), h, out_ring, k_pad, idx, 1,
-        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_f32 (K3)", assign, bt)
-    _count(fir_td_mxu_ring_f32, assign)
-    return out_ring, new_tail
+    return _ring_body(fir_td_mxu_ring_f32, "K3", torch.float32, (ring,),
+                      (tail,), h, out_ring, idx, 1,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 fir_td_mxu_ring_f32.launches = 0
 fir_td_mxu_ring_f32.kernels = 2
 fir_td_mxu_ring_f32.banked_launches = 0
-
-
-def _check_steps(n_steps) -> int:
-    n_steps = int(n_steps)
-    if not 1 <= n_steps <= 65535:
-        raise ValueError(f"n_steps must be in [1, 65535], got {n_steps}")
-    return n_steps
 
 
 def fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring, n_steps,
@@ -864,8 +946,9 @@ def fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring, n_steps,
                                    assign=None):
     """Plain K4: the plain K3 looped over slots ``(start+i) mod S``, block
     counter ``counter+i`` for step i."""
-    return _ring_mega_plain(ring, start, tail, h, out_ring, n_steps, out_clip,
-                            dither_key, dither_bits, dither_tpdf, assign)
+    return _ring_body(None, "K4", torch.float32, (ring,), (tail,), h,
+                      out_ring, start, n_steps,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
@@ -878,21 +961,9 @@ def fir_td_mxu_ring_mega_f32(ring: torch.Tensor, start: int,
     equal to chained :func:`fir_td_mxu_ring_f32` calls (same per-step math
     and noise).  ``k_pad > T`` and ``n_steps > S`` are both allowed; so is
     the bank option.  Returns ``(out_ring, next_tail)``."""
-    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
-                                                  torch.float32, assign)
-    n_steps = _check_steps(n_steps)
-    start = int(start) % ring.shape[0]
-    if not _on_cuda(ring):
-        return fir_td_mxu_ring_mega_f32_plain(ring, start, tail, h, out_ring,
-                                              n_steps, out_clip, dither_key,
-                                              dither_bits, dither_tpdf,
-                                              assign)
-    (new_tail,) = _launch_ring(
-        _IN_F32, (ring,), (tail,), h, out_ring, k_pad, start, n_steps,
-        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_mega_f32 (K4)", assign, bt)
-    _count(fir_td_mxu_ring_mega_f32, assign)
-    return out_ring, new_tail
+    return _ring_body(fir_td_mxu_ring_mega_f32, "K4", torch.float32, (ring,),
+                      (tail,), h, out_ring, start, n_steps,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 fir_td_mxu_ring_mega_f32.launches = 0
@@ -908,8 +979,9 @@ def fir_td_mxu_ring_pcm16_plain(ring, idx, tail, h, out_ring, out_clip=None,
                                 dither_tpdf=True, assign=None):
     """Plain K12: the plain K3 on the int16 ring and tail converted
     n/32768 (exact); the next tail is the raw int16 history."""
-    return _ring_plain(ring, idx, tail, h, out_ring, out_clip, dither_key,
-                       dither_bits, dither_tpdf, assign)
+    return _ring_body(None, "K12", torch.int16, (ring,), (tail,), h,
+                      out_ring, idx, 1,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 def fir_td_mxu_ring_pcm16(ring: torch.Tensor, idx: int, tail: torch.Tensor,
@@ -922,19 +994,9 @@ def fir_td_mxu_ring_pcm16(ring: torch.Tensor, idx: int, tail: torch.Tensor,
     ``n/32768`` bit for bit, at half the input bytes.  Returns ``(out_ring,
     next_tail)``, the next tail in int16 (`fir_td.py:1270-1304`); the bank
     option as K3's."""
-    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
-                                                  torch.int16, assign)
-    idx = int(idx) % ring.shape[0]
-    if not _on_cuda(ring):
-        return fir_td_mxu_ring_pcm16_plain(ring, idx, tail, h, out_ring,
-                                           out_clip, dither_key, dither_bits,
-                                           dither_tpdf, assign)
-    (new_tail,) = _launch_ring(
-        _IN_I16, (ring,), (tail,), h, out_ring, k_pad, idx, 1,
-        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_pcm16 (K12)", assign, bt)
-    _count(fir_td_mxu_ring_pcm16, assign)
-    return out_ring, new_tail
+    return _ring_body(fir_td_mxu_ring_pcm16, "K12", torch.int16, (ring,),
+                      (tail,), h, out_ring, idx, 1,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 fir_td_mxu_ring_pcm16.launches = 0
@@ -948,8 +1010,9 @@ def fir_td_mxu_ring_mega_pcm16_plain(ring, start, tail, h, out_ring, n_steps,
                                      assign=None):
     """Plain K12 megakernel: the plain K12 step looped over slots
     ``(start+i) mod S``, block counter ``counter+i`` for step i."""
-    return _ring_mega_plain(ring, start, tail, h, out_ring, n_steps, out_clip,
-                            dither_key, dither_bits, dither_tpdf, assign)
+    return _ring_body(None, "K12", torch.int16, (ring,), (tail,), h,
+                      out_ring, start, n_steps,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 def fir_td_mxu_ring_mega_pcm16(ring: torch.Tensor, start: int,
@@ -961,20 +1024,9 @@ def fir_td_mxu_ring_mega_pcm16(ring: torch.Tensor, start: int,
     """K12, megakernel form: ``n_steps`` :func:`fir_td_mxu_ring_pcm16` steps
     in one launch (K4's form over the int16 ring; `fir_td.py:1638-1662`),
     with the bank option.  Returns ``(out_ring, next_tail)``."""
-    h, tail, k_pad, emit, assign, bt = _ring_args(ring, tail, h, out_ring,
-                                                  torch.int16, assign)
-    n_steps = _check_steps(n_steps)
-    start = int(start) % ring.shape[0]
-    if not _on_cuda(ring):
-        return fir_td_mxu_ring_mega_pcm16_plain(
-            ring, start, tail, h, out_ring, n_steps, out_clip, dither_key,
-            dither_bits, dither_tpdf, assign)
-    (new_tail,) = _launch_ring(
-        _IN_I16, (ring,), (tail,), h, out_ring, k_pad, start, n_steps,
-        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring_mega_pcm16 (K12)", assign, bt)
-    _count(fir_td_mxu_ring_mega_pcm16, assign)
-    return out_ring, new_tail
+    return _ring_body(fir_td_mxu_ring_mega_pcm16, "K12", torch.int16, (ring,),
+                      (tail,), h, out_ring, start, n_steps,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), assign)
 
 
 fir_td_mxu_ring_mega_pcm16.launches = 0
@@ -985,90 +1037,14 @@ fir_td_mxu_ring_mega_pcm16.banked_launches = 0
 # ---------------------------------------------------------------- K8 / K7
 
 
-def _pair_tail_args(B, tail_hi, tail_lo, n, ref):
-    """The pair tail [B, n−1 .. k_pad] for `n` taps, zero-padded on the
-    left to k_pad (`fir_td.py:727-738`; the padded history meets only zero
-    taps).  Returns (tail_hi, tail_lo, k_pad)."""
-    for name, t in (("tail_hi", tail_hi), ("tail_lo", tail_lo)):
-        if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != ref.device:
-            raise ValueError(f"{name} must be 2-D bfloat16 on {ref.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    k_pad = ring_k_pad(n)
-    if tail_lo.shape != tail_hi.shape or tail_hi.shape[0] != B or (
-            not n - 1 <= tail_hi.shape[1] <= k_pad):
-        raise ValueError(f"the tail pair must be two [{B}, n-1 .. {k_pad}] "
-                         f"halves, got {tuple(tail_hi.shape)} and "
-                         f"{tuple(tail_lo.shape)}")
-    pad = k_pad - tail_hi.shape[1]
-    if pad:
-        tail_hi = torch.nn.functional.pad(tail_hi, (pad, 0))
-        tail_lo = torch.nn.functional.pad(tail_lo, (pad, 0))
-        if tail_hi.is_cuda:  # each pad's fill and copy
-            trace.add(ops=4)
-    return tail_hi.contiguous(), tail_lo.contiguous(), k_pad
-
-
-def _pair_block(x_hi, x_lo) -> int:
-    """A bf16 block pair [B, T] on one device with T a multiple of LANE
-    (K8/K7 and K11's pair forms).  Returns B."""
-    for name, t in (("x_hi", x_hi), ("x_lo", x_lo)):
-        if t.dtype != torch.bfloat16 or t.ndim != 2 or t.device != x_hi.device:
-            raise ValueError(f"{name} must be 2-D bfloat16 on {x_hi.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    B, T = x_hi.shape
-    if x_lo.shape != x_hi.shape or T % LANE:
-        raise ValueError(f"the block pair must be two [B, T] halves with T a "
-                         f"multiple of {LANE}, got {tuple(x_hi.shape)} and "
-                         f"{tuple(x_lo.shape)}")
-    return B
-
-
-def _pair_args(x_hi, x_lo, tail_hi, tail_lo, h):
-    """Shared checks of K8/K7: the block pair (:func:`_pair_block`), the
-    taps [n] and the pair tail (:func:`_pair_tail_args`).  Returns (h,
-    tail_hi, tail_lo, k_pad)."""
-    B = _pair_block(x_hi, x_lo)
-    h = _check_taps(h, x_hi)
-    return (h, *_pair_tail_args(B, tail_hi, tail_lo, h.shape[0], x_hi))
-
-
-def _next_pair_tail(tail, x, k_pad):
-    """The last k_pad samples of concat(tail, x) (`fir_td.py:296-308`)."""
-    T = x.shape[1]
-    if k_pad <= T:
-        return x[:, T - k_pad:].clone()
-    return torch.cat([tail[:, T:], x], dim=-1)
-
-
 def fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h, out_clip=None,
                           dither_key=(0, 0), dither_bits=None,
                           dither_tpdf=True, emit_i16=False):
     """Plain K8: the pairs widened to f32 (exact) and concatenated, then
     the split conv of the plain K1."""
-    h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
-    n = h.shape[0]
-    eh = torch.cat([tail_hi, x_hi], dim=-1)[:, k_pad - (n - 1):].float()
-    el = torch.cat([tail_lo, x_lo], dim=-1)[:, k_pad - (n - 1):].float()
-    y = _finish(_conv_split(eh, el, h), out_clip, dither_key, dither_bits,
-                dither_tpdf, emit_i16)
-    return (y, _next_pair_tail(tail_hi, x_hi, k_pad),
-            _next_pair_tail(tail_lo, x_lo, k_pad))
-
-
-def _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out, S, idx, epi,
-                 emit, what, counter=(None, 0), tail_out=None):
-    B, T = x_hi.shape
-    th, tl = _pair_tail_out(tail_out, B, k_pad, x_hi)
-    x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
-    lib = _build.load()
-    with torch.cuda.device(x_hi.device):
-        rc = lib.afp_fir_td_pair(
-            x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
-            tail_lo.data_ptr(), h.data_ptr(), out.data_ptr(), th.data_ptr(),
-            tl.data_ptr(), S, B, T, k_pad, h.shape[0], idx, *epi, int(emit),
-            *counter, _stream(x_hi))
-    _raise_on(rc, what)
-    return th, tl
+    return _pair_body(None, "K8", x_hi, x_lo, tail_hi, tail_lo, h, None, 0,
+                      (out_clip, dither_key, dither_bits, dither_tpdf),
+                      emit_i16=emit_i16)
 
 
 def fir_td_mxu_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
@@ -1083,19 +1059,9 @@ def fir_td_mxu_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
     ``(y, next_tail_hi, next_tail_lo)``: y [B, T] f32 (int16) and the last
     k_pad samples of concat(tail, block), the pair tail of the next block
     (`fir_td.py:700-743` with ``emit_tail``)."""
-    if not _on_cuda(x_hi):
-        return fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
-                                     out_clip, dither_key, dither_bits,
-                                     dither_tpdf, emit_i16)
-    h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
-    y = torch.empty(x_hi.shape,
-                    dtype=torch.int16 if emit_i16 else torch.float32,
-                    device=x_hi.device)
-    th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, y, 1, 0,
-                          _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-                          emit_i16, "fir_td_mxu_pair (K8)")
-    fir_td_mxu_pair.launches += 1
-    return y, th, tl
+    return _pair_body(fir_td_mxu_pair, "K8", x_hi, x_lo, tail_hi, tail_lo, h,
+                      None, 0, (out_clip, dither_key, dither_bits, dither_tpdf),
+                      emit_i16=emit_i16)
 
 
 fir_td_mxu_pair.launches = 0
@@ -1109,14 +1075,9 @@ def fir_td_mxu_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo, h, idx,
     """Plain K7: the plain K8 with its tail, written into ``out_ring[idx]``
     in place (quantized when the ring is int16); `counter`, `counter_add`
     and `tail_out` as K7's."""
-    dither_key = _plain_counter(dither_key, counter, counter_add)
-    y, th, tl = fir_td_mxu_pair_plain(x_hi, x_lo, tail_hi, tail_lo, h,
-                                      out_clip, dither_key, dither_bits,
-                                      dither_tpdf,
-                                      out_ring.dtype == torch.int16)
-    out_ring[int(idx) % out_ring.shape[0]] = y
-    return (out_ring, th, tl) if tail_out is None else (
-        out_ring, tail_out[0].copy_(th), tail_out[1].copy_(tl))
+    return _pair_body(None, "K7", x_hi, x_lo, tail_hi, tail_lo, h, out_ring,
+                      idx, (out_clip, dither_key, dither_bits, dither_tpdf),
+                      None, counter, counter_add, tail_out)
 
 
 def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
@@ -1137,25 +1098,10 @@ def fir_td_mxu_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
     it; `tail_out` is a pair of [B, k_pad] halves the next tail is written
     into (it must not be the tail read).  Without them the launch is as
     it always was."""
-    if out_ring.ndim != 3:
-        raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
-                         f"{x_hi.shape[-1]}], got {tuple(out_ring.shape)}")
-    emit = _out_ring_emit(out_ring, (out_ring.shape[0], *x_hi.shape),
-                          x_hi.device)
-    if not _on_cuda(x_hi):
-        return fir_td_mxu_pair_to_ring_plain(
-            x_hi, x_lo, tail_hi, tail_lo, h, idx, out_ring, out_clip,
-            dither_key, dither_bits, dither_tpdf, counter, counter_add,
-            tail_out)
-    h, tail_hi, tail_lo, k_pad = _pair_args(x_hi, x_lo, tail_hi, tail_lo, h)
-    S = out_ring.shape[0]
-    th, tl = _launch_pair(x_hi, x_lo, tail_hi, tail_lo, h, k_pad, out_ring, S,
-                          int(idx) % S,
-                          _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-                          emit, "fir_td_mxu_pair_to_ring (K7)",
-                          _counter_args(counter, counter_add, x_hi), tail_out)
-    fir_td_mxu_pair_to_ring.launches += 1
-    return out_ring, th, tl
+    return _pair_body(fir_td_mxu_pair_to_ring, "K7", x_hi, x_lo, tail_hi,
+                      tail_lo, h, out_ring, idx,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), None,
+                      counter, counter_add, tail_out)
 
 
 fir_td_mxu_pair_to_ring.launches = 0
@@ -1165,23 +1111,6 @@ fir_td_mxu_pair_to_ring.kernels = 2
 # ---------------------------------------------------------------- K11 pair
 
 
-def _ps_pair_args(x_hi, x_lo, tail_hi, tail_lo, kernels, gains):
-    """Checks of K11's pair forms: the block pair and pair tail as K8's
-    (:func:`_pair_block`, :func:`_pair_tail_args`), the band kernels [K, n] and the gains [B, K]
-    float32 on the block's device.  Returns (kernels, gains, tail_hi,
-    tail_lo, k_pad)."""
-    for name, t in (("kernels", kernels), ("gains", gains)):
-        if t.ndim != 2 or t.dtype != torch.float32 or t.device != x_hi.device:
-            raise ValueError(f"{name} must be 2-D float32 on {x_hi.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if tuple(gains.shape) != (x_hi.shape[0], kernels.shape[0]):
-        raise ValueError(f"gains must be [{x_hi.shape[0]}, "
-                         f"{kernels.shape[0]}], got {tuple(gains.shape)}")
-    tail_hi, tail_lo, k_pad = _pair_tail_args(
-        _pair_block(x_hi, x_lo), tail_hi, tail_lo, kernels.shape[1], x_hi)
-    return (kernels.contiguous(), gains.contiguous(), tail_hi, tail_lo, k_pad)
-
-
 def fir_td_mxu_per_stream_pair_plain(x_hi, x_lo, tail_hi, tail_lo, kernels,
                                      gains, out_clip=None, dither_key=(0, 0),
                                      dither_bits=None, dither_tpdf=True,
@@ -1189,33 +1118,9 @@ def fir_td_mxu_per_stream_pair_plain(x_hi, x_lo, tail_hi, tail_lo, kernels,
     """Plain K11, pair form: the pairs widened to f32 (exact) and
     concatenated, as the plain K8, then the plain K11's band products and
     mix.  Returns ``(y, next_tail_hi, next_tail_lo)``."""
-    kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
-        x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
-    n = kernels.shape[1]
-    eh = torch.cat([tail_hi, x_hi], dim=-1)[:, k_pad - (n - 1):].float()
-    el = torch.cat([tail_lo, x_lo], dim=-1)[:, k_pad - (n - 1):].float()
-    y = _mix(lambda h: _conv_split(eh, el, h), kernels, gains,
-             tuple(x_hi.shape))
-    y = _finish(y, out_clip, dither_key, dither_bits, dither_tpdf, emit_i16)
-    return (y, _next_pair_tail(tail_hi, x_hi, k_pad),
-            _next_pair_tail(tail_lo, x_lo, k_pad))
-
-
-def _launch_ps_pair(x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out,
-                    S, idx, epi, emit, what, counter=(None, 0), tail_out=None):
-    B, T = x_hi.shape
-    th, tl = _pair_tail_out(tail_out, B, k_pad, x_hi)
-    x_hi, x_lo = x_hi.contiguous(), x_lo.contiguous()
-    K, n = kernels.shape
-    lib = _build.load()
-    with torch.cuda.device(x_hi.device):
-        rc = lib.afp_fir_td_ps_pair(
-            x_hi.data_ptr(), x_lo.data_ptr(), tail_hi.data_ptr(),
-            tail_lo.data_ptr(), kernels.data_ptr(), gains.data_ptr(),
-            out.data_ptr(), th.data_ptr(), tl.data_ptr(), S, B, T, k_pad, n,
-            K, idx, *epi, int(emit), *counter, _stream(x_hi))
-    _raise_on(rc, what)
-    return th, tl
+    return _pair_body(None, "K11", x_hi, x_lo, tail_hi, tail_lo, kernels,
+                      None, 0, (out_clip, dither_key, dither_bits, dither_tpdf),
+                      gains, emit_i16=emit_i16)
 
 
 def fir_td_mxu_per_stream_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
@@ -1232,21 +1137,10 @@ def fir_td_mxu_per_stream_pair(x_hi: torch.Tensor, x_lo: torch.Tensor,
     the pairs are :func:`split_bf16` of f32 inputs.  Returns ``(y,
     next_tail_hi, next_tail_lo)``, the tail as K8's.  bf16×3 only: the
     HIGHEST K11 has no pair form."""
-    if not _on_cuda(x_hi):
-        return fir_td_mxu_per_stream_pair_plain(
-            x_hi, x_lo, tail_hi, tail_lo, kernels, gains, out_clip,
-            dither_key, dither_bits, dither_tpdf, emit_i16)
-    kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
-        x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
-    y = torch.empty(x_hi.shape,
-                    dtype=torch.int16 if emit_i16 else torch.float32,
-                    device=x_hi.device)
-    th, tl = _launch_ps_pair(
-        x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, y, 1, 0,
-        _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit_i16,
-        "fir_td_mxu_per_stream_pair (K11)")
-    fir_td_mxu_per_stream_pair.launches += 1
-    return y, th, tl
+    return _pair_body(fir_td_mxu_per_stream_pair, "K11", x_hi, x_lo, tail_hi,
+                      tail_lo, kernels, None, 0,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), gains,
+                      emit_i16=emit_i16)
 
 
 fir_td_mxu_per_stream_pair.launches = 0
@@ -1262,13 +1156,10 @@ def fir_td_mxu_per_stream_pair_to_ring_plain(x_hi, x_lo, tail_hi, tail_lo,
     """Plain K11, pair-to-ring form: the plain staged pair form written
     into ``out_ring[idx]`` in place (quantized when the ring is int16);
     `counter`, `counter_add` and `tail_out` as K7's."""
-    dither_key = _plain_counter(dither_key, counter, counter_add)
-    y, th, tl = fir_td_mxu_per_stream_pair_plain(
-        x_hi, x_lo, tail_hi, tail_lo, kernels, gains, out_clip, dither_key,
-        dither_bits, dither_tpdf, out_ring.dtype == torch.int16)
-    out_ring[int(idx) % out_ring.shape[0]] = y
-    return (out_ring, th, tl) if tail_out is None else (
-        out_ring, tail_out[0].copy_(th), tail_out[1].copy_(tl))
+    return _pair_body(None, "K11", x_hi, x_lo, tail_hi, tail_lo, kernels,
+                      out_ring, idx,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), gains,
+                      counter, counter_add, tail_out)
 
 
 def fir_td_mxu_per_stream_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
@@ -1287,26 +1178,10 @@ def fir_td_mxu_per_stream_pair_to_ring(x_hi: torch.Tensor, x_lo: torch.Tensor,
     output bit for bit.  Returns ``(out_ring, next_tail_hi,
     next_tail_lo)``.  `counter`, `counter_add` and `tail_out` as
     :func:`fir_td_mxu_pair_to_ring`'s."""
-    if out_ring.ndim != 3:
-        raise ValueError(f"out_ring must be [S, {x_hi.shape[0]}, "
-                         f"{x_hi.shape[-1]}], got {tuple(out_ring.shape)}")
-    emit = _out_ring_emit(out_ring, (out_ring.shape[0], *x_hi.shape),
-                          x_hi.device)
-    if not _on_cuda(x_hi):
-        return fir_td_mxu_per_stream_pair_to_ring_plain(
-            x_hi, x_lo, tail_hi, tail_lo, kernels, gains, idx, out_ring,
-            out_clip, dither_key, dither_bits, dither_tpdf, counter,
-            counter_add, tail_out)
-    kernels, gains, tail_hi, tail_lo, k_pad = _ps_pair_args(
-        x_hi, x_lo, tail_hi, tail_lo, kernels, gains)
-    S = out_ring.shape[0]
-    th, tl = _launch_ps_pair(
-        x_hi, x_lo, tail_hi, tail_lo, kernels, gains, k_pad, out_ring, S,
-        int(idx) % S, _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-        emit, "fir_td_mxu_per_stream_pair_to_ring (K11)",
-        _counter_args(counter, counter_add, x_hi), tail_out)
-    fir_td_mxu_per_stream_pair_to_ring.launches += 1
-    return out_ring, th, tl
+    return _pair_body(fir_td_mxu_per_stream_pair_to_ring, "K11", x_hi, x_lo,
+                      tail_hi, tail_lo, kernels, out_ring, idx,
+                      (out_clip, dither_key, dither_bits, dither_tpdf), gains,
+                      counter, counter_add, tail_out)
 
 
 fir_td_mxu_per_stream_pair_to_ring.launches = 0
@@ -1316,36 +1191,13 @@ fir_td_mxu_per_stream_pair_to_ring.kernels = 2
 # ---------------------------------------------------------------- K13
 
 
-def _pair_ring_args(ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring):
-    """Shared checks of K13: bf16 pair rings [S, B, T] on one device, the
-    LANE rule, the pair tail and the output ring.  Returns (h, tail_hi,
-    tail_lo, k_pad, emit_i16)."""
-    for name, t in (("ring_hi", ring_hi), ("ring_lo", ring_lo)):
-        if t.dtype != torch.bfloat16 or t.ndim != 3 or (
-                t.device != ring_hi.device):
-            raise ValueError(f"{name} must be [S, B, T] bfloat16 on "
-                             f"{ring_hi.device}, got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
-    if ring_lo.shape != ring_hi.shape:
-        raise ValueError(f"the ring pair must be two [S, B, T] halves, got "
-                         f"{tuple(ring_hi.shape)} and {tuple(ring_lo.shape)}")
-    S, B, T = ring_hi.shape
-    if T % LANE:
-        raise ValueError(f"T={T} must be a multiple of {LANE}")
-    emit = _out_ring_emit(out_ring, ring_hi.shape, ring_hi.device)
-    h = _check_taps(h, ring_hi)
-    return (h, *_pair_tail_args(B, tail_hi, tail_lo, h.shape[0], ring_hi),
-            emit)
-
-
 def fir_td_mxu_ring_plain(ring_hi, ring_lo, idx, tail_hi, tail_lo, h,
                           out_ring, out_clip=None, dither_key=(0, 0),
                           dither_bits=None, dither_tpdf=True):
     """Plain K13: the plain K7 on slot ``idx`` of the pair rings."""
-    idx = int(idx) % ring_hi.shape[0]
-    return fir_td_mxu_pair_to_ring_plain(
-        ring_hi[idx], ring_lo[idx], tail_hi, tail_lo, h, idx, out_ring,
-        out_clip, dither_key, dither_bits, dither_tpdf)
+    return _ring_body(None, "K13", torch.bfloat16, (ring_hi, ring_lo),
+                      (tail_hi, tail_lo), h, out_ring, idx, 1,
+                      (out_clip, dither_key, dither_bits, dither_tpdf))
 
 
 def fir_td_mxu_ring(ring_hi: torch.Tensor, ring_lo: torch.Tensor, idx: int,
@@ -1358,19 +1210,9 @@ def fir_td_mxu_ring(ring_hi: torch.Tensor, ring_lo: torch.Tensor, idx: int,
     slot's views, and to K3 on the f32 ring when the pairs are its
     :func:`split_bf16`.  Returns ``(out_ring, next_tail_hi, next_tail_lo)``
     (`fir_td.py:946-996` with ``emit_tail``)."""
-    h, tail_hi, tail_lo, k_pad, emit = _pair_ring_args(
-        ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring)
-    idx = int(idx) % ring_hi.shape[0]
-    if not _on_cuda(ring_hi):
-        return fir_td_mxu_ring_plain(ring_hi, ring_lo, idx, tail_hi, tail_lo,
-                                     h, out_ring, out_clip, dither_key,
-                                     dither_bits, dither_tpdf)
-    th, tl = _launch_ring(
-        _IN_PAIR, (ring_hi, ring_lo), (tail_hi, tail_lo), h, out_ring, k_pad,
-        idx, 1, _epi(out_clip, dither_key, dither_bits, dither_tpdf), emit,
-        "fir_td_mxu_ring (K13)")
-    fir_td_mxu_ring.launches += 1
-    return out_ring, th, tl
+    return _ring_body(fir_td_mxu_ring, "K13", torch.bfloat16,
+                      (ring_hi, ring_lo), (tail_hi, tail_lo), h, out_ring,
+                      idx, 1, (out_clip, dither_key, dither_bits, dither_tpdf))
 
 
 fir_td_mxu_ring.launches = 0
@@ -1383,13 +1225,9 @@ def fir_td_mxu_ring_mega_plain(ring_hi, ring_lo, start, tail_hi, tail_lo, h,
                                dither_tpdf=True):
     """Plain K13 megakernel: the plain K13 step looped over slots
     ``(start+i) mod S``, block counter ``counter+i`` for step i."""
-    S = ring_hi.shape[0]
-    seed, counter = dither_key
-    for i in range(n_steps):
-        out_ring, tail_hi, tail_lo = fir_td_mxu_ring_plain(
-            ring_hi, ring_lo, (start + i) % S, tail_hi, tail_lo, h, out_ring,
-            out_clip, (seed, counter + i), dither_bits, dither_tpdf)
-    return out_ring, tail_hi, tail_lo
+    return _ring_body(None, "K13", torch.bfloat16, (ring_hi, ring_lo),
+                      (tail_hi, tail_lo), h, out_ring, start, n_steps,
+                      (out_clip, dither_key, dither_bits, dither_tpdf))
 
 
 def fir_td_mxu_ring_mega(ring_hi: torch.Tensor, ring_lo: torch.Tensor,
@@ -1402,20 +1240,10 @@ def fir_td_mxu_ring_mega(ring_hi: torch.Tensor, ring_lo: torch.Tensor,
     slots ``(start+i) mod S`` in one launch, equal to the chained steps
     (`fir_td.py:1445-1485`).  Returns ``(out_ring, next_tail_hi,
     next_tail_lo)``."""
-    h, tail_hi, tail_lo, k_pad, emit = _pair_ring_args(
-        ring_hi, ring_lo, tail_hi, tail_lo, h, out_ring)
-    n_steps = _check_steps(n_steps)
-    start = int(start) % ring_hi.shape[0]
-    if not _on_cuda(ring_hi):
-        return fir_td_mxu_ring_mega_plain(
-            ring_hi, ring_lo, start, tail_hi, tail_lo, h, out_ring, n_steps,
-            out_clip, dither_key, dither_bits, dither_tpdf)
-    th, tl = _launch_ring(
-        _IN_PAIR, (ring_hi, ring_lo), (tail_hi, tail_lo), h, out_ring, k_pad,
-        start, n_steps, _epi(out_clip, dither_key, dither_bits, dither_tpdf),
-        emit, "fir_td_mxu_ring_mega (K13)")
-    fir_td_mxu_ring_mega.launches += 1
-    return out_ring, th, tl
+    return _ring_body(fir_td_mxu_ring_mega, "K13", torch.bfloat16,
+                      (ring_hi, ring_lo), (tail_hi, tail_lo), h, out_ring,
+                      start, n_steps,
+                      (out_clip, dither_key, dither_bits, dither_tpdf))
 
 
 fir_td_mxu_ring_mega.launches = 0

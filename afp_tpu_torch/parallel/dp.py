@@ -353,18 +353,20 @@ class ShardedPipeline:
                           out_ring, n_steps, start)
 
     def check_ring_params(self, params: DeviceParams,
-                          form: str = "ring_step") -> None:
-        """Refuse params that the shards' rings cannot serve: per-stream EQ
-        gains are served on one Pipeline's AGC ring only
+                          mega: bool = False) -> None:
+        """Refuse params that the shards' rings cannot serve (`mega`:
+        `run_ring_mega`'s, else `run_ring`'s): per-stream EQ gains are
+        served on one Pipeline's AGC ring only
         (`Pipeline.check_ring_params`), never over a mesh's rings."""
         if params.eq_gains.ndim == 2:
             raise ValueError(
-                f"{form} over a mesh does not support per-stream EQ gains: "
-                "they are served on one Pipeline's AGC ring only")
+                f"{'run_ring_mega' if mega else 'run_ring'} over a mesh does "
+                "not support per-stream EQ gains: they are served on one "
+                "Pipeline's AGC ring only")
 
     def _ring(self, form: str, params, state, ring_hi, ring_lo, out_ring,
               n_steps: int, start: int):
-        self.check_ring_params(params, form)
+        self.check_ring_params(params, form == "run_ring_mega")
         ps = self.shard_params(params)
         rh, rl, ro = (self._rings(r, n) for r, n in (
             (ring_hi, "ring_hi"), (ring_lo, "ring_lo"), (out_ring, "out_ring")))

@@ -171,8 +171,7 @@ class RingServer:
             pipeline.device_params(PipelineParams.design(pipeline.cfg)))
         # per-stream EQ gains ride the AGC ring alone: refused here, not at
         # the first dispatch
-        pipeline.check_ring_params(
-            self.params, "run_ring_mega" if self.mega else "ring_step")
+        pipeline.check_ring_params(self.params, self.mega)
         if self.packing is not None and self.params.eq_gains.ndim == 2:
             raise ValueError(
                 "per-stream EQ gains are not served with a packing: it moves "

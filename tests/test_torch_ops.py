@@ -21,7 +21,8 @@ from afp_tpu_torch.ops.convolve import next_pow2
 from afp_tpu_torch.ops.cuda import (KERNELS, band_matrix, dither_cuda,
                                     fir_td_mxu, fir_td_mxu_ring_f32,
                                     fir_td_mxu_ring_mega_f32, merge_bf16,
-                                    ring_k_pad, split_bf16)
+                                    quantize_pcm16, ring_k_pad, split_bf16)
+from afp_tpu_torch.ops.cuda import fir_td as F
 from afp_tpu_torch.ops.dither import (dither_plain, lsb_for_bits, noise,
                                       noise_bits, philox4x32)
 
@@ -352,3 +353,125 @@ def test_conv_shape_rules():
     with pytest.raises(ValueError, match="unsupported device"):
         fir_td_mxu(torch.zeros(2, 158, device="meta"), torch.zeros(31, device="meta"))
     assert all(k.launches == 0 for k in KERNELS)  # no kernel runs on the CPU
+
+
+# ---------------------------------------------------------------- ring and pair bodies
+
+#: the ten ring and pair wrappers by kernel; the mega names take n_steps
+RING_PAIR = {"K3": "fir_td_mxu_ring_f32", "K4": "fir_td_mxu_ring_mega_f32",
+             "K12": "fir_td_mxu_ring_pcm16",
+             "K12 mega": "fir_td_mxu_ring_mega_pcm16",
+             "K13": "fir_td_mxu_ring", "K13 mega": "fir_td_mxu_ring_mega",
+             "K8": "fir_td_mxu_pair", "K7": "fir_td_mxu_pair_to_ring",
+             "K11 pair": "fir_td_mxu_per_stream_pair",
+             "K11 pair-to-ring": "fir_td_mxu_per_stream_pair_to_ring"}
+
+
+def _ring_pair_call(kernel, plain, fault):
+    """A call of `kernel`'s wrapper (its ``_plain`` twin with `plain`) at a
+    small shape, B = 8, S = 2, 31 taps, with one `fault`: a float64 tail,
+    a block length of 200 (not a multiple of 128), zero steps, or none."""
+    fn = getattr(F, RING_PAIR[kernel] + ("_plain" if plain else ""))
+    B, S, T = 8, 2, 200 if fault == "length" else 256
+    h, bands, gains = torch.zeros(31), torch.zeros(3, 31), torch.ones(B, 3)
+    steps = 0 if fault == "n_steps 0" else 2
+    out = torch.zeros(S, B, T)
+    ring = {"K3": torch.float32, "K4": torch.float32, "K12": torch.int16,
+            "K12 mega": torch.int16}.get(kernel, torch.bfloat16)
+    r = torch.zeros(S, B, T, dtype=ring)
+    t = torch.zeros(B, 128, dtype=torch.float64 if fault == "tail dtype"
+                    else ring)
+    x = r[0]
+    return {"K3": lambda: fn(r, 0, t, h, out),
+            "K4": lambda: fn(r, 0, t, h, out, steps),
+            "K12": lambda: fn(r, 0, t, h, out),
+            "K12 mega": lambda: fn(r, 0, t, h, out, steps),
+            "K13": lambda: fn(r, r, 0, t, t, h, out),
+            "K13 mega": lambda: fn(r, r, 0, t, t, h, out, steps),
+            "K8": lambda: fn(x, x, t, t, h),
+            "K7": lambda: fn(x, x, t, t, h, 0, out),
+            "K11 pair": lambda: fn(x, x, t, t, bands, gains),
+            "K11 pair-to-ring": lambda: fn(x, x, t, t, bands, gains, 0, out)
+            }[kernel]
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["wrapper", "plain"])
+@pytest.mark.parametrize("kernel,fault", [
+    (k, f) for k in RING_PAIR
+    for f in ("none", "tail dtype", "length", "n_steps 0")
+    if f != "n_steps 0" or "mega" in k or k == "K4"])
+def test_ring_and_pair_forms_share_their_checks(kernel, fault, plain):
+    """Every ring and pair wrapper and its plain twin run one body's checks:
+    each refuses a tail of the wrong dtype, a ring or block length that is
+    not a multiple of 128 and (the megakernel names) zero steps with
+    ValueError, and runs clean without the fault."""
+    call = _ring_pair_call(kernel, plain, fault)
+    if fault == "none":
+        call()
+        return
+    with pytest.raises(ValueError, match={"tail dtype": "tail", "length": "128",
+                                          "n_steps 0": "n_steps"}[fault]):
+        call()
+
+
+@pytest.mark.parametrize("form", ["f32", "int16", "pair", "f32 bank",
+                                  "int16 bank"])
+def test_ring_step_equals_its_megakernel_at_one_step(form):
+    """A per-step ring form (K3, K12, K13, banked K3/K12) ≡ its megakernel
+    twin at ``n_steps = 1`` from the same slot, output ring and tail, bit
+    for bit, clip and dither on."""
+    B, T, S, n, idx = 16, 256, 3, 129, 2
+    h, x = _taps_and_signal(n, B, S * T + 128, 11)
+    ring = torch.from_numpy(x[:, 128:].reshape(B, S, T).transpose(1, 0, 2).copy())
+    tail = torch.from_numpy(x[:, :128].copy())
+    taps, kw = torch.from_numpy(h), dict(out_clip=0.2, dither_key=(3, 7),
+                                         dither_bits=16, dither_tpdf=True)
+    if "bank" in form:
+        taps = torch.stack([taps, taps.flip(0), taps * 0.5])
+        kw["assign"] = torch.tensor([2, 0], dtype=torch.int32)
+    if "int16" in form:
+        ring, tail = quantize_pcm16(ring), quantize_pcm16(tail)
+    if form == "pair":
+        (rh, rl), (th, tl) = split_bf16(ring), split_bf16(tail)
+        step = F.fir_td_mxu_ring(rh, rl, idx, th, tl, taps, torch.zeros(S, B, T), **kw)
+        mega = F.fir_td_mxu_ring_mega(rh, rl, idx, th, tl, taps,
+                                      torch.zeros(S, B, T), 1, **kw)
+    else:
+        one, many = ((F.fir_td_mxu_ring_pcm16, F.fir_td_mxu_ring_mega_pcm16)
+                     if "int16" in form else
+                     (F.fir_td_mxu_ring_f32, F.fir_td_mxu_ring_mega_f32))
+        step = one(ring, idx, tail, taps, torch.zeros(S, B, T), **kw)
+        mega = many(ring, idx, tail, taps, torch.zeros(S, B, T), 1, **kw)
+    assert len(step) == len(mega)
+    assert all(torch.equal(a, b) for a, b in zip(step, mega))
+    assert step[0][idx].abs().max() > 0 and not step[0][:idx].any()
+
+
+@pytest.mark.parametrize("emit", [torch.float32, torch.int16], ids=["f32", "i16"])
+@pytest.mark.parametrize("form", ["K8/K7", "K11 pair/pair-to-ring"])
+def test_staged_pair_equals_pair_to_ring_into_one_slot(form, emit):
+    """K8 ≡ K7 into a one-slot ring, and K11's staged pair form ≡ its
+    pair-to-ring form into a one-slot ring, outputs and next tails bit for
+    bit, clip and dither on."""
+    B, T, n = 8, 256, 129
+    h, x = _taps_and_signal(n, B, T + 128, 12)
+    (xh, xl), (th, tl) = split_bf16(torch.from_numpy(x[:, 128:].copy())), \
+        split_bf16(torch.from_numpy(x[:, :128].copy()))
+    kw = dict(out_clip=0.2, dither_key=(4, 9), dither_bits=16, dither_tpdf=True)
+    slot = torch.zeros(1, B, T, dtype=emit)
+    i16 = emit == torch.int16
+    if form == "K8/K7":
+        taps = (torch.from_numpy(h),)
+        staged = F.fir_td_mxu_pair(xh, xl, th, tl, *taps, emit_i16=i16, **kw)
+        ring = F.fir_td_mxu_pair_to_ring(xh, xl, th, tl, *taps, 0, slot, **kw)
+    else:
+        g = torch.Generator().manual_seed(2)
+        taps = (torch.randn(3, n, generator=g) * 0.1,
+                torch.rand(B, 3, generator=g) * 2)
+        staged = F.fir_td_mxu_per_stream_pair(xh, xl, th, tl, *taps,
+                                              emit_i16=i16, **kw)
+        ring = F.fir_td_mxu_per_stream_pair_to_ring(xh, xl, th, tl, *taps, 0,
+                                                    slot, **kw)
+    assert staged[0].dtype == emit and torch.equal(ring[0][0], staged[0])
+    assert torch.equal(ring[1], staged[1]) and torch.equal(ring[2], staged[2])
+    assert staged[0].abs().max() > 0
