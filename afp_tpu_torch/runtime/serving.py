@@ -19,22 +19,61 @@ rings (``ingest='pair'``); the output ring is int16 under
 ``emit='pcm16'`` (half the drain bytes).  This module is the pump:
 
 1. land incoming [batch, blocksize] blocks in the next input slots (a
-   host→device copy through pinned memory),
+   host→device copy: by DMA from the caller's own memory, or through
+   pinned memory),
 2. dispatch the chunk, starting at its first slot,
 3. copy the chunk's output slots to pinned host memory right behind the
    dispatch, and hand them to the caller up to `max_inflight` chunks later.
 
-Every landing (one-device, per shard, each half of a pair, into packing's
-staging) goes through `utils/staging.py:to_device`, which stages a host
-buffer of ``NATIVE_MIN_BYTES`` and up (C5's f32 blocks) with the native
-copy and a smaller one with ``copy_``, into pinned buffers that PyTorch's
-caching host allocator keeps until their host→device copy has run.
+Every landing goes through `utils/staging.py`.  On a card, a one-device
+ring without ``packing`` and without pair ingest lands directly
+(:func:`~afp_tpu_torch.utils.staging.land`): the process's pin cache
+(`utils/host_pins.py:PINS`) page-locks a block's memory owner in place
+once the caller hands the same block's bytes a second time, and from then
+on each of its blocks is copied by DMA straight from the caller's memory,
+with no host stage copy.  Every other landing (bytes not handed before,
+memory that cannot be locked, the CPU, per shard, each half of a pair,
+into packing's staging) is staged by
+:func:`~afp_tpu_torch.utils.staging.to_device` into pinned buffers that
+PyTorch's caching host allocator keeps until their host→device copy has
+run.
 
-Everything rides PyTorch's current stream, in order.  That is what makes
-the in-place rings safe: a chunk's output copy is enqueued before any later
-dispatch that could rewrite those slots, and a refill is enqueued after the
-dispatch that read the slot it overwrites.  ``(max_inflight + 1) * chunk ≤
-slots`` keeps refills away from slots whose output is still undrained.
+Ordering.  Direct landing takes two streams.  Landings, direct or staged,
+queue on the server's own landing stream; the dispatches and the drain's
+device→host copies stay on PyTorch's current stream (the compute stream),
+so the two copy directions run beside each other on the card's two copy
+engines.  Two sets of events order the streams, in place of one stream's
+order:
+
+- the refill of a slot waits, on the landing stream, for the event of the
+  dispatch that last read that slot;
+- each dispatch (eager or a graph's replay, `run_ring` or
+  `run_ring_mega`) waits, on the compute stream, for the event of its
+  chunk's last landing.
+
+A chunk's output copy is enqueued on the compute stream right behind its
+dispatch, before any later dispatch that could rewrite those slots, and
+``(max_inflight + 1) * chunk ≤ slots`` keeps refills away from slots whose
+output is still undrained.  A staged landing's pinned buffer is recorded on
+the landing stream, where its copy runs, so the caching host allocator
+hands it out again only after that copy.  Without direct landing (the CPU,
+a sharded pipeline, ``packing``, pair ingest) every copy and dispatch rides
+the current stream, in order: a refill is enqueued after the dispatch that
+read the slot it overwrites.
+
+The caller's buffers.  The pump waits for a direct landing's copy to have
+read the caller's block (``afp.h2d.wait``, inside ``afp.serve.land``)
+before it next asks the source for a block or yields an output: either
+hands the caller control of its buffer back, and from then on the caller
+may overwrite the block it handed over.  An owner the cache has locked
+stays page-locked, and is held alive, until the caller drops it (the next
+lookup of any server lets it go), until every server that landed from it is
+closed (:meth:`RingServer.close`) or collected, or until the cache's budget
+(a quarter of the host's physical memory) evicts it
+(`utils/host_pins.py`).  Direct landing pays only where the caller hands
+the same memory again (buffers it refills, or an array it serves more than
+once); a caller that hands fresh memory each block, or walks once through
+one array, is staged, as before.
 
 With ``packing`` (the :class:`~afp_tpu_torch.engine.batch.StreamPacking`
 of a per-stream filter bank) the caller's blocks land in device order and
@@ -61,8 +100,10 @@ tap adds no device work and leaves the served outputs as they were.
 """
 from __future__ import annotations
 
+import itertools
 import time
 import threading
+import weakref
 from collections import deque
 from typing import Callable, Iterable, Iterator, Optional
 
@@ -77,12 +118,23 @@ from ..ops.agc import AGCParams
 from ..ops.cuda.fir_td import split_bf16
 from ..ops.spectrum import WATERFALL_DEPTH, spectrum_db_np, spectrum_freqs
 from ..utils import trace
+from ..utils.host_pins import PINS
 from ..utils.log import get_logger
-from ..utils.staging import to_device
+from ..utils.staging import land, to_device
 
 logger = get_logger("serving")
 
-__all__ = ["RingServer"]
+__all__ = ["RingServer", "lands_directly"]
+
+
+def lands_directly(cuda: bool, layout, packing, pair: bool) -> bool:
+    """Whether a server lands blocks directly, on a landing stream of its
+    own: on a card, over the one-device rings, without a packing and
+    without pair ingest."""
+    return cuda and layout is None and packing is None and not pair
+
+
+_PIN_USERS = itertools.count()
 
 
 class RingServer:
@@ -186,6 +238,19 @@ class RingServer:
         #: a card, `Pipeline.run_ring`)
         self._graphs = (RingGraphs() if self._layout is None and not self.mega
                         else None)
+        #: direct landing (see the module): the landing stream, the event of
+        #: its last landing, the event of the last dispatch of each chunk
+        #: of slots, and the pin cache; all None where it does not apply
+        self._land_stream = self._landed = self._read = self._pins = None
+        #: this server's token among the users of the cache's pins
+        self._pin_user = next(_PIN_USERS)
+        if lands_directly(self._cuda, self._layout, self.packing,
+                          pipeline._pair_ingest):
+            self._land_stream = torch.cuda.Stream(dev)
+            self._landed = torch.cuda.Event()
+            self._read = [torch.cuda.Event() for _ in range(slots // chunk)]
+            self._pins = PINS
+            weakref.finalize(self, PINS.release, self._pin_user).atexit = False
 
         def ring(dtype):
             if self._layout is not None:
@@ -197,6 +262,8 @@ class RingServer:
         self._ring = ring(torch.bfloat16 if pair else pipeline.in_dtype)
         self._ring_lo = ring(torch.bfloat16) if pair else None
         self._out = ring(pipeline.out_dtype)
+        if self._land_stream is not None:  # landings behind the rings' fills
+            self._land_stream.wait_stream(torch.cuda.current_stream(dev))
         #: packing's device staging: landed blocks by dtype, a drained chunk
         self._stage_in: dict = {}
         self._stage_out = (torch.empty((chunk, B, T), dtype=pipeline.out_dtype,
@@ -215,6 +282,14 @@ class RingServer:
         self.waterfall_ring: Optional[np.ndarray] = None  # [50, n_bins]
         self.last_spectrum: Optional[np.ndarray] = None  # [n_bins] dB
         self.spectrum_peak: Optional[tuple] = None  # (freq_hz, level_db)
+
+    def close(self) -> None:
+        """Unregister the host memory the server landed from and no other
+        live server did, each owner once the last copy that read it has
+        run.  The server stays usable: an owner's bytes handed twice again
+        lock it again."""
+        if self._pins is not None:
+            self._pins.release(self._pin_user)
 
     # -------------------------------------------------- live reconfiguration
 
@@ -294,14 +369,32 @@ class RingServer:
 
     # -------------------------------------------------- core pump
 
+    @staticmethod
+    def _check_block(dst: torch.Tensor, src: torch.Tensor) -> None:
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"blocks must be {tuple(dst.shape)}, "
+                             f"got {tuple(src.shape)}")
+
     def _copy_in(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         """Copy a host block into the device tensor `dst`
         (:func:`~afp_tpu_torch.utils.staging.to_device`: through pinned
         memory on a card)."""
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"blocks must be {tuple(dst.shape)}, "
-                             f"got {tuple(src.shape)}")
+        self._check_block(dst, src)
         to_device(src, dst)
+
+    def _land_direct(self, dst: torch.Tensor, src: torch.Tensor,
+                     host: np.ndarray) -> None:
+        """Copy a host block into the device tensor `dst` where the server
+        lands directly: by :func:`~afp_tpu_torch.utils.staging.land` from
+        `host` (the array `src` is over), waiting until a direct copy has
+        read it (``afp.h2d.wait``; counted ``direct`` on the landing's
+        span), or staged on a miss."""
+        self._check_block(dst, src)
+        ev = land(src, dst, self._pins, host, self._pin_user)
+        if ev is not None:
+            trace.add(direct=1)
+            with trace.span("afp.h2d.wait"):
+                ev.synchronize()
 
     def _land(self, slot: int, block) -> None:
         """Copy one [batch, blocksize] block into input slot `slot` in the
@@ -310,12 +403,23 @@ class RingServer:
         quantized); under pair ingest a ``(hi, lo)`` pair as given, or an
         f32 block split on the device; else f32.  With a packing the block
         is gathered into device order on the device; over a sharded
-        pipeline each shard's rows land in its own ring.  Traced as
-        ``afp.serve.land``."""
+        pipeline each shard's rows land in its own ring.  Where the server
+        lands directly the copy queues on its landing stream, behind the
+        last dispatch that read the slot, and returns once a direct copy
+        has read the block (the caller may then overwrite it).  Traced as
+        ``afp.serve.land`` (count ``direct``: the block was copied from
+        registered memory)."""
         with trace.span("afp.serve.land", block=self.blocks_landed,
                         blocks=1):
             pair = self.pipe._pair_ingest and isinstance(block,
                                                          (tuple, list))
+            if self._land_stream is not None:
+                stream = self._land_stream
+                stream.wait_event(self._read[slot // self.chunk])
+                with torch.cuda.stream(stream):
+                    self._land_rows(self._ring, None, slot, block, False)
+                self._landed.record(stream)
+                return
             if self._layout is None:
                 self._land_rows(self._ring, self._ring_lo, slot, block, pair)
                 return
@@ -335,14 +439,16 @@ class RingServer:
                 self._put(dst, bf16_tensor(half, "cpu"))
             return
         if pipe._i16_ingest:
-            src = torch.as_tensor(np.asarray(block))
+            host = np.asarray(block)
+            src = torch.as_tensor(host)
             if src.dtype != torch.int16:
                 raise ValueError(
                     f"pcm16 RingServer blocks must be int16, got {src.dtype}")
         else:
-            src = torch.as_tensor(np.asarray(block, dtype=np.float32))
+            host = np.asarray(block, dtype=np.float32)
+            src = torch.as_tensor(host)
         if not pipe._pair_ingest:
-            self._put(ring[slot], src)
+            self._put(ring[slot], src, host)
             return
         x = torch.empty(ring.shape[1:], dtype=torch.float32,
                         device=ring.device)
@@ -353,11 +459,16 @@ class RingServer:
         if self._cuda:  # the split's 14 elementwise kernels and 2 copies
             trace.add(ops=16)
 
-    def _put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
-        """Land the host block `src` in the device tensor `dst`, gathered
-        into device order when the server packs (the copy lands in the
-        staging block of its dtype, then one ``index_select`` fills
+    def _put(self, dst: torch.Tensor, src: torch.Tensor,
+             host: Optional[np.ndarray] = None) -> None:
+        """Land the host block `src` (over the array `host`) in the device
+        tensor `dst`: directly where the server lands so, else staged, and
+        gathered into device order when the server packs (the copy lands in
+        the staging block of its dtype, then one ``index_select`` fills
         `dst`)."""
+        if self.packing is None and self._pins is not None:
+            self._land_direct(dst, src, host)
+            return
         if self.packing is None:
             self._copy_in(dst, src)
             return
@@ -423,7 +534,12 @@ class RingServer:
         input block (int16 under ``emit='pcm16'``), in order.  A short
         final chunk is served as is.  The drain's wait on a chunk's copy is
         traced as ``afp.serve.drain.wait``, closed before the chunk's
-        blocks are yielded."""
+        blocks are yielded.
+
+        The caller may overwrite a block it handed over once the pump asks
+        `source` for the next one, or yields an output, whichever comes
+        first: by then the block's bytes have been copied (staged, or read
+        by a direct landing's DMA, which the pump waits for)."""
         inflight: list = []
         taken: list[float] = []  # when each pending block left the source
         slot = 0
@@ -447,9 +563,14 @@ class RingServer:
                 kw = {} if self._graphs is None else {"graphs": self._graphs}
                 with self._swap_lock:  # one bank for the whole chunk
                     params = self.params
+                if self._land_stream is not None:
+                    compute = torch.cuda.current_stream(self.pipe.device)
+                    compute.wait_event(self._landed)
                 self._state, self._out = dispatch(
                     params, self._state, self._ring, self._ring_lo, self._out,
                     pending, start=slot, **kw)
+                if self._land_stream is not None:
+                    self._read[slot // self.chunk].record(compute)
                 inflight.append((*self._fetch(slot, pending), taken))
                 taken = []
                 slot = (slot + self.chunk) % self.K

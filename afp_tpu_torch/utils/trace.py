@@ -17,8 +17,9 @@ thread); ``block`` is the global index of the block, or of a chunk's first
 block, the span worked on (-1 where it has none), so the spans of one
 block share an id; ``counts`` maps ``blocks``, ``bytes``, ``ops``
 (device operations enqueued), ``threads`` (the threads of a native
-stage copy) and the EQ mix's ``rows``, ``bands``, ``taps`` and
-``samples`` to their totals, where non-zero.
+stage copy), ``direct`` (blocks landed from registered memory) and the EQ
+mix's ``rows``, ``bands``, ``taps`` and ``samples`` to their totals, where
+non-zero.
 
 With the profiler off, :func:`span` makes one check and returns one shared
 no-op object: no allocation, no clock read.  Inside :func:`muted` (the
@@ -32,10 +33,15 @@ The spans and what each covers:
 
 =========================  ==============================================
 ``afp.serve.land``         `RingServer._land`: one block into its input slot
+                           (``direct``: it was copied from registered memory)
+``afp.h2d.register``       the page-locking of a block's memory owner in
+                           place, when a block's bytes recur (``bytes``)
 ``afp.h2d.pin``            the pinned staging buffer's allocation
 ``afp.h2d.stage``          the host copy of the block into it (``bytes``;
                            ``threads`` where the native copy ran)
 ``afp.h2d.copy``           the host→device copy enqueued (``bytes``, ``ops``)
+``afp.h2d.wait``           the wait for a direct landing's copy to have read
+                           the caller's block
 ``afp.serve.fetch``        a chunk's device→host copy enqueued (``bytes``,
                            ``ops``: the copies and packing's gather)
 ``afp.serve.drain.wait``   the wait on a chunk's copy (``blocks`` drained)

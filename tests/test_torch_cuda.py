@@ -45,6 +45,8 @@ so run them there without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1603,3 +1605,265 @@ def test_traced_ops_of_the_per_stream_ring(dev):
         m == dict(rows=32, bands=9, taps=pipe.n_casc, samples=32 * 1024,
                   bytes=2 * 32 * 1024) for m in mixes)
     assert sum("fir_ps_kernel" in n for n in ops) == 10
+
+
+# ------------------------------------------- direct landing (the pump's DMA)
+
+_DIRECT_FORMS = {
+    # C5's mega ring (K4), f32 in and out
+    "c5_f32_mega": (dict(upsample_factor=4, numtaps=1001, eq_enabled=False,
+                         cutoff=11000.0), True),
+    # C5's mega ring on 16-bit PCM (K12's megakernel form)
+    "c5_pcm16": (dict(upsample_factor=4, numtaps=1001, eq_enabled=False,
+                      cutoff=11000.0, ingest="pcm16", emit="pcm16"), True),
+    # C8's AGC ring (K5, K6, K7), its chunks replayed from CUDA graphs
+    "c8_agc_graphs": (dict(upsample_factor=2, numtaps=129, eq_enabled=True,
+                           agc_enabled=True, agc_window_size=512,
+                           output_clip=0.99, cutoff=14000.0, ingest="pcm16",
+                           emit="pcm16"), False),
+    # each listener's own EQ gains on the AGC ring (K11 pair-to-ring)
+    "c8_psg": (None, False),
+}
+_DIRECT_B, _DIRECT_T, _DIRECT_N = 256, 1024, 29  # 14 chunks of 2, then 1
+_STALL = 20_000_000  # spin cycles: ~10 ms a stall
+
+
+def _direct_case(dev, form):
+    """(pipeline, params, mega, [n, B, T] input, the mid-serve changes
+    ``{output index: f(server)}``) of a direct-landing form."""
+    from afp_tpu_torch.engine import Pipeline, PipelineParams, StreamConfig
+
+    B, T, n = _DIRECT_B, _DIRECT_T, _DIRECT_N
+    over, mega = _DIRECT_FORMS[form]
+    if over is None:
+        pipe, params = _psg_pipe(dev, B, T, "pcm16", "pcm16")
+        gains = (np.random.default_rng(5).integers(0, 41, (B, 9)) / 10.0
+                 ).astype(np.float32)
+        swapped = params._replace(eq_gains=params.eq_gains.flip(0))
+        changes = {5: lambda srv: srv.swap_params(swapped),
+                   11: lambda srv: srv.set_eq_gains(gains)}
+        return pipe, params, mega, _psg_blocks(n, B, T, "pcm16"), changes
+    cfg = StreamConfig(**{**dict(samplerate=44100, blocksize=T, batch=B,
+                                 downsample_mode="decimate",
+                                 conv_strategy="td_mxu", dither_kind="tpdf"),
+                          **over})
+    pipe = Pipeline(cfg, dev)
+    params = pipe.device_params(PipelineParams.design(pipe.cfg))
+    other = dataclasses.replace(cfg, cutoff=cfg.cutoff * 0.6)
+    retuned = (dataclasses.replace(cfg, agc_target_level=0.2)
+               if cfg.agc_enabled else dataclasses.replace(cfg, cutoff=9000.0))
+    swapped = pipe.device_params(PipelineParams.design(other))
+    changes = {5: lambda srv: srv.swap_params(swapped),
+               11: lambda srv: srv.retune(retuned)}
+    x = _psg_blocks(n, B, T, cfg.ingest, seed=13)
+    return pipe, params, mega, x, changes
+
+
+def _serve_direct(dev, form, monkeypatch, direct, stalls=False,
+                  overwrite=False):
+    """Serve a form's input through one `RingServer`, the caller handing the
+    pump 3 buffers of its own in turn (views of one array), and applying
+    the mid-serve changes; returns (the outputs [n, B, T], the landings
+    that went direct).  `direct` False serves with direct landing off:
+    today's one-stream staging.  `stalls`: a spin kernel on the compute
+    stream before each dispatch and on the landing stream before each
+    landing.  `overwrite`: the caller writes garbage into the buffer it
+    handed over right after the pump's next `next()`, and into all three
+    after each output."""
+    from afp_tpu_torch.runtime import RingServer, serving
+
+    pipe, params, mega, xs, changes = _direct_case(dev, form)
+    with monkeypatch.context() as m:
+        if not direct:
+            m.setattr(serving, "lands_directly", lambda *a: False)
+        srv = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2,
+                         seed=7, mega=mega)
+    assert (srv._land_stream is not None) == direct
+    hits = []
+    land = serving.land
+
+    def counted(*args):
+        ev = land(*args)
+        hits.append(ev is not None)
+        return ev
+
+    monkeypatch.setattr(serving, "land", counted)
+    name = "run_ring_mega" if mega else "run_ring"
+    if stalls:
+        run, land_block = getattr(pipe, name), srv._land
+
+        def stalled(*args, **kwargs):
+            torch.cuda._sleep(_STALL)
+            return run(*args, **kwargs)
+
+        def late_land(slot, block):
+            with torch.cuda.stream(srv._land_stream):
+                torch.cuda._sleep(_STALL)
+            return land_block(slot, block)
+
+        setattr(pipe, name, stalled)
+        srv._land = late_land
+    junk = np.full(xs.shape[1:], np.nan if xs.dtype == np.float32 else 23130,
+                   dtype=xs.dtype)
+    bufs = np.empty((3, *xs.shape[1:]), dtype=xs.dtype)
+
+    def source():
+        for k, x in enumerate(xs):
+            buf = bufs[k % 3]
+            buf[...] = x
+            yield buf
+            if overwrite:
+                buf[...] = junk
+
+    outs = []
+    try:
+        for out in srv.stream(source()):
+            outs.append(out.copy())
+            if overwrite:
+                bufs[...] = junk
+            if len(outs) in changes:
+                changes[len(outs)](srv)
+    finally:
+        if stalls:
+            delattr(pipe, name)
+        srv.close()
+    if direct and form == "c8_agc_graphs":
+        assert srv._graphs.graphed > 0
+    return np.stack(outs), sum(hits)
+
+
+@pytest.mark.parametrize("form", list(_DIRECT_FORMS))
+def test_direct_landing_equals_staged(dev, form, monkeypatch):
+    """Direct landing ≡ today's one-stream staged landing, bit for bit, at
+    C5 f32's mega ring, C5 pcm16's, C8's AGC ring under graph replay and
+    the per-listener ring: with spin kernels stalling the compute stream
+    before each dispatch and the landing stream before each landing, a
+    short final chunk, a `swap_params` and a `retune` (or new per-stream
+    gains) mid-serve, and a caller that overwrites its buffers with garbage
+    right after each `next()` and after each output.  Every block from the
+    fourth on lands directly (the three buffers, views of one array, are
+    each handed again)."""
+    staged, none = _serve_direct(dev, form, monkeypatch, direct=False)
+    plain, hits = _serve_direct(dev, form, monkeypatch, direct=True)
+    busy, busy_hits = _serve_direct(dev, form, monkeypatch, direct=True,
+                                    stalls=True, overwrite=True)
+    print(f"{form}: {staged.shape} {staged.dtype}, direct {hits} and "
+          f"{busy_hits} of {_DIRECT_N}")
+    assert none == 0 and hits == busy_hits == _DIRECT_N - 3
+    assert staged.shape == (_DIRECT_N, _DIRECT_B, staged.shape[-1])
+    assert np.array_equal(plain, staged)
+    assert np.array_equal(busy, staged)
+
+
+def test_direct_count_follows_the_second_sighting(dev):
+    """Under the profiler, a caller cycling three blocks of one array: the
+    first sighting of each block is staged, the second sighting of the
+    first block registers the array once (``afp.h2d.register``, the
+    array's bytes) and lands directly, and so does every later block:
+    ``direct`` on ``afp.serve.land`` counts the blocks landed from the
+    second sighting on, and a direct landing has an ``afp.h2d.copy`` (one
+    counted operation) and an ``afp.h2d.wait``, and no stage or pin span.
+    Fresh arrays each block, and one array walked through once, never land
+    directly."""
+    from afp_tpu_torch.runtime import RingServer
+
+    pipe, params = _psg_pipe(dev, 32, 1024, "pcm16", "pcm16")
+    pool = _psg_blocks(10, 32, 1024, "pcm16")
+    srv = RingServer(pipe, params, slots=12, chunk=4, max_inflight=2, seed=5)
+    list(srv.stream(iter([b.copy() for b in pool])))  # shapes warmed, fresh
+    cycled = [pool[k % 3] for k in range(10)]
+    recs, ops = _traced_device_ops(lambda: list(srv.stream(iter(cycled))))
+    lands = [r for r in recs if r[0] == "afp.serve.land"]
+    kids = {}
+    for r in recs:
+        if r[3] >= 0 and recs[r[3]][0] == "afp.serve.land":
+            kids.setdefault(r[3], []).append(r[0])
+    regs = [r[5] for r in recs if r[0] == "afp.h2d.register"]
+    print(f"direct: {[r[5].get('direct', 0) for r in lands]}, register "
+          f"{regs}, children {[kids.get(recs.index(r)) for r in lands[:3]]}")
+    assert [r[5].get("direct", 0) for r in lands] == [0] * 3 + [1] * 7
+    assert regs == [dict(bytes=pool.nbytes)]
+    for r in lands[3:]:
+        names = kids[recs.index(r)]
+        assert "afp.h2d.wait" in names and "afp.h2d.copy" in names
+        assert "afp.h2d.stage" not in names and "afp.h2d.pin" not in names
+    copies = [r[5] for r in recs if r[0] == "afp.h2d.copy"]
+    assert copies == [dict(bytes=pool[0].nbytes, ops=1)] * 10
+    assert sum(n.startswith("Memcpy HtoD") for n in ops) <= 10
+    for blocks in ([b.copy() for b in pool], pool.copy()):
+        recs, _ = _traced_device_ops(lambda: list(srv.stream(iter(blocks))))
+        assert sum(r[5].get("direct", 0) for r in recs) == 0
+        assert not [r for r in recs if r[0] == "afp.h2d.register"]
+    used = srv._pins.used  # the process's: other servers' too
+    srv.close()
+    assert all(o is not pool for o in srv._pins.held())
+    assert srv._pins.used == used - pool.nbytes
+
+
+def test_failed_registration_stages_and_the_card_goes_on(dev):
+    """Blocks in memory that is page-locked already (a pinned tensor's,
+    handed as NumPy views): registering it fails, so every block is staged,
+    and the runtime's error is not left for a later launch to raise; the
+    outputs are those of the same blocks in pageable memory, landed
+    directly."""
+    from afp_tpu_torch.runtime import RingServer
+
+    pipe, params = _psg_pipe(dev, 32, 1024, "pcm16", "pcm16")
+    pool = _psg_blocks(6, 32, 1024, "pcm16")
+    locked = torch.from_numpy(pool).pin_memory()
+    one = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=5)
+    want = np.stack(list(one.stream(pool[k % 3] for k in range(6))))
+    two = RingServer(pipe, params, slots=8, chunk=2, max_inflight=2, seed=5)
+    got = np.stack(list(two.stream(locked.numpy()[k % 3]
+                                   for k in range(6))))
+    st = locked.untyped_storage()
+    assert all(o is not st for o in two._pins.held())
+    assert two._pins._in(two._pins._refused, st)
+    torch.zeros(4, device=dev).add_(1)
+    torch.cuda.synchronize()
+    assert np.array_equal(got, want)
+    one.close()
+    two.close()
+
+
+def test_two_servers_share_one_registration(dev):
+    """Two live servers over one array: the array is registered once, in
+    the process's cache, and both land its blocks directly; it stays
+    registered until the second server is closed, and both serve the same
+    outputs."""
+    from afp_tpu_torch.runtime import RingServer
+    from afp_tpu_torch.runtime import serving
+
+    pipe, params = _psg_pipe(dev, 32, 1024, "pcm16", "pcm16")
+    pool = _psg_blocks(6, 32, 1024, "pcm16")
+    direct = []
+    land = serving.land
+
+    def counted(*args):
+        ev = land(*args)
+        direct.append(ev is not None)
+        return ev
+
+    servers = [RingServer(pipe, params, slots=8, chunk=2, max_inflight=2,
+                          seed=5) for _ in range(2)]
+    outs = []
+    try:
+        serving.land = counted
+        for srv in servers:
+            outs.append(np.stack(list(srv.stream(pool[k % 3]
+                                                 for k in range(6)))))
+    finally:
+        serving.land = land
+    assert direct == [False] * 3 + [True] * 9
+    assert sum(o is pool for o in _pins_held()) == 1
+    servers[0].close()
+    assert sum(o is pool for o in _pins_held()) == 1
+    servers[1].close()
+    assert all(o is not pool for o in _pins_held())
+    assert np.array_equal(outs[0], outs[1])
+
+
+def _pins_held():
+    from afp_tpu_torch.utils.host_pins import PINS
+
+    return PINS.held()
